@@ -1,0 +1,274 @@
+"""SIPG assembly straight into the banded layout, on torch tensors.
+
+Counterpart of the direct banded path of ``polydeal_tpu/assembly/sipg.py``:
+``build_banded_groups`` pads the face, boundary and cell tables per
+polytope slot on the host, and ``assemble_sipg_banded_direct`` turns them
+into the band with einsums, sums over the padded slots and lane rolls --
+no scatters or gathers.  This is the JAX package's einsum branch
+(``use_pallas=False``); the Pallas block kernels of that module (volume,
+face group and boundary) are not ported yet.
+
+Penalty: gamma = penalty_constant / h_F with penalty_constant =
+10 (p + dim)(p + 1) and h_F the diameter of the smaller-id polytope, as in
+the reference (poly_utils.h:2017-2019, 2057).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from polydeal_tpu_torch.handler import AgglomerationHandler
+from polydeal_tpu_torch.sparse import BlockBanded
+from polydeal_tpu_torch.utils.grouping import padded_group_lists
+
+__all__ = [
+    "default_penalty_constant",
+    "dirichlet_face_mask",
+    "build_banded_groups",
+    "assemble_rhs_direct",
+    "assemble_sipg_banded_direct",
+]
+
+
+def default_penalty_constant(degree: int, dim: int) -> float:
+    """10 (p + dim)(p + 1), cf. reference poly_utils.h:2017-2019."""
+    return 10.0 * (degree + dim) * (degree + 1)
+
+
+def dirichlet_face_mask(ah, dirichlet_ids) -> np.ndarray:
+    """Static bool mask over ah.faces.boundary() rows: True = Dirichlet.
+
+    ``dirichlet_ids=None`` means Dirichlet everywhere; otherwise only faces
+    whose boundary id is listed get the Nitsche terms."""
+    fb = ah.faces.boundary()
+    if dirichlet_ids is None:
+        return np.ones(fb.n_faces, dtype=bool)
+    bid = (fb.boundary_id if fb.boundary_id is not None
+           else np.zeros(fb.n_faces, dtype=np.int32))
+    return np.isin(bid, np.asarray(list(dirichlet_ids)))
+
+
+def build_banded_groups(ah: AgglomerationHandler, offsets: np.ndarray,
+                        dtype=torch.float64, *, device,
+                        dirichlet_ids=None) -> dict:
+    """Slot-padded, entity-last tables: the banded assembly inputs.
+
+    Interior faces are grouped by (offset, poly_in) into [C, q, ..., P]
+    tables (C = most faces one polytope pair contributes), boundary faces
+    and cells by polytope.  Padded slots carry zero weights (and h_f = 1),
+    so they contribute exact zeros.  Only the IN-side unit points are
+    stored: the out side is the same physical points pulled back into the
+    neighbour's box, computed by the assembly.
+
+    Returns a dict of tensors on ``device`` with the same keys as the JAX
+    package's: groups {offset: {w, n, h_f, pts_in}}, bdry, vol {pts, w},
+    ext_t and lo_t [dim, P]."""
+    P = ah.n_poly
+    ft = ah.faces
+    offsets = np.asarray(offsets, dtype=np.int64)
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def face_group(rows: np.ndarray, by: np.ndarray):
+        members, _ = padded_group_lists(by, P) if rows.size else (
+            np.full((P, 1), -1, dtype=np.int64), None)
+        mask = members >= 0
+        safe = np.where(mask, rows[np.maximum(members, 0)], 0)
+        C = members.shape[1]
+        s = safe.reshape(-1)
+        pts = ft.points_in[s].reshape(P, C, *ft.points_in.shape[1:])
+        pts = np.where(mask.reshape(P, C, 1, 1), pts, 0.5)
+        w = ft.weights[s].reshape(P, C, -1)
+        w = np.where(mask[:, :, None], w, 0.0)
+        n = ft.normals[s].reshape(P, C, *ft.normals.shape[1:])
+        h_f = np.where(mask, ft.h_f[safe], 1.0)
+        return dict(
+            w=put(np.transpose(w, (1, 2, 0))),  # [C, q, P]
+            n=put(np.transpose(n, (1, 2, 3, 0))),  # [C, q, d, P]
+            h_f=put(h_f.T),  # [C, P]
+            pts_in=put(np.transpose(pts, (1, 2, 3, 0))),  # [C, q, d, P]
+        )
+
+    interior = ~ft.is_boundary
+    off_of = np.where(interior, ft.poly_out - ft.poly_in, 0)
+    groups = {}
+    for o in (int(o) for o in offsets if o > 0):
+        rows = np.where(interior & (off_of == o))[0]
+        if rows.size:
+            groups[o] = face_group(rows, ft.poly_in[rows])
+    b_rows = np.where(ft.is_boundary)[0][dirichlet_face_mask(ah,
+                                                             dirichlet_ids)]
+    bdry = face_group(b_rows, ft.poly_in[b_rows]) if b_rows.size else None
+
+    # volume: padded cells per polytope, entity-last
+    members = ah.poly2cells  # [P, Cc]
+    maskc = members >= 0
+    s = np.maximum(members, 0).reshape(-1)
+    Cc = members.shape[1]
+    upts = ah.cell_qpoints_unit[s].reshape(
+        P, Cc, *ah.cell_qpoints_unit.shape[1:])
+    upts = np.where(maskc[:, :, None, None], upts, 0.5)
+    wv = ah.cell_qweights[s].reshape(P, Cc, -1)
+    wv = np.where(maskc[:, :, None], wv, 0.0)
+    vol = dict(pts=put(np.transpose(upts, (1, 2, 3, 0))),
+               w=put(np.transpose(wv, (1, 2, 0))))
+    return dict(groups=groups, bdry=bdry, vol=vol,
+                ext_t=put(ah.extents.T), lo_t=put(ah.bbox_lo.T))
+
+
+def assemble_rhs_direct(ah: AgglomerationHandler, tables: dict, f_fn,
+                        g_fn=None, penalty_constant: float | None = None,
+                        basis=None) -> torch.Tensor:
+    """Flat RHS over the slot-padded tables: int f v plus the Dirichlet
+    Nitsche data terms.  ``f_fn``/``g_fn`` map real points [..., dim]
+    tensors to values [...]."""
+    basis = basis or ah.basis
+    if penalty_constant is None:
+        penalty_constant = default_penalty_constant(ah.degree, ah.dim)
+    ext_t, lo_t = tables["ext_t"], tables["lo_t"]
+
+    def real_pts(unit):  # [C, q, d, P] -> [C, q, P, d] real coords
+        r = lo_t[None, None] + unit * ext_t[None, None]
+        return torch.movedim(r, 2, -1)
+
+    vol = tables["vol"]
+    B = basis.eval_t(vol["pts"])  # [C, q, nb, P]
+    fv = f_fn(real_pts(vol["pts"]))  # [C, q, P]
+    r = torch.einsum("cqip,cqp,cqp->ip", B, vol["w"], fv)
+
+    g = tables["bdry"]
+    if g_fn is not None and g is not None:
+        Bb = basis.eval_t(g["pts_in"])
+        Gb = basis.grad_t(g["pts_in"]) / ext_t[None, None, None]
+        gn = torch.einsum("cqidp,cqdp->cqip", Gb, g["n"])
+        gamma = penalty_constant / g["h_f"]  # [C, P]
+        gv = g_fn(real_pts(g["pts_in"]))  # [C, q, P]
+        r = r + torch.einsum(
+            "cqip,cqp,cqp->ip",
+            Bb * gamma[:, None, None, :] - gn, g["w"], gv)
+    return r.T.reshape(-1)
+
+
+def _emit_banded(pieces, offsets, nb, P, layout) -> BlockBanded:
+    """Final banded container from per-offset [nb, nb, P] pieces;
+    ``layout='imajor'`` emits only the i-major copy (rows (i, k, j),
+    8-aligned i-slabs), never materializing the o-major band."""
+    if layout == "imajor":
+        n_off = offsets.shape[0]
+        R = n_off * nb
+        R_pad = -(-R // 8) * 8
+        slabs = []
+        for i in range(nb):
+            slab = torch.cat([pc[i] for pc in pieces], dim=0)
+            if R_pad != R:
+                slab = torch.cat(
+                    [slab, slab.new_zeros((R_pad - R, P))], dim=0)
+            slabs.append(slab)
+        data_i = torch.cat(slabs, dim=0)
+        empty = data_i.new_zeros((n_off, nb, nb, 0))
+        return BlockBanded(data=empty, offsets=offsets, n_block_cols=P,
+                           data_i=data_i)
+    if layout != "omajor":
+        raise ValueError(f"unknown band layout: {layout!r}")
+    return BlockBanded(data=torch.stack(pieces, dim=0), offsets=offsets,
+                       n_block_cols=P)
+
+
+def assemble_sipg_banded_direct(
+    ah: AgglomerationHandler,
+    tables: dict,
+    offsets: np.ndarray,
+    penalty_constant: float | None = None,
+    basis=None,
+    layout: str = "omajor",
+) -> BlockBanded:
+    """Banded SIPG matrix over slot-padded tables (see
+    :func:`build_banded_groups`): einsum, sum over the padded slots and
+    lane rolls, no scatters or gathers.  Sign conventions follow the
+    reference kernel (poly_utils.h:1870-1926); normals point outward from
+    poly_in."""
+    basis = basis or ah.basis
+    if penalty_constant is None:
+        penalty_constant = default_penalty_constant(ah.degree, ah.dim)
+    P, nb = ah.n_poly, ah.n_basis
+    offsets = np.asarray(offsets, dtype=np.int64)
+    ext_t = tables["ext_t"]  # [dim, P]
+    lo_t = tables["lo_t"]  # [dim, P]
+
+    def eval_tables(pts):
+        """pts [C, q, d, P] -> B [C, q, nb, P], G [C, q, nb, d, P]."""
+        return basis.eval_t(pts), basis.grad_t(pts)
+
+    def real_grad(G, ext):  # ext [dim, P]
+        return G / ext[None, None, None, :, :]
+
+    def pts_out_of(g, o, lo, ext):
+        """OUT-side unit points: the in-side physical points pulled back
+        into the neighbour's box (poly_out = poly_in + o, so its box
+        parameters are lane rolls).  Padded/wrapped lanes give finite
+        points whose contributions vanish against zero weights."""
+        x = lo[None, None] + g["pts_in"] * ext[None, None]
+        lo_o = torch.roll(lo, -o, dims=1)
+        ext_o = torch.roll(ext, -o, dims=1)
+        return (x - lo_o[None, None]) / ext_o[None, None]
+
+    def blk(a, b, wgt):
+        return torch.einsum("cqip,cqjp,cqp->ijp", a, b, wgt)
+
+    # volume: sum over padded cells
+    Bv, Gv = eval_tables(tables["vol"]["pts"])
+    Gv = real_grad(Gv, ext_t)
+    diag = torch.einsum("cqidp,cqjdp,cqp->ijp", Gv, Gv, tables["vol"]["w"])
+
+    rows = {int(o): None for o in offsets}
+    for o, g in tables["groups"].items():
+        B0, G0u = eval_tables(g["pts_in"])
+        B1, G1u = eval_tables(pts_out_of(g, o, lo_t, ext_t))
+        # side 0 gradients scale by poly_in extents; side 1 by
+        # poly_out = p + o extents: roll the lanes by -o
+        G0 = real_grad(G0u, ext_t)
+        G1 = real_grad(G1u, torch.roll(ext_t, -o, dims=1))
+        n, w = g["n"], g["w"]
+        gamma = penalty_constant / g["h_f"]  # [C, P]
+        gn0 = torch.einsum("cqidp,cqdp->cqip", G0, n)
+        gn1 = torch.einsum("cqidp,cqdp->cqip", G1, n)
+        wg = w * gamma[:, None, :]
+        m11 = (-0.5 * blk(gn0, B0, w) - 0.5 * blk(B0, gn0, w)
+               + blk(B0, B0, wg))
+        m12 = (0.5 * blk(gn0, B1, w) - 0.5 * blk(B0, gn1, w)
+               - blk(B0, B1, wg))
+        m21 = (-0.5 * blk(gn1, B0, w) + 0.5 * blk(B1, gn0, w)
+               - blk(B1, B0, wg))
+        m22 = (0.5 * blk(gn1, B1, w) + 0.5 * blk(B1, gn1, w)
+               + blk(B1, B1, wg))
+        diag = diag + m11 + torch.roll(m22, o, dims=-1)
+        rows[o] = m12 if rows[o] is None else rows[o] + m12
+        m21r = torch.roll(m21, o, dims=-1)
+        rows[-o] = m21r if rows[-o] is None else rows[-o] + m21r
+
+    diag = diag + _boundary_band(ah, tables, penalty_constant, basis, ext_t,
+                                 nb, P)
+    zero = diag.new_zeros((nb, nb, P))
+    pieces = [diag if o == 0 else (rows[int(o)] if rows[int(o)] is not None
+                                   else zero)
+              for o in offsets]
+    return _emit_banded(pieces, offsets, nb, P, layout)
+
+
+def _boundary_band(ah, tables, penalty_constant, basis, ext_t, nb, P):
+    """Boundary Nitsche contribution to the diagonal band row (counterpart
+    of ``_boundary_band_xla``): full-weight terms, poly_utils.h:2065-2082."""
+    if tables["bdry"] is None:
+        return tables["vol"]["w"].new_zeros((nb, nb, P))
+    g = tables["bdry"]
+    Bb = basis.eval_t(g["pts_in"])
+    Gb = basis.grad_t(g["pts_in"]) / ext_t[None, None, None, :, :]
+    n, w = g["n"], g["w"]
+    gamma = penalty_constant / g["h_f"]
+    gnb = torch.einsum("cqidp,cqdp->cqip", Gb, n)
+    wg = w * gamma[:, None, :]
+    return (-torch.einsum("cqip,cqjp,cqp->ijp", Bb, gnb, w)
+            - torch.einsum("cqip,cqjp,cqp->ijp", gnb, Bb, w)
+            + torch.einsum("cqip,cqjp,cqp->ijp", Bb, Bb, wg))

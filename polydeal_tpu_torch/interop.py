@@ -1,0 +1,58 @@
+"""Carry the JAX package's objects, given as numpy arrays, into the port.
+
+The two packages share layouts on purpose: a band, its i-major copy, the
+slot-padded assembly tables and the transfer embeddings are the same
+arrays in both.  These helpers build the port's objects from those
+arrays, so tests can run both packages on the same band and tables.
+Nothing here imports jax: the caller converts with ``np.asarray``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from polydeal_tpu_torch.solvers.multigrid import Transfer
+from polydeal_tpu_torch.sparse import BlockBanded
+
+__all__ = ["banded_from_arrays", "groups_from_arrays",
+           "transfer_from_arrays"]
+
+
+def _t(a, device):
+    # a copy: arrays from jax are read-only views
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def banded_from_arrays(data, offsets, n_block_cols: int, data_i=None, *,
+                       device) -> BlockBanded:
+    """BlockBanded from a JAX band's ``data`` [n_off, nb, nb, P] (possibly
+    zero-length when its o-major copy was dropped), ``offsets``,
+    ``n_block_cols`` and optional i-major ``data_i`` [nb * R_pad, P]."""
+    return BlockBanded(
+        data=_t(data, device), offsets=np.asarray(offsets),
+        n_block_cols=int(n_block_cols),
+        data_i=None if data_i is None else _t(data_i, device))
+
+
+def groups_from_arrays(groups: dict, *, device) -> dict:
+    """The ``build_banded_groups`` dict (nested dicts of arrays, ``bdry``
+    possibly None) with every array as a tensor on ``device``."""
+    def conv(v):
+        if v is None:
+            return None
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return _t(v, device)
+
+    return conv(groups)
+
+
+def transfer_from_arrays(E, parent, n_coarse: int, grid_shape=None, *,
+                         device) -> Transfer:
+    """Transfer from a JAX ``Transfer``'s ``E`` [P_f, nb, nb] and
+    ``parent`` map (plus its ``grid_shape``, if any)."""
+    return Transfer(E=_t(E, device), parent=np.asarray(parent),
+                    n_coarse=int(n_coarse),
+                    grid_shape=None if grid_shape is None
+                    else tuple(grid_shape))

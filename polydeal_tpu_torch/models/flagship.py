@@ -1,0 +1,134 @@
+"""The flagship solve: 3D SIPG Poisson on an R-tree hierarchy, R3MG-
+preconditioned CG.
+
+Counterpart of ``bench_poisson("rtree", ...)`` in the repo's ``bench.py``,
+without its timing harness.  Defaults are the flagship configuration:
+p=1 on ``hyper_cube(3, 64)`` (262,144 cells, 1,048,576 DoF), an R-tree
+hierarchy with the ``lex`` relabel trimmed to the 3 extraction levels
+below the fine DG level (grid-reshape transfers where detected), the fine
+band assembled directly, degree-5 Chebyshev smoothing with one sweep on
+bf16 band copies, an explicit-inverse coarse solve, and CG to rtol 1e-8
+from a full-multigrid start.
+
+Usage::
+
+    fs = setup_flagship(n=64, device=torch.device("cuda"))
+    res = solve_flagship(fs)
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from polydeal_tpu_torch.agglomeration.rtree import RTreeAgglomerator
+from polydeal_tpu_torch.assembly.sipg import (
+    assemble_rhs_direct,
+    assemble_sipg_banded_direct,
+    build_banded_groups,
+)
+from polydeal_tpu_torch.mesh.fine_mesh import hyper_cube
+from polydeal_tpu_torch.solvers import multigrid
+from polydeal_tpu_torch.solvers.cg import CGResult
+
+__all__ = ["Flagship", "setup_flagship", "solve_flagship"]
+
+# the flagship configuration (bench.py's defaults)
+TRIM = 3  # extraction levels kept below the fine DG level
+RELABEL = "lex"
+CHEBYSHEV_DEGREE = 5
+N_SMOOTH = 1
+SMOOTHING_RANGE = 20.0
+
+
+@dataclass
+class Flagship:
+    handlers: list
+    mg: multigrid.Multigrid
+    b: torch.Tensor  # flat fine-level rhs
+    band_offsets: np.ndarray
+    grid_shapes: list | None
+    setup_phases: dict  # seconds: hierarchy, groups, assemble0, mg_setup
+
+    @property
+    def n_dofs(self) -> int:
+        return self.handlers[-1].n_dofs
+
+    @property
+    def level_sizes(self) -> list:
+        return [h.n_poly for h in self.handlers]
+
+
+def setup_flagship(
+    n: int = 64,
+    degree: int = 1,
+    *,
+    device: torch.device,
+    dtype=torch.float32,
+    precond_dtype=torch.bfloat16,
+    coarse_solver: str = "inv",
+) -> Flagship:
+    """Build the hierarchy, the tables, the fine band, the rhs and the
+    multigrid on ``device``.
+
+    Float32 products stay full float32: TF32 would corrupt the f32 einsum
+    assembly and the transfers, so it is switched off here for the
+    process."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+    dim = 3
+    t0 = time.perf_counter()
+    mesh = hyper_cube(dim, n)
+    agg = RTreeAgglomerator.build(mesh.cell_centers())
+    lv0 = max(1, agg.n_levels - 1 - TRIM)
+    handlers, parents = multigrid.build_rtree_hierarchy(
+        mesh, agg, list(range(lv0, agg.n_levels - 1)), degree=degree,
+        relabel=RELABEL)
+    grid_shapes = multigrid.detect_grid_shapes(handlers, parents)
+    ah = handlers[-1]
+    t_hier = time.perf_counter() - t0
+
+    ft = ah.faces
+    interior = ~ft.is_boundary
+    diffs = (ft.poly_out - ft.poly_in)[interior].astype(np.int64)
+    band_offsets = np.unique(np.concatenate(
+        [diffs, -diffs, np.zeros(1, dtype=np.int64)]))
+    t1 = time.perf_counter()
+    groups = build_banded_groups(ah, band_offsets, dtype, device=device)
+    sync()
+    t_groups = time.perf_counter() - t1
+
+    t2 = time.perf_counter()
+    A0 = assemble_sipg_banded_direct(ah, groups, offsets=band_offsets)
+    u_ex = lambda x: torch.prod(torch.sin(math.pi * x), dim=-1)
+    f = lambda x: dim * math.pi**2 * u_ex(x)
+    b = assemble_rhs_direct(ah, groups, f, u_ex)
+    del groups
+    sync()
+    t_asm0 = time.perf_counter() - t2
+
+    t3 = time.perf_counter()
+    mg = multigrid.build_multigrid(
+        handlers, parents, A0, chebyshev_degree=CHEBYSHEV_DEGREE,
+        n_smooth=N_SMOOTH, smoothing_range=SMOOTHING_RANGE,
+        grid_shapes=grid_shapes, precond_dtype=precond_dtype, dtype=dtype,
+        coarse_solver=coarse_solver, device=device)
+    sync()
+    t_mg = time.perf_counter() - t3
+    return Flagship(
+        handlers=handlers, mg=mg, b=b, band_offsets=band_offsets,
+        grid_shapes=grid_shapes,
+        setup_phases=dict(hierarchy=t_hier, groups=t_groups,
+                          assemble0=t_asm0, mg_setup=t_mg))
+
+
+def solve_flagship(fs: Flagship, rtol: float = 1e-8, fmg: bool = True,
+                   maxiter: int = 100) -> CGResult:
+    """R3MG-preconditioned CG on the flagship system."""
+    return fs.mg.solve_cg(fs.b, rtol=rtol, maxiter=maxiter, fmg=fmg)

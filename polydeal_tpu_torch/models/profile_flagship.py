@@ -1,0 +1,164 @@
+"""Where the flagship solve's time goes on a CUDA card.
+
+Run from the root of a checkout, on a machine with a CUDA card::
+
+    python -m polydeal_tpu_torch.models.profile_flagship
+
+Sets the flagship (n=64, p=1) up on ``cuda:0`` and measures, in one
+process:
+
+* warm solves on the host clock (synchronised): two warm-ups, then
+  five timed solves;
+* parts by CUDA events, 20 calls each: one V-cycle (the CG
+  preconditioner), one fine-level SpMV (the CG operator), one FMG guess;
+* one traced warm solve under ``torch.profiler``: the device's busy time
+  (the union of its kernel, copy and fill intervals) over the solve's span
+  in the same trace, hence the busy and idle shares; and the device
+  operations by total time.  The profiler slows the host's dispatch, so
+  the traced solve is slower than the untimed ones and its idle share is
+  an upper bound for them.
+
+Prints the card and a table, and last one JSON object with every number.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import time
+
+import torch
+
+__all__ = ["busy_us", "traced_span", "device_intervals", "main"]
+
+_LABEL = "flagship_solve"  # the traced solve's record_function range
+N = 64
+REPEATS = 5
+
+
+def busy_us(intervals, lo: float, hi: float) -> float:
+    """Length of the union of the [start, end) ``intervals`` clipped to
+    [lo, hi]: the time at least one of them was running."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((max(s, lo), min(e, hi)) for s, e in intervals):
+        if e <= s:
+            continue
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def traced_span(events, label: str) -> tuple:
+    """(start_us, end_us) of the host-side ``record_function`` range
+    ``label`` in a profiler trace; it must occur once."""
+    span = [e for e in events if e.name == label
+            and e.device_type == torch.autograd.DeviceType.CPU]
+    if len(span) != 1:
+        raise RuntimeError(f"{len(span)} ranges {label!r} in the trace")
+    return span[0].time_range.start, span[0].time_range.end
+
+
+def device_intervals(events, label: str):
+    """(name, start_us, end_us) of every device-side event of a profiler
+    trace (kernels, copies, fills), leaving out the device-side copy of
+    the ``record_function`` range ``label``, which spans them all."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in events if e.device_type == cuda and e.name != label]
+
+
+def _cuda_ms(fn, reps: int = 20) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    from polydeal_tpu_torch.models.flagship import (setup_flagship,
+                                                    solve_flagship)
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_flagship: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+
+    fs = setup_flagship(n=N, device=dev)
+    mg = fs.mg
+    nb = mg.ells[-1].n_basis
+    bt = fs.b.reshape(-1, nb).T.contiguous()
+
+    def solve():
+        res = solve_flagship(fs)
+        torch.cuda.synchronize()
+        return res
+
+    for _ in range(2):
+        solve()
+    walls = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        res = solve()
+        walls.append(time.perf_counter() - t0)
+    parts = dict(v_cycle_ms=_cuda_ms(lambda: mg.v_cycle(fs.b)),
+                 fine_spmv_ms=_cuda_ms(lambda: mg.ells[-1].matvec_t(bt)),
+                 fmg_ms=_cuda_ms(lambda: mg.fmg_guess(bt)))
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function(_LABEL):
+            solve()
+    events = prof.events()
+    lo, hi = traced_span(events, _LABEL)
+    dev_ev = device_intervals(events, _LABEL)
+    if not dev_ev:
+        raise RuntimeError("the trace holds no device events")
+    busy = busy_us([(s, e) for _, s, e in dev_ev], lo, hi)
+    by_name = {}
+    for name, s, e in dev_ev:
+        c, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (c + 1, t + (e - s))
+    dev_sum = sum(t for _, t in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+
+    out = dict(
+        card=smi, n=N, n_dofs=fs.n_dofs, levels=fs.level_sizes,
+        iterations=res.iterations,
+        setup_phases_s=fs.setup_phases,
+        warm_solve_s=walls, warm_solve_median_s=statistics.median(walls),
+        **parts,
+        traced_solve_ms=(hi - lo) / 1e3, traced_busy_ms=busy / 1e3,
+        traced_device_sum_ms=dev_sum / 1e3,
+        traced_busy_share=busy / (hi - lo),
+        traced_idle_share=1.0 - busy / (hi - lo),
+        device_ops=[dict(name=n[:100], count=c, ms=t / 1e3,
+                         share=t / dev_sum) for n, (c, t) in top])
+    print(f"{'device op (first 70 chars)':70s} {'count':>6s} {'ms':>9s} "
+          f"{'share':>6s}")
+    for d in out["device_ops"]:
+        print(f"{d['name'][:70]:70s} {d['count']:6d} {d['ms']:9.3f} "
+              f"{d['share']:6.1%}")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,28 @@
+from polydeal_tpu_torch.solvers.cg import CGResult, cg_solve
+from polydeal_tpu_torch.solvers.chebyshev import (
+    ChebyshevSmoother,
+    estimate_lambda_max,
+)
+from polydeal_tpu_torch.solvers.multigrid import (
+    Multigrid,
+    Transfer,
+    build_embedding,
+    build_multigrid,
+    build_rtree_hierarchy,
+    detect_grid_shapes,
+    relabel_band_minimizing,
+)
+
+__all__ = [
+    "CGResult",
+    "cg_solve",
+    "ChebyshevSmoother",
+    "estimate_lambda_max",
+    "Multigrid",
+    "Transfer",
+    "build_embedding",
+    "build_multigrid",
+    "build_rtree_hierarchy",
+    "detect_grid_shapes",
+    "relabel_band_minimizing",
+]

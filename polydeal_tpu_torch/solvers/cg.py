@@ -1,0 +1,64 @@
+"""Preconditioned conjugate gradients on torch tensors.
+
+Counterpart of ``polydeal_tpu/solvers/cg.py`` ``cg_solve``.  The JAX
+version is one ``lax.while_loop``; here it is a Python loop whose only
+host synchronisation per iteration is the norm test.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+__all__ = ["cg_solve", "CGResult"]
+
+
+class CGResult(NamedTuple):
+    x: torch.Tensor
+    iterations: int
+    residual: torch.Tensor  # final |r|_2 (0-dim, on the device)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def cg_solve(
+    A: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    M: Callable | None = None,
+    rtol: float = 1e-9,
+    atol: float = 0.0,
+    maxiter: int = 1000,
+) -> CGResult:
+    """Preconditioned CG on A x = b; A and M are linear callables.
+
+    Stops when |r| <= max(rtol*|b|, atol), or after ``maxiter``
+    iterations."""
+    if M is None:
+        M = lambda r: r
+    if x0 is None:  # zero guess: r0 = b, no operator apply needed
+        x = torch.zeros_like(b)
+        r = b
+    else:
+        x = x0
+        r = b - A(x0)
+    z = M(r)
+    p = z
+    rz = _dot(r, z)
+    tol = max(rtol * float(torch.linalg.vector_norm(b)), atol)
+    k = 0
+    while k < maxiter and float(torch.linalg.vector_norm(r)) > tol:
+        Ap = A(p)
+        alpha = rz / _dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = _dot(r, z)
+        beta = rz_new / rz
+        p = z + beta * p
+        rz = rz_new
+        k += 1
+    return CGResult(x=x, iterations=k, residual=torch.linalg.vector_norm(r))

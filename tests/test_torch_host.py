@@ -1,0 +1,165 @@
+"""The port's jax-free host copies against the JAX package's originals.
+
+Mesh, R-tree, handler arrays, the lex-relabelled hierarchy, grid-shape
+detection and the slot-padded banded tables must be EXACTLY equal: the
+port's host modules are copies that differ only in their imports.  Also
+checks that the port imports neither jax nor the JAX package.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+import polydeal_tpu as pd  # noqa: E402
+import polydeal_tpu_torch as tpd  # noqa: E402
+from polydeal_tpu.agglomeration import RTreeAgglomerator  # noqa: E402
+from polydeal_tpu.assembly.sipg import build_banded_groups  # noqa: E402
+from polydeal_tpu.solvers import (  # noqa: E402
+    build_rtree_hierarchy,
+    detect_grid_shapes,
+)
+from polydeal_tpu_torch.agglomeration import (  # noqa: E402
+    RTreeAgglomerator as TRTreeAgglomerator,
+)
+from polydeal_tpu_torch.assembly.sipg import (  # noqa: E402
+    build_banded_groups as t_build_banded_groups,
+)
+from polydeal_tpu_torch.solvers import multigrid as tmg  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MESHES = {
+    "cube3d_8": lambda m: m.hyper_cube(3, 8),
+    "square2d_16": lambda m: m.hyper_cube(2, 16),
+    "distorted2d_8": lambda m: m.distort_random(m.hyper_cube(2, 8), 0.15,
+                                                seed=4),
+}
+
+
+def _meshes(name):
+    return MESHES[name](pd), MESHES[name](tpd)
+
+
+def _eq(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_mesh_equal(name):
+    m, t = _meshes(name)
+    assert _eq(m.vertices, t.vertices) and _eq(m.cells, t.cells)
+    assert _eq(m.neighbors, t.neighbors)
+    assert _eq(m.cell_centers(), t.cell_centers())
+    for a, b in zip(m.volume_quadrature(2), t.volume_quadrature(2)):
+        assert _eq(a, b)
+    for a, b in zip(m.face_quadrature(2), t.face_quadrature(2)):
+        assert _eq(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_rtree_equal(name):
+    m, t = _meshes(name)
+    a = RTreeAgglomerator.build(m.cell_centers())
+    b = TRTreeAgglomerator.build(t.cell_centers())
+    assert a.n_levels == b.n_levels
+    for lv in range(a.n_levels + 1):  # past the leaves clamps
+        assert _eq(a.extract_agglomerates(lv), b.extract_agglomerates(lv))
+
+
+@pytest.mark.parametrize("degree", [1, 2])
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_handler_equal(name, degree):
+    m, t = _meshes(name)
+    c2p = RTreeAgglomerator.build(m.cell_centers()).extract_agglomerates(2)
+    ha = pd.AgglomerationHandler(m, c2p, degree=degree)
+    hb = tpd.AgglomerationHandler(t, c2p, degree=degree)
+    assert ha.n_poly == hb.n_poly and ha.n_basis == hb.n_basis
+    for attr in ("cell2poly", "poly2cells", "poly_n_cells", "bbox_lo",
+                 "bbox_hi", "extents", "diameters", "volumes",
+                 "cell_qpoints_real", "cell_qpoints_unit", "cell_qweights"):
+        assert _eq(getattr(ha, attr), getattr(hb, attr)), attr
+    for attr in ("poly_in", "poly_out", "points_real", "points_in",
+                 "points_out", "weights", "normals", "h_f", "boundary_id"):
+        assert _eq(getattr(ha.faces, attr), getattr(hb.faces, attr)), attr
+
+
+def _hierarchies(name, degree=1):
+    m, t = _meshes(name)
+    agg = RTreeAgglomerator.build(m.cell_centers())
+    tagg = TRTreeAgglomerator.build(t.cell_centers())
+    levels = list(range(1, agg.n_levels - 1))
+    ha, pa = build_rtree_hierarchy(m, agg, levels, degree=degree,
+                                   relabel="lex")
+    hb, pb = tmg.build_rtree_hierarchy(t, tagg, levels, degree=degree,
+                                       relabel="lex")
+    return ha, pa, hb, pb
+
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_hierarchy_and_grid_shapes_equal(name):
+    ha, pa, hb, pb = _hierarchies(name)
+    assert len(ha) == len(hb) and len(pa) == len(pb)
+    for a, b in zip(ha, hb):
+        assert _eq(a.cell2poly, b.cell2poly)
+    for a, b in zip(pa, pb):
+        assert _eq(a, b)
+    ga, gb = detect_grid_shapes(ha, pa), tmg.detect_grid_shapes(hb, pb)
+    assert ga == gb
+    if name != "distorted2d_8":
+        assert ga is not None  # lex levels of a uniform grid are grids
+
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_banded_groups_equal(name):
+    ha, _, hb, _ = _hierarchies(name)
+    for a, b in zip(ha, hb):
+        ft = a.faces
+        interior = ~ft.is_boundary
+        diffs = (ft.poly_out - ft.poly_in)[interior].astype(np.int64)
+        offs = np.unique(np.concatenate([diffs, -diffs, np.zeros(1, int)]))
+        ga = build_banded_groups(a, offs, jnp.float64)
+        gb = t_build_banded_groups(b, offs, torch.float64,
+                                   device=torch.device("cpu"))
+        assert sorted(ga["groups"]) == sorted(gb["groups"])
+        assert (ga["bdry"] is None) == (gb["bdry"] is None)
+        pairs = [(ga["vol"], gb["vol"]), (ga["bdry"] or {}, gb["bdry"] or {})]
+        pairs += [(ga["groups"][o], gb["groups"][o]) for o in ga["groups"]]
+        pairs += [({"e": ga["ext_t"], "l": ga["lo_t"]},
+                   {"e": gb["ext_t"], "l": gb["lo_t"]})]
+        for da, db in pairs:
+            assert sorted(da) == sorted(db)
+            for k in da:
+                assert _eq(np.asarray(da[k]), db[k].numpy()), k
+
+
+def test_port_never_imports_jax():
+    """``import polydeal_tpu_torch`` plus a full small flagship solve leave
+    jax and the JAX package out of sys.modules."""
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import polydeal_tpu_torch\n"
+        "import polydeal_tpu_torch.models.profile_flagship\n"
+        "from polydeal_tpu_torch.models.flagship import (setup_flagship,\n"
+        "                                                solve_flagship)\n"
+        "fs = setup_flagship(n=4, device=torch.device('cpu'),\n"
+        "                    dtype=torch.float64, precond_dtype=None)\n"
+        "res = solve_flagship(fs)\n"
+        "assert res.iterations > 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'polydeal_tpu')]\n"
+        "print('BAD', bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout

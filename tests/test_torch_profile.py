@@ -1,0 +1,38 @@
+"""The trace arithmetic of ``polydeal_tpu_torch.models.profile_flagship``.
+
+The profile itself needs a card; its busy-time union and its reading of a
+profiler trace are checked here on the CPU.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from polydeal_tpu_torch.models import profile_flagship as pf  # noqa: E402
+
+
+@pytest.mark.parametrize("intervals, lo, hi, want", [
+    ([], 0.0, 10.0, 0.0),
+    ([(1.0, 3.0), (5.0, 6.0)], 0.0, 10.0, 3.0),  # disjoint
+    ([(1.0, 4.0), (2.0, 3.0), (3.5, 6.0)], 0.0, 10.0, 5.0),  # nested, chained
+    ([(4.0, 5.0), (1.0, 2.0), (2.0, 3.0)], 0.0, 10.0, 3.0),  # unsorted, touching
+    ([(-2.0, 1.0), (9.0, 12.0), (20.0, 30.0)], 0.0, 10.0, 2.0),  # clipped
+])
+def test_busy_us_is_the_union_length(intervals, lo, hi, want):
+    assert pf.busy_us(intervals, lo, hi) == pytest.approx(want)
+
+
+def test_trace_reading_on_cpu():
+    """The traced range is found once, on the CPU side, and a CPU-only
+    trace holds no device intervals."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function(pf._LABEL):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    events = prof.events()
+    lo, hi = pf.traced_span(events, pf._LABEL)
+    assert hi > lo
+    assert pf.device_intervals(events, pf._LABEL) == []
+    with pytest.raises(RuntimeError):
+        pf.traced_span(events, "no_such_range")
