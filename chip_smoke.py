@@ -9,21 +9,30 @@ Phases (each must pass; nothing falls back to the CPU):
   2. build the CUDA kernels from polydeal_tpu_torch/csrc/;
   3. check K1 (banded SpMV) and K2 (fused Chebyshev step/residual, all
      three modes) against their plain PyTorch versions at the flagship's
-     fine-level shapes, for f32, bf16 and f64 bands, and time both;
+     fine-level shapes, for f32, bf16 and f64 bands, and time both, beside
+     a torch.sparse CSR product of the same band (K1's library yardstick);
+     check K3-K5 (volume, face group and boundary SIPG blocks) against
+     their plain versions on seeded tables at the flagship's fine-level
+     shapes (p=1, C=1), at a coarse level's (C>1) and at p=2 (nb=10), in
+     f32 and f64, and time both;
   4. a small f64 flagship solve (n=16, every level on the kernels) on the
      card against the same solve on the CPU;
   5. the flagship R3MG Poisson solve at n=64, p=1 (1,048,576 DoF) on the
-     card, which must reach rtol 1e-8 in 18-22 CG iterations through K1
-     and K2.
+     card, set up through K3-K5 on every level, which must reach rtol 1e-8
+     in 18-22 CG iterations through K1 and K2; then K3-K5 against their
+     plain versions on every level's real f32 tables, timed per level.
 Prints the card, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}.
 """
 
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -32,6 +41,24 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 NB, P_FINE = 4, 64**3
 OFFSETS_FINE = (-4096, -64, -1, 0, 1, 64, 4096)
 TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float64": 1e-12}
+# K3-K5: the bound the JAX package holds its Pallas assembly to in f32
+# (tests/test_ops.py:182); f64 sums differ by rounding only
+SIPG_TOL = {"float32": 2e-5, "float64": 1e-12}
+
+# NVIDIA's H100 SXM data sheet: HBM rate and peak rates outside the tensor
+# cores, for the bound (least time) of each kernel's work
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+
+# seeded SIPG tables at the shapes the flagship gives K3-K5 (p=1, 3D, with
+# the lex relabel): (dim, degree, P, (C, q) of the volume, face and boundary
+# groups, a face offset).  "fine" is the 64^3 level, "coarse" the 4096-lane
+# level (C > 1), "p2" the 32768-lane level's shapes at p=2 (nb=10).
+SIPG_SHAPES = {
+    "fine": (3, 1, 64**3, (1, 8), (1, 4), (3, 4), 64),
+    "coarse": (3, 1, 4096, (64, 8), (16, 4), (48, 4), 16),
+    "p2": (3, 2, 32768, (8, 27), (4, 9), (12, 9), 32),
+}
 
 
 def fail(msg: str) -> None:
@@ -43,29 +70,93 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def events_ms(torch, fn, reps):
+    """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def time_pair(torch, kernel, plain, reps=50):
     """Mean ms per call of kernel and plain version, in turns (plain,
-    kernel, kernel, plain), by CUDA events over ``reps`` calls."""
-    def run(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
+    kernel, kernel, plain), after one warm-up each."""
     kernel()
     plain()
     torch.cuda.synchronize()
-    p1, k1, k2, p2 = run(plain), run(kernel), run(kernel), run(plain)
+    p1, k1, k2, p2 = (events_ms(torch, f, reps)
+                      for f in (plain, kernel, kernel, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def time_one(torch, fn, reps=50):
+    """Mean ms per call of ``fn``, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    return events_ms(torch, fn, reps)
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    """(least ms, what bounds it): the bytes the work must move over the
+    HBM rate, or its operations over the peak rate of ``dtype``."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def csr_of_band(torch, data_i, offsets, nb, R_pad, P):
+    """The i-major band as a torch.sparse CSR matrix on flat (p, i) rows
+    and (p + o, j) columns, dropping blocks whose column leaves [0, P)."""
+    dev = data_i.device
+    n_off = len(offsets)
+    D = data_i.view(nb, R_pad, P)[:, :n_off * nb].reshape(nb, n_off, nb, P)
+    i = torch.arange(nb, device=dev).view(nb, 1, 1, 1)
+    j = torch.arange(nb, device=dev).view(1, 1, nb, 1)
+    o = torch.tensor(offsets, device=dev).view(1, n_off, 1, 1)
+    p = torch.arange(P, device=dev).view(1, 1, 1, P)
+    q = p + o
+    mask = ((q >= 0) & (q < P)).expand(nb, n_off, nb, P)
+    rows = (p * nb + i).expand_as(mask)[mask]
+    cols = (q * nb + j).expand_as(mask)[mask]
+    with warnings.catch_warnings():  # "CSR support is in beta state"
+        warnings.simplefilter("ignore", UserWarning)
+        A = torch.sparse_coo_tensor(torch.stack([rows, cols]), D[mask],
+                                    (P * nb, P * nb), check_invariants=False)
+        return A.coalesce().to_sparse_csr()
+
+
+def ptxas_summary(build_log: str) -> list:
+    """One line per compiled kernel: its name (form, type, dim, degree for
+    the SIPG kernels), registers, and the stack and spill report."""
+    out, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            f = (re.search(r"(Volume|Boundary|Face)FormI([fd])Li(\d)ELi(\d)E",
+                           name)
+                 or re.search(r"\d+(\w+_kernel)I(\w+?)EEv", name))
+            if f:
+                name = "<".join(f.groups()[:2]) + "".join(
+                    f", {g}" for g in f.groups()[2:]) + ">"
+            continue
+        if "spill" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers; {spill}")
+            name = None
+    return out
+
+
 def check_kernels(torch, dev):
-    """Phase 3: K1/K2 against their plain versions; returns per-kernel
-    (max_abs_err, ms, plain_ms) at the main path's dtypes."""
+    """Phase 3, K1/K2: against their plain versions; returns per-kernel
+    results at the main path's dtypes (K1 on the f32 CG operator, K2 on
+    the bf16 smoother copies)."""
     from polydeal_tpu_torch.ops import (
         banded_cheb_step_t, banded_cheb_step_t_ref, banded_matvec_t_imajor,
         banded_matvec_t_imajor_ref, banded_residual_t, banded_residual_t_ref)
@@ -79,7 +170,7 @@ def check_kernels(torch, dev):
         return torch.randn(*shape, generator=gen, device=dev,
                            dtype=torch.float64).to(dtype)
 
-    out = {"K1": [0.0, None, None], "K2": [0.0, None, None]}
+    out = {k: dict(max_abs_err=0.0) for k in ("K1", "K2")}
 
     def record(name, label, got, ref, tol):
         got = got if isinstance(got, tuple) else (got,)
@@ -93,8 +184,10 @@ def check_kernels(torch, dev):
             if not rel <= tol:
                 fail(f"{name} {label} disagrees with its plain version: "
                      f"rel {rel:.3e} > {tol:g}")
-            out[name][0] = max(out[name][0], err)
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
 
+    band = n_off * NB * NB * P_FINE  # band entries read per call
+    vec = NB * P_FINE  # entries of one vector
     for dname, ddt, vdt in (("float32", torch.float32, torch.float32),
                             ("bfloat16", torch.bfloat16, torch.float32),
                             ("float64", torch.float64, torch.float64)):
@@ -126,14 +219,176 @@ def check_kernels(torch, dev):
         ms2, pms2 = time_pair(torch, *cases["step"])
         log(f"  {dname} band: K1 {ms1:.4f} ms (plain {pms1:.4f} ms); "
             f"K2 step {ms2:.4f} ms (plain {pms2:.4f} ms)")
-        # the main path runs K1 on the f32 CG operator and K2 on the bf16
-        # smoother copies
+        esz, vsz = data_i.element_size(), x.element_size()
         if dname == "float32":
-            out["K1"][1:] = [ms1, pms1]
+            # K1's library yardstick: the same band as a CSR matrix times x
+            A = csr_of_band(torch, data_i, OFFSETS_FINE, NB, R_pad, P_FINE)
+            xf = x.T.contiguous().view(-1)
+            lib = lambda: torch.mv(A, xf)
+            yl = lib().view(P_FINE, NB).T
+            err = float((yl - k1()).abs().max()) / float(yl.abs().max())
+            if not err <= tol:
+                fail(f"CSR product disagrees with K1: rel {err:.3e}")
+            lms = time_one(torch, lib)
+            log(f"  K1 library yardstick (torch.sparse CSR, nnz "
+                f"{A.values().numel()}): {lms:.4f} ms, rel diff {err:.3e}")
+            del A, xf
+            b_ms, b_by = bound(band * esz + 2 * vec * vsz, 2 * band, dname)
+            out["K1"].update(ms=ms1, plain_ms=pms1, library_ms=lms,
+                             bound_ms=b_ms, bound_by=b_by)
         if dname == "bfloat16":
-            out["K2"][1:] = [ms2, pms2]
+            # reads the band and x, b, d, dinv; writes x', d'
+            b_ms, b_by = bound(band * esz + 6 * vec * vsz,
+                               2 * band + 6 * vec, "float32")
+            out["K2"].update(ms=ms2, plain_ms=pms2, library_ms=None,
+                             bound_ms=b_ms, bound_by=b_by)
         del data_i, x, b, d, dinv
     return out
+
+
+def sipg_tables(torch, dev, dtype, dim, P, groups, gen):
+    """Seeded tables: unit points in [0, 1), normals, positive weights,
+    face diameters and extents, box origins; one group per (C, q)."""
+    def r(*shape):
+        return torch.rand(*shape, generator=gen, device=dev,
+                          dtype=torch.float64).to(dtype)
+
+    out = [dict(pts_in=r(C, q, dim, P), n=r(C, q, dim, P) - 0.5,
+                w=r(C, q, P), h_f=0.5 + r(C, P)) for C, q in groups]
+    return out, 0.5 + r(dim, P), r(dim, P)
+
+
+def sipg_work(kind, dim, degree, C, q, P, esz):
+    """(bytes, operations) of one K3/K4/K5 call: every input read once and
+    every output written once; operations as the kernel counts them per
+    quadrature point (basis and normal derivatives per side, then each
+    block entry)."""
+    nb = math.comb(degree + dim, dim)
+    legendre = dim * (2 + 7 * (degree - 1) + 2 * (degree + 1))
+    grad = legendre + nb * dim * dim  # real gradients
+    side = grad + nb * (dim - 1) + nb * (2 * dim - 1)  # and phi, dn phi
+    pts = C * q * dim * P
+    if kind == "volume":
+        nbytes = (pts + C * q * P + dim * P + nb * nb * P) * esz
+        per_point = grad + nb * nb * (2 * dim + 1)
+    elif kind == "boundary":  # pts, n, w, h_f, ext; out
+        nbytes = (2 * pts + C * q * P + C * P + dim * P + nb * nb * P) * esz
+        per_point = side + 2 + nb * nb * 8
+    else:  # face: pts, n, w, h_f, ext, lo; four blocks out
+        nbytes = (2 * pts + C * q * P + C * P + 2 * dim * P
+                  + 4 * nb * nb * P) * esz
+        per_point = 2 * side + 4 * dim + 2 + 4 * nb * nb * 11
+    return nbytes, per_point * C * q * P
+
+
+def check_sipg_kernels(torch, dev):
+    """Phase 3, K3-K5: against their plain versions on seeded tables at
+    SIPG_SHAPES, f32 and f64; returns per-kernel results at the flagship's
+    fine-level shapes in f32 (the main path's tables)."""
+    from polydeal_tpu_torch.ops import sipg_kernels as sk
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    for label, (dim, deg, P, vq, fq, bq, off) in SIPG_SHAPES.items():
+        pc = 10.0 * (deg + dim) * (deg + 1)
+        for dname in ("float32", "float64"):
+            dt = getattr(torch, dname)
+            (vol, face, bdry), ext, lo = sipg_tables(torch, dev, dt, dim, P,
+                                                     (vq, fq, bq), gen)
+            vol = dict(pts=vol["pts_in"], w=vol["w"])
+            cases = {
+                "volume_blocks": (
+                    lambda: sk.volume_blocks(vol, ext, deg, dim),
+                    lambda: sk.volume_blocks_ref(vol, ext, deg, dim),
+                    ("volume", vq)),
+                "face_group_blocks": (
+                    lambda: torch.stack(sk.face_group_blocks(
+                        face, ext, lo, off, deg, dim, pc)),
+                    lambda: torch.stack(sk.face_group_blocks_ref(
+                        face, ext, lo, off, deg, dim, pc)),
+                    ("face", fq)),
+                "boundary_blocks": (
+                    lambda: sk.boundary_blocks(bdry, ext, deg, dim, pc),
+                    lambda: sk.boundary_blocks_ref(bdry, ext, deg, dim, pc),
+                    ("boundary", bq)),
+            }
+            for name, (kf, pf, (kind, (C, q))) in cases.items():
+                got, ref = kf(), pf()
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                rel = err / float(ref.abs().max())
+                ms, pms = time_pair(torch, kf, pf, reps=20)
+                nbytes, flops = sipg_work(kind, dim, deg, C, q, P,
+                                          got.element_size())
+                b_ms, b_by = bound(nbytes, flops, dname)
+                log(f"  {name} {label} {dname} (P={P}, C={C}, q={q}): "
+                    f"max_abs_err={err:.3e} rel={rel:.3e} (tol "
+                    f"{SIPG_TOL[dname]:g}); {ms:.4f} ms (plain {pms:.4f}; "
+                    f"bound {b_ms:.4f}, {b_by}: {nbytes / 1e6:.1f} MB, "
+                    f"{flops / 1e9:.3f} GFLOP)")
+                if not rel <= SIPG_TOL[dname]:
+                    fail(f"{name} {label} {dname} disagrees with its plain "
+                         f"version: rel {rel:.3e}")
+                if label == "fine" and dname == "float32":
+                    out[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                     bound_ms=b_ms, bound_by=b_by,
+                                     library_ms=None)
+                del got, ref
+            del vol, face, bdry
+            torch.cuda.empty_cache()
+    return out
+
+
+def level_sipg_check(torch, fs, dev):
+    """Phase 5, after the main path: K3-K5 against their plain versions on
+    every flagship level's real f32 tables, with each level's C and the
+    kernels' time (CUDA events, 10 calls each)."""
+    from polydeal_tpu_torch.assembly.sipg import (build_banded_groups,
+                                                  default_penalty_constant)
+    from polydeal_tpu_torch.ops import sipg_kernels as sk
+
+    for h in fs.handlers:
+        ft = h.faces
+        interior = ~ft.is_boundary
+        diffs = (ft.poly_out - ft.poly_in)[interior].astype("int64")
+        offs = sorted({0, *diffs.tolist(), *(-diffs).tolist()})
+        t = build_banded_groups(h, offs, torch.float32, device=dev)
+        pc = default_penalty_constant(h.degree, h.dim)
+        ext, lo, deg, dim = t["ext_t"], t["lo_t"], h.degree, h.dim
+        calls = {"volume": [(lambda: sk.volume_blocks(t["vol"], ext, deg,
+                                                      dim),
+                             lambda: sk.volume_blocks_ref(t["vol"], ext, deg,
+                                                          dim))],
+                 "boundary": [(lambda: sk.boundary_blocks(
+                     t["bdry"], ext, deg, dim, pc),
+                     lambda: sk.boundary_blocks_ref(t["bdry"], ext, deg, dim,
+                                                    pc))],
+                 "face": [(lambda g=g, o=o: torch.stack(sk.face_group_blocks(
+                     g, ext, lo, o, deg, dim, pc)),
+                     lambda g=g, o=o: torch.stack(sk.face_group_blocks_ref(
+                         g, ext, lo, o, deg, dim, pc)))
+                     for o, g in t["groups"].items()]}
+        worst, times = 0.0, {}
+        for kind, pairs in calls.items():
+            times[kind] = 0.0
+            for kf, pf in pairs:
+                got, ref = kf(), pf()
+                rel = float((got - ref).abs().max()) / float(
+                    ref.abs().max())
+                worst = max(worst, rel)
+                times[kind] += time_one(torch, kf, reps=10)
+        Cs = (t["vol"]["w"].shape[0],
+              max(g["w"].shape[0] for g in t["groups"].values()),
+              t["bdry"]["w"].shape[0])
+        log(f"  level P={h.n_poly}: C volume/face/boundary {Cs}, "
+            f"{len(t['groups'])} face groups; kernel ms volume "
+            f"{times['volume']:.4f}, faces {times['face']:.4f}, boundary "
+            f"{times['boundary']:.4f}; worst rel err {worst:.3e}")
+        if not worst <= SIPG_TOL["float32"]:
+            fail(f"K3-K5 disagree with their plain versions at level "
+                 f"P={h.n_poly}: rel {worst:.3e}")
+        del t
+        torch.cuda.empty_cache()
 
 
 def small_solve_check(torch, dev):
@@ -196,13 +451,13 @@ def main() -> int:
     _build.load_library()
     build_s = time.perf_counter() - t0
     log(f"  built in {build_s:.2f} s")
-    for line in _build.last_build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(_build.last_build_log()):
+        log(f"  ptxas: {line}")
 
     log("phase 3: kernels against their plain versions (flagship shapes)")
     kres = check_kernels(torch, dev)
     torch.cuda.empty_cache()
+    kres.update(check_sipg_kernels(torch, dev))
 
     log("phase 4: small f64 solve, card against CPU")
     small_solve_check(torch, dev)
@@ -257,20 +512,25 @@ def main() -> int:
         fail(f"f64 reference true relative residual {true64:.3e} > 1e-8")
     if not diff <= 1e-4:
         fail(f"f32 flagship solution differs from the f64 one by {diff:.3e}")
+    del ref, res64
+    torch.cuda.empty_cache()
+    level_sipg_check(torch, fs, dev)
 
-    src = "polydeal_tpu_torch/csrc/banded.cu"
-    kernels = [
-        dict(name="banded_matvec_imajor", route="cuda", source=src,
-             replaces="polydeal_tpu/ops/banded.py:65",
-             launches=counts["banded_matvec_imajor"],
-             max_abs_err=kres["K1"][0], ms=kres["K1"][1],
-             plain_ms=kres["K1"][2]),
-        dict(name="banded_fused_cheb", route="cuda", source=src,
-             replaces="polydeal_tpu/ops/fused_cheb.py:210",
-             launches=counts["banded_fused_cheb"],
-             max_abs_err=kres["K2"][0], ms=kres["K2"][1],
-             plain_ms=kres["K2"][2]),
-    ]
+    banded, sipg = ("polydeal_tpu_torch/csrc/banded.cu",
+                    "polydeal_tpu_torch/csrc/sipg.cu")
+    rows = [("banded_matvec_imajor", "K1", banded,
+             "polydeal_tpu/ops/banded.py:65"),
+            ("banded_fused_cheb", "K2", banded,
+             "polydeal_tpu/ops/fused_cheb.py:210"),
+            ("volume_blocks", "volume_blocks", sipg,
+             "polydeal_tpu/ops/sipg_kernels.py:428"),
+            ("face_group_blocks", "face_group_blocks", sipg,
+             "polydeal_tpu/ops/sipg_kernels.py:167"),
+            ("boundary_blocks", "boundary_blocks", sipg,
+             "polydeal_tpu/ops/sipg_kernels.py:324")]
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rpl,
+                    launches=counts[name], **kres[key])
+               for name, key, src, rpl in rows]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,12 +11,15 @@ process:
   five timed solves;
 * parts by CUDA events, 20 calls each: one V-cycle (the CG
   preconditioner), one fine-level SpMV (the CG operator), one FMG guess;
+  and, 5 calls, the warm fine-level band assembly from its f32 tables
+  (K3-K5 and the lane rolls and concatenations around them);
 * one traced warm solve under ``torch.profiler``: the device's busy time
   (the union of its kernel, copy and fill intervals) over the solve's span
   in the same trace, hence the busy and idle shares; and the device
   operations by total time.  The profiler slows the host's dispatch, so
   the traced solve is slower than the untimed ones and its idle share is
-  an upper bound for them.
+  an upper bound for them;
+* one traced warm fine-level band assembly, read the same way.
 
 Prints the card and a table, and last one JSON object with every number.
 """
@@ -32,7 +35,7 @@ import torch
 
 __all__ = ["busy_us", "traced_span", "device_intervals", "main"]
 
-_LABEL = "flagship_solve"  # the traced solve's record_function range
+_LABEL = "flagship_solve"  # the traced range's record_function label
 N = 64
 REPEATS = 5
 
@@ -87,7 +90,35 @@ def _cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _traced(fn, top: int):
+    """Trace one call of ``fn`` under ``torch.profiler``: (span_ms,
+    busy_ms, the ``top`` device operations by total time as dicts)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function(_LABEL):
+            fn()
+            torch.cuda.synchronize()  # the range spans fn's device work
+    events = prof.events()
+    lo, hi = traced_span(events, _LABEL)
+    dev_ev = device_intervals(events, _LABEL)
+    if not dev_ev:
+        raise RuntimeError("the trace holds no device events")
+    busy = busy_us([(s, e) for _, s, e in dev_ev], lo, hi)
+    by_name = {}
+    for name, s, e in dev_ev:
+        c, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (c + 1, t + (e - s))
+    dev_sum = sum(t for _, t in by_name.values())
+    ops = [dict(name=n[:100], count=c, ms=t / 1e3, share=t / dev_sum)
+           for n, (c, t) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][1])[:top]]
+    return (hi - lo) / 1e3, busy / 1e3, ops
+
+
 def main() -> int:
+    from polydeal_tpu_torch.assembly.sipg import (
+        assemble_sipg_banded_direct, build_banded_groups)
     from polydeal_tpu_torch.models.flagship import (setup_flagship,
                                                     solve_flagship)
 
@@ -120,24 +151,15 @@ def main() -> int:
     parts = dict(v_cycle_ms=_cuda_ms(lambda: mg.v_cycle(fs.b)),
                  fine_spmv_ms=_cuda_ms(lambda: mg.ells[-1].matvec_t(bt)),
                  fmg_ms=_cuda_ms(lambda: mg.fmg_guess(bt)))
+    fine = fs.handlers[-1]
+    tabs = build_banded_groups(fine, fs.band_offsets, torch.float32,
+                               device=dev)
+    band = lambda: assemble_sipg_banded_direct(fine, tabs, fs.band_offsets)
+    parts["fine_band_ms"] = _cuda_ms(band, reps=5)
+    band_span, band_busy, band_ops = _traced(band, top=8)
+    del tabs
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        with torch.profiler.record_function(_LABEL):
-            solve()
-    events = prof.events()
-    lo, hi = traced_span(events, _LABEL)
-    dev_ev = device_intervals(events, _LABEL)
-    if not dev_ev:
-        raise RuntimeError("the trace holds no device events")
-    busy = busy_us([(s, e) for _, s, e in dev_ev], lo, hi)
-    by_name = {}
-    for name, s, e in dev_ev:
-        c, t = by_name.get(name, (0, 0.0))
-        by_name[name] = (c + 1, t + (e - s))
-    dev_sum = sum(t for _, t in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    span, busy, ops = _traced(solve, top=15)
 
     out = dict(
         card=smi, n=N, n_dofs=fs.n_dofs, levels=fs.level_sizes,
@@ -145,17 +167,16 @@ def main() -> int:
         setup_phases_s=fs.setup_phases,
         warm_solve_s=walls, warm_solve_median_s=statistics.median(walls),
         **parts,
-        traced_solve_ms=(hi - lo) / 1e3, traced_busy_ms=busy / 1e3,
-        traced_device_sum_ms=dev_sum / 1e3,
-        traced_busy_share=busy / (hi - lo),
-        traced_idle_share=1.0 - busy / (hi - lo),
-        device_ops=[dict(name=n[:100], count=c, ms=t / 1e3,
-                         share=t / dev_sum) for n, (c, t) in top])
-    print(f"{'device op (first 70 chars)':70s} {'count':>6s} {'ms':>9s} "
-          f"{'share':>6s}")
-    for d in out["device_ops"]:
-        print(f"{d['name'][:70]:70s} {d['count']:6d} {d['ms']:9.3f} "
-              f"{d['share']:6.1%}")
+        traced_solve_ms=span, traced_busy_ms=busy,
+        traced_busy_share=busy / span, traced_idle_share=1.0 - busy / span,
+        device_ops=ops, traced_band_ms=band_span,
+        traced_band_busy_ms=band_busy, band_device_ops=band_ops)
+    for title, rows in (("solve", ops), ("fine band assembly", band_ops)):
+        print(f"{'device op, ' + title + ' (first 70 chars)':70s} "
+              f"{'count':>6s} {'ms':>9s} {'share':>6s}")
+        for d in rows:
+            print(f"{d['name'][:70]:70s} {d['count']:6d} {d['ms']:9.3f} "
+                  f"{d['share']:6.1%}")
     print(json.dumps(out), flush=True)
     return 0
 

@@ -10,6 +10,14 @@ from polydeal_tpu_torch.ops.fused_cheb import (
     banded_residual_t,
     banded_residual_t_ref,
 )
+from polydeal_tpu_torch.ops.sipg_kernels import (
+    boundary_blocks,
+    boundary_blocks_ref,
+    face_group_blocks,
+    face_group_blocks_ref,
+    volume_blocks,
+    volume_blocks_ref,
+)
 
 __all__ = [
     "banded_matvec_t_imajor",
@@ -18,4 +26,10 @@ __all__ = [
     "banded_cheb_step_t_ref",
     "banded_residual_t",
     "banded_residual_t_ref",
+    "volume_blocks",
+    "volume_blocks_ref",
+    "face_group_blocks",
+    "face_group_blocks_ref",
+    "boundary_blocks",
+    "boundary_blocks_ref",
 ]

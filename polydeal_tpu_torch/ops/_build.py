@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as a plain C library.
 
-``nvcc`` compiles ``polydeal_tpu_torch/csrc/banded.cu`` for ``sm_90a`` into
-``polydeal_tpu_torch/_build/libpd_banded_<hash>.so`` at first use; the
-hash covers the source and the flags, so an edited source rebuilds and an
-unchanged one is loaded as it is.  The library has a plain C interface
+``nvcc`` compiles every ``polydeal_tpu_torch/csrc/*.cu`` for ``sm_90a``, one
+process per source, all started together, and links the objects into
+``polydeal_tpu_torch/_build/libpd_kernels_<hash>.so`` at first use; the
+hash covers every source and the flags, so an edited source rebuilds and
+an unchanged tree is loaded as it is.  The library has a plain C interface
 bound with ctypes: it builds in seconds, where a source that includes
 PyTorch's headers takes minutes.
 
@@ -14,6 +15,7 @@ kernel's count where it launches the kernel, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -26,16 +28,20 @@ __all__ = ["load_library", "launches", "reset_launches", "last_build_log",
            "stream_handle", "DTYPE_CODES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "banded.cu")
+_CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
-_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+          "-v"]
 
-# dtype codes of the C interface (enum DType in csrc/banded.cu)
+# dtype codes of the C interface (enum DType in csrc/*.cu)
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
-# launches per kernel since the last reset (K1, K2 of csrc/banded.cu)
-launches = {"banded_matvec_imajor": 0, "banded_fused_cheb": 0}
+# launches per kernel since the last reset: K1, K2 (csrc/banded.cu) and
+# K3, K4, K5 (csrc/sipg.cu)
+launches = {"banded_matvec_imajor": 0, "banded_fused_cheb": 0,
+            "volume_blocks": 0, "face_group_blocks": 0,
+            "boundary_blocks": 0}
 
 _lib = None
 _log = ""
@@ -60,35 +66,68 @@ def _nvcc() -> str:
     return path
 
 
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _build(srcs: list[str], so: str) -> str:
+    """Compile each source in its own nvcc process, all at once, then
+    link; returns nvcc's output.  Raises on any failure."""
+    nvcc = _nvcc()
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        procs = [subprocess.Popen([nvcc, *_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(f"== {os.path.basename(s)}\n{out}"
+                      for s, out in zip(srcs, outs))
+        bad = [s for s, p in zip(srcs, procs) if p.returncode != 0]
+        if bad:
+            raise RuntimeError(f"nvcc failed to build {bad}:\n{log}")
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *_ARCH, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link {so}:\n{log}")
+        os.replace(lib, so)  # atomic: concurrent builds race harmlessly
+    return log
+
+
 def load_library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib, _log
     if _lib is not None:
         return _lib
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(_BUILD_DIR, f"libpd_banded_{key}.so")
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + b"\0" + f.read())
+    so = os.path.join(_BUILD_DIR, f"libpd_kernels_{h.hexdigest()[:16]}.so")
     if not os.path.exists(so):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run([_nvcc(), *_FLAGS, "-o", tmp, _SRC],
-                              capture_output=True, text=True)
-        _log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed to build {_SRC}:\n{_log}")
-        os.replace(tmp, so)  # atomic: concurrent builders race harmlessly
+        _log = _build(srcs, so)
     lib = ctypes.CDLL(so)
     vp, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
     lib.pd_banded_matvec.argtypes = [vp, i32, vp, i32, vp, i32, i32, i32,
                                      i64, vp, vp]
-    lib.pd_banded_matvec.restype = i32
     lib.pd_banded_fused.argtypes = [vp, i32, vp, i32, vp, i32, i32, i32, i64,
                                     vp, vp, vp, f64, f64, i32, vp, vp, vp]
-    lib.pd_banded_fused.restype = i32
+    # (dtype, dim, degree, tables..., [offset,] [penalty,] C, Q, P, out,
+    #  stream)
+    lib.pd_sipg_volume.argtypes = [i32, i32, i32, vp, vp, vp, i32, i32, i64,
+                                   vp, vp]
+    lib.pd_sipg_boundary.argtypes = [i32, i32, i32, vp, vp, vp, vp, vp, f64,
+                                     i32, i32, i64, vp, vp]
+    lib.pd_sipg_face.argtypes = [i32, i32, i32, vp, vp, vp, vp, vp, vp, i64,
+                                 f64, i32, i32, i64, vp, vp]
+    for fn in (lib.pd_banded_matvec, lib.pd_banded_fused, lib.pd_sipg_volume,
+               lib.pd_sipg_boundary, lib.pd_sipg_face):
+        fn.restype = i32
     _lib = lib
     return lib
 

@@ -17,7 +17,7 @@ __all__ = ["estimate_lambda_max", "ChebyshevSmoother"]
 
 
 def estimate_lambda_max(A: Callable, Minv: Callable, n: int, iters: int = 20,
-                        dtype=torch.float64, device=None) -> float:
+                        dtype=torch.float64, *, device) -> float:
     """Power iteration estimate of lambda_max(M^{-1} A), from the same
     deterministic ``sin`` start vector as the JAX package."""
     v = torch.sin(torch.arange(1, n + 1, dtype=dtype, device=device))
