@@ -20,7 +20,16 @@ Phases (each must pass; nothing falls back to the CPU):
   5. the flagship R3MG Poisson solve at n=64, p=1 (1,048,576 DoF) on the
      card, set up through K3-K5 on every level, which must reach rtol 1e-8
      in 18-22 CG iterations through K1 and K2; then K3-K5 against their
-     plain versions on every level's real f32 tables, timed per level.
+     plain versions on every level's real f32 tables, timed per level;
+  6. the same flagship without the relabel (relabel=None, bench.py's
+     BENCH_RELABEL=none arm): the fine level assembled straight into the
+     packed format, levels 4096 and 32768 packed, K6 (packed SpMV) and K7
+     (fused packed Chebyshev) on all three; it must reach rtol 1e-8 in
+     18-22 iterations, its f32 solution mapped to cell order within 1e-4 of
+     phase 5's f64 one; then K6/K7 against their plain versions on every
+     packed level's real pack (all three K7 modes, f32 and f64), timed
+     beside a torch.sparse CSR product of the same pack; then a small f64
+     packed solve (n=16) on the card against the same solve on the CPU.
 Prints the card, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}.
 """
@@ -108,25 +117,45 @@ def bound(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def csr_of_band(torch, data_i, offsets, nb, R_pad, P):
-    """The i-major band as a torch.sparse CSR matrix on flat (p, i) rows
-    and (p + o, j) columns, dropping blocks whose column leaves [0, P)."""
+def csr_of_slots(torch, data_i, q, live, nb, R_pad):
+    """A band of n_slots row blocks per i-slab (data_i [nb * R_pad, P]) as
+    a torch.sparse CSR matrix on flat (p, i) rows and (q, j) columns: slot
+    k of lane p multiplies x[:, q[k, p]] where ``live[k, p]``."""
     dev = data_i.device
-    n_off = len(offsets)
-    D = data_i.view(nb, R_pad, P)[:, :n_off * nb].reshape(nb, n_off, nb, P)
+    n_slots, P = q.shape
+    D = data_i.view(nb, R_pad, P)[:, :n_slots * nb].reshape(nb, n_slots, nb,
+                                                            P)
     i = torch.arange(nb, device=dev).view(nb, 1, 1, 1)
     j = torch.arange(nb, device=dev).view(1, 1, nb, 1)
-    o = torch.tensor(offsets, device=dev).view(1, n_off, 1, 1)
     p = torch.arange(P, device=dev).view(1, 1, 1, P)
-    q = p + o
-    mask = ((q >= 0) & (q < P)).expand(nb, n_off, nb, P)
+    qq = q.view(1, n_slots, 1, P)
+    mask = live.view(1, n_slots, 1, P).expand(nb, n_slots, nb, P)
     rows = (p * nb + i).expand_as(mask)[mask]
-    cols = (q * nb + j).expand_as(mask)[mask]
+    cols = (qq * nb + j).expand_as(mask)[mask]
     with warnings.catch_warnings():  # "CSR support is in beta state"
         warnings.simplefilter("ignore", UserWarning)
         A = torch.sparse_coo_tensor(torch.stack([rows, cols]), D[mask],
                                     (P * nb, P * nb), check_invariants=False)
         return A.coalesce().to_sparse_csr()
+
+
+def csr_of_band(torch, data_i, offsets, nb, R_pad, P):
+    """The i-major band as a CSR matrix, dropping blocks whose column
+    leaves [0, P)."""
+    dev = data_i.device
+    q = (torch.tensor(offsets, device=dev).view(-1, 1)
+         + torch.arange(P, device=dev).view(1, P))
+    return csr_of_slots(torch, data_i, q, (q >= 0) & (q < P), nb, R_pad)
+
+
+def csr_of_pack(torch, e):
+    """A BlockPacked's pack as a CSR matrix: active slots only."""
+    P = e.n_block_rows
+    o = e.oid.long()
+    q = (torch.arange(P, device=o.device).view(1, P)
+         + e.offsets_t.long()[o.clamp(min=0)])
+    live = (o >= 0) & (q >= 0) & (q < P)
+    return csr_of_slots(torch, e.data_i, q, live, e.n_basis, e.plan.R_pad)
 
 
 def ptxas_summary(build_log: str) -> list:
@@ -391,33 +420,171 @@ def level_sipg_check(torch, fs, dev):
         torch.cuda.empty_cache()
 
 
-def small_solve_check(torch, dev):
-    """Phase 4: f64 flagship at n=16 with every level on the kernels, on
-    the card, against the same solve on the CPU (plain versions)."""
+def small_solve_check(torch, dev, **kw):
+    """Phase 4 (and phase 6 with relabel=None): f64 flagship at n=16 with
+    every level on the kernels, on the card, against the same solve on the
+    CPU (plain versions)."""
     from polydeal_tpu_torch.models.flagship import (setup_flagship,
                                                     solve_flagship)
     from polydeal_tpu_torch.solvers import multigrid
 
-    saved = multigrid.IMAJOR_MIN_P
-    multigrid.IMAJOR_MIN_P = 0  # i-major copies (K1/K2) on every level
+    saved = multigrid.IMAJOR_MIN_P, multigrid.PACK_MIN_P
+    # i-major copies (K1/K2) on banded levels; every wide level but the
+    # coarsest packed (K6/K7)
+    multigrid.IMAJOR_MIN_P = multigrid.PACK_MIN_P = 0
     try:
         res = {}
         for name, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
             fs = setup_flagship(n=16, device=device, dtype=torch.float64,
-                                precond_dtype=None)
+                                precond_dtype=None, **kw)
             r = solve_flagship(fs)
             res[name] = (r.iterations, r.x.cpu(),
                          float(r.residual) / float(fs.b.norm()))
     finally:
-        multigrid.IMAJOR_MIN_P = saved
+        multigrid.IMAJOR_MIN_P, multigrid.PACK_MIN_P = saved
     (ic, xc, rc), (ig, xg, rg) = res["cpu"], res["cuda"]
     diff = float((xc - xg).abs().max()) / float(xc.abs().max())
-    log(f"  n=16 f64: cpu {ic} iters (rel res {rc:.3e}), cuda {ig} iters "
-        f"(rel res {rg:.3e}), max |x_cuda - x_cpu| / max |x| = {diff:.3e}")
+    log(f"  n=16 f64 {kw or ''}: levels {level_formats(fs)}; cpu {ic} iters "
+        f"(rel res {rc:.3e}), cuda {ig} iters (rel res {rg:.3e}), "
+        f"max |x_cuda - x_cpu| / max |x| = {diff:.3e}")
     # a summation-order change may move the stopping test by one iteration;
     # the solutions then agree to the solver tolerance
     if abs(ic - ig) > 1 or not diff <= 1e-6 or not rg <= 1e-8:
         fail("small f64 solve on the card disagrees with the CPU")
+    return level_formats(fs)
+
+
+def level_formats(fs) -> list:
+    """Per level, coarse to fine: (P, "banded", n_off) or (P, "packed",
+    n_off, K, R_pad, max |offset|)."""
+    out = []
+    for e in fs.mg.ells:
+        if hasattr(e, "plan"):
+            offs = e.plan.offsets
+            out.append((e.n_block_rows, "packed", len(offs), e.plan.K,
+                        e.plan.R_pad, max(abs(o) for o in offs)))
+        else:
+            out.append((e.n_block_rows, "banded", len(e.offsets)))
+    return out
+
+
+def cell_order(torch, fs, x):
+    """The fine-level solution [P * nb] as [n_cells, nb] on the host, row c
+    holding the coefficients of cell c's polytope.  The fine level has one
+    cell per polytope, so every numbering of it has the same basis and the
+    rows compare across numberings."""
+    h = fs.handlers[-1]
+    c2p = torch.as_tensor(h.cell2poly, dtype=torch.long)
+    return x.detach().cpu().double().reshape(h.n_poly, h.n_basis)[c2p]
+
+
+def packed_work(e, step: bool, vsz: int):
+    """(bytes, operations, active slots per lane) of one K6 call (x in, y
+    out) or K7 step (x, b, d, dinv in, x', d' out; six operations per
+    vector entry) on pack ``e``: the active slots' blocks, oid and the
+    vectors, each read or written once."""
+    nb, P = e.n_basis, e.n_block_rows
+    active = int((e.oid >= 0).sum())
+    band = active * nb * nb
+    n_vec = 6 if step else 2
+    nbytes = band * e.data_i.element_size() + e.oid.numel() * 4 + (
+        n_vec * nb * P * vsz)
+    return nbytes, 2 * band + (6 * nb * P if step else 0), active / P
+
+
+def check_packed_levels(torch, fs, dev):
+    """Phase 6: K6 and K7 (three modes) against their plain versions on
+    every packed level's real pack with seeded vectors, f32 (1e-5) and f64
+    (the band as f64, 1e-12); timed, beside a CSR product of the same pack
+    in f32.  Returns the fine level's f32 results per kernel."""
+    from polydeal_tpu_torch.ops import fused_cheb as fc
+    from polydeal_tpu_torch.ops import packed as pk
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for e in fs.mg.ells:
+        if not hasattr(e, "plan"):
+            continue
+        nb, P = e.n_basis, e.n_block_rows
+        oid, offs = e.oid, e.offsets_t
+        for dname, tol in (("float32", 1e-5), ("float64", 1e-12)):
+            errs = {"K6": 0.0, "K7": 0.0}
+            dt = getattr(torch, dname)
+            di = e.data_i.to(dt)
+            x, b, d = (torch.randn(nb, P, generator=gen, device=dev,
+                                   dtype=torch.float64).to(dt)
+                       for _ in range(3))
+            dinv = 1.0 + torch.rand(nb, P, generator=gen, device=dev,
+                                    dtype=torch.float64).to(dt)
+            c1, c2 = 0.37, 1.21
+            k6 = lambda: pk.packed_matvec_t(di, oid, offs, nb, x)
+            p6 = lambda: pk.packed_matvec_t_ref(di, oid, offs, nb, x)
+            k7 = {"step0": (lambda: fc.packed_cheb_step_t(
+                di, oid, offs, nb, x, None, b, dinv, c1, c2),
+                lambda: fc.packed_cheb_step_t_ref(
+                    di, oid, offs, nb, x, None, b, dinv, c1, c2)),
+                "step": (lambda: fc.packed_cheb_step_t(
+                    di, oid, offs, nb, x, d, b, dinv, c1, c2),
+                    lambda: fc.packed_cheb_step_t_ref(
+                        di, oid, offs, nb, x, d, b, dinv, c1, c2)),
+                "residual": (lambda: fc.packed_residual_t(
+                    di, oid, offs, nb, x, b),
+                    lambda: fc.packed_residual_t_ref(
+                        di, oid, offs, nb, x, b))}
+            pairs = [("K6", "", k6, p6)] + [("K7", m, kf, pf)
+                                            for m, (kf, pf) in k7.items()]
+            for name, mode, kf, pf in pairs:
+                got, ref = kf(), pf()
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                for g, r in zip(got, ref):
+                    err = float((g - r).abs().max())
+                    rel = err / float(r.abs().max())
+                    if not rel <= tol:
+                        fail(f"{name} {mode} at level P={P} {dname} "
+                             f"disagrees with its plain version: rel "
+                             f"{rel:.3e} > {tol:g}")
+                    errs[name] = max(errs[name], rel)
+                    if dname == "float32" and P == fs.n_dofs // nb:
+                        out.setdefault(name, dict(max_abs_err=0.0))
+                        out[name]["max_abs_err"] = max(
+                            out[name]["max_abs_err"], err)
+            torch.cuda.synchronize()
+            if dname == "float64":
+                log(f"  level P={P} f64: worst rel err K6/K7 "
+                    f"{errs['K6']:.3e} / {errs['K7']:.3e} (tol {tol:g})")
+                continue
+            ms6, pms6 = time_pair(torch, k6, p6)
+            ms7, pms7 = time_pair(torch, *k7["step"])
+            A = csr_of_pack(torch, e)
+            xf = x.T.contiguous().view(-1)
+            yl = torch.mv(A, xf).view(P, nb).T
+            lerr = float((yl - k6()).abs().max()) / float(yl.abs().max())
+            if not lerr <= tol:
+                fail(f"CSR product disagrees with K6 at P={P}: rel "
+                     f"{lerr:.3e}")
+            lms = time_one(torch, lambda: torch.mv(A, xf))
+            nnz = A.values().numel()
+            del A, xf, yl
+            by6, op6, act = packed_work(e, False, 4)
+            by7, op7, _ = packed_work(e, True, 4)
+            b6, bb6 = bound(by6, op6, "float32")
+            b7, bb7 = bound(by7, op7, "float32")
+            log(f"  level P={P} f32 (K={e.plan.K}, {len(e.plan.offsets)} "
+                f"offsets, {act:.3f} active slots per lane): K6 {ms6:.4f} "
+                f"ms (plain {pms6:.4f}, CSR {lms:.4f} with nnz {nnz}, bound "
+                f"{b6:.4f} {bb6}: {by6 / 1e6:.1f} MB); K7 step {ms7:.4f} ms "
+                f"(plain {pms7:.4f}, bound {b7:.4f} {bb7}: "
+                f"{by7 / 1e6:.1f} MB); worst rel err K6/K7 "
+                f"{errs['K6']:.3e} / {errs['K7']:.3e} (tol {tol:g})")
+            if P == fs.n_dofs // nb:
+                out["K6"].update(ms=ms6, plain_ms=pms6, bound_ms=b6,
+                                 bound_by=bb6, library_ms=lms)
+                out["K7"].update(ms=ms7, plain_ms=pms7, bound_ms=b7,
+                                 bound_by=bb7, library_ms=None)
+            del di, x, b, d, dinv
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -489,8 +656,9 @@ def main() -> int:
         fail(f"flagship relative residual {rel:.3e} > 1e-8")
     if not 18 <= res.iterations <= 22:
         fail(f"flagship took {res.iterations} iterations, outside 18-22")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in ("banded_matvec_imajor", "banded_fused_cheb",
+                 "volume_blocks", "face_group_blocks", "boundary_blocks"):
+        if counts[name] <= 0:
             fail(f"kernel {name} was never launched on the main path")
 
     # Reference: the same system solved in f64.  The f32 solve's residual
@@ -512,12 +680,67 @@ def main() -> int:
         fail(f"f64 reference true relative residual {true64:.3e} > 1e-8")
     if not diff <= 1e-4:
         fail(f"f32 flagship solution differs from the f64 one by {diff:.3e}")
+    # phase 6 holds the packed solve to the same f64 solution, by cell
+    x64_cells = cell_order(torch, ref, res64.x)
     del ref, res64
     torch.cuda.empty_cache()
     level_sipg_check(torch, fs, dev)
+    del fs, res, x
+    torch.cuda.empty_cache()
 
-    banded, sipg = ("polydeal_tpu_torch/csrc/banded.cu",
-                    "polydeal_tpu_torch/csrc/sipg.cu")
+    log("phase 6: flagship n=64, p=1 without the relabel (packed levels)")
+    _build.reset_launches()
+    fsp = setup_flagship(n=64, relabel=None, device=dev)
+    resp = solve_flagship(fsp)  # cold
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    resp = solve_flagship(fsp)  # warm
+    torch.cuda.synchronize()
+    solve_p = time.perf_counter() - t1
+    counts6 = dict(_build.launches)
+    relp = float(resp.residual) / float(fsp.b.norm())
+    formats = level_formats(fsp)
+    log(f"  levels (P, format, offsets[, K, R_pad, max |offset|]): {formats}")
+    phases = {k: round(v, 3) for k, v in fsp.setup_phases.items()}
+    log(f"  setup phases (s): {phases}")
+    log(f"  warm solve: {solve_p:.4f} s, {resp.iterations} iterations, "
+        f"relative residual {relp:.3e}")
+    log(f"  launches over setup + 2 solves: {counts6}")
+    xp = resp.x
+    if tuple(xp.shape) != (fsp.n_dofs,) or not bool(
+            torch.isfinite(xp).all()):
+        fail("packed flagship solution has the wrong shape or non-finite "
+             "values")
+    want = [(512, "banded"), (4096, "packed"), (32768, "packed"),
+            (262144, "packed")]
+    if [f[:2] for f in formats] != want:
+        fail(f"packed flagship levels are {formats}, want {want}")
+    if not relp <= 1e-8:
+        fail(f"packed flagship relative residual {relp:.3e} > 1e-8")
+    if not 18 <= resp.iterations <= 22:
+        fail(f"packed flagship took {resp.iterations} iterations, outside "
+             f"18-22")
+    dp = float((cell_order(torch, fsp, xp) - x64_cells).abs().max()) / float(
+        x64_cells.abs().max())
+    log(f"  max |x_packed_f32 - x_lex_f64| / max |x_lex_f64| by cell = "
+        f"{dp:.3e}")
+    if not dp <= 1e-4:
+        fail(f"packed f32 solution differs from the f64 lex one by {dp:.3e}")
+    for name in ("volume_blocks", "face_group_blocks", "boundary_blocks",
+                 "packed_matvec", "packed_fused_cheb"):
+        if counts6[name] <= 0:
+            fail(f"kernel {name} was never launched on the packed path")
+    del resp, xp, x64_cells
+    kres.update(check_packed_levels(torch, fsp, dev))
+    del fsp
+    torch.cuda.empty_cache()
+    formats16 = small_solve_check(torch, dev, relabel=None)
+    if not all(f[1] == "packed" for f in formats16[1:]):
+        fail(f"small packed solve levels are {formats16}")
+
+    banded, sipg, packed = ("polydeal_tpu_torch/csrc/banded.cu",
+                            "polydeal_tpu_torch/csrc/sipg.cu",
+                            "polydeal_tpu_torch/csrc/packed.cu")
     rows = [("banded_matvec_imajor", "K1", banded,
              "polydeal_tpu/ops/banded.py:65"),
             ("banded_fused_cheb", "K2", banded,
@@ -527,9 +750,16 @@ def main() -> int:
             ("face_group_blocks", "face_group_blocks", sipg,
              "polydeal_tpu/ops/sipg_kernels.py:167"),
             ("boundary_blocks", "boundary_blocks", sipg,
-             "polydeal_tpu/ops/sipg_kernels.py:324")]
+             "polydeal_tpu/ops/sipg_kernels.py:324"),
+            ("packed_matvec", "K6", packed,
+             "polydeal_tpu/ops/packed.py:185"),
+            ("packed_fused_cheb", "K7", packed,
+             "polydeal_tpu/ops/fused_cheb.py:122")]
+    # launches: each kernel's count on its path (K1-K5 phase 5, K6/K7
+    # phase 6)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rpl,
-                    launches=counts[name], **kres[key])
+                    launches=(counts6 if key in ("K6", "K7")
+                              else counts)[name], **kres[key])
                for name, key, src, rpl in rows]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -5,8 +5,9 @@ Counterpart of the direct banded path of ``polydeal_tpu/assembly/sipg.py``:
 polytope slot on the host, and ``assemble_sipg_banded_direct`` turns them
 into the band with the volume, face group and boundary block kernels
 (K3-K5, ``ops/sipg_kernels.py``), sums over the padded slots and lane
-rolls -- no scatters or gathers.  The tensors' device decides, as the JAX
-package's backend does: on a CUDA tensor the blocks come from the
+rolls -- no scatters or gathers; with a pack plan it emits the packed
+format (``sparse.BlockPacked``) directly.  The tensors' device decides, as
+the JAX package's backend does: on a CUDA tensor the blocks come from the
 hand-written kernels (the JAX package's TPU branch), on a CPU tensor from
 their plain einsum versions (its ``use_pallas=False`` branch).
 
@@ -26,7 +27,7 @@ from polydeal_tpu_torch.ops.sipg_kernels import (
     face_group_blocks,
     volume_blocks,
 )
-from polydeal_tpu_torch.sparse import BlockBanded
+from polydeal_tpu_torch.sparse import BlockBanded, BlockPacked, pack_blocks
 from polydeal_tpu_torch.utils.grouping import padded_group_lists
 
 __all__ = [
@@ -184,18 +185,32 @@ def _emit_banded(pieces, offsets, nb, P, layout) -> BlockBanded:
                        n_block_cols=P)
 
 
+def _emit_packed(pieces, offsets, plan, oid) -> BlockPacked:
+    """BlockPacked straight from the per-offset [nb, nb, P] band pieces,
+    with the selection of ``BlockBanded.to_packed``: the dense band (n_off
+    rows, 37 at the flagship's fine level without the relabel) is never
+    stacked."""
+    by_off = {int(o): pc for o, pc in zip(offsets, pieces)}
+    return BlockPacked(data_i=pack_blocks(by_off.__getitem__, plan, oid),
+                       oid=oid, plan=plan)
+
+
 def assemble_sipg_banded_direct(
     ah: AgglomerationHandler,
     tables: dict,
     offsets: np.ndarray,
     penalty_constant: float | None = None,
     layout: str = "omajor",
-) -> BlockBanded:
+    pack_plan=None,
+    pack_oid: torch.Tensor | None = None,
+) -> BlockBanded | BlockPacked:
     """Banded SIPG matrix over slot-padded tables (see
     :func:`build_banded_groups`): the block kernels K3-K5, sums over the
     padded slots and lane rolls, no scatters or gathers.  Sign conventions
     follow the reference kernel (poly_utils.h:1870-1926); normals point
-    outward from poly_in."""
+    outward from poly_in.  With ``pack_plan`` (a ``PackPlan`` over these
+    offsets) and ``pack_oid`` (its [K, P] int32 slot table on the tables'
+    device) the result is emitted packed instead."""
     if penalty_constant is None:
         penalty_constant = default_penalty_constant(ah.degree, ah.dim)
     P, nb, deg, dim = ah.n_poly, ah.n_basis, ah.degree, ah.dim
@@ -222,4 +237,6 @@ def assemble_sipg_banded_direct(
     pieces = [diag if o == 0 else (rows[int(o)] if rows[int(o)] is not None
                                    else zero)
               for o in offsets]
+    if pack_plan is not None:
+        return _emit_packed(pieces, offsets, pack_plan, pack_oid)
     return _emit_banded(pieces, offsets, nb, P, layout)

@@ -1,8 +1,8 @@
 """Carry the JAX package's objects, given as numpy arrays, into the port.
 
-The two packages share layouts on purpose: a band, its i-major copy, the
-slot-padded assembly tables and the transfer embeddings are the same
-arrays in both.  These helpers build the port's objects from those
+The two packages share layouts on purpose: a band, its i-major copy, a
+pack, the slot-padded assembly tables and the transfer embeddings are the
+same arrays in both.  These helpers build the port's objects from those
 arrays, so tests can run both packages on the same band and tables.
 Nothing here imports jax: the caller converts with ``np.asarray``.
 """
@@ -12,10 +12,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from polydeal_tpu_torch.ops.packed import PackPlan
 from polydeal_tpu_torch.solvers.multigrid import Transfer
-from polydeal_tpu_torch.sparse import BlockBanded
+from polydeal_tpu_torch.sparse import BlockBanded, BlockPacked
 
-__all__ = ["banded_from_arrays", "groups_from_arrays",
+__all__ = ["banded_from_arrays", "packed_from_arrays", "groups_from_arrays",
            "transfer_from_arrays"]
 
 
@@ -33,6 +34,24 @@ def banded_from_arrays(data, offsets, n_block_cols: int, data_i=None, *,
         data=_t(data, device), offsets=np.asarray(offsets),
         n_block_cols=int(n_block_cols),
         data_i=None if data_i is None else _t(data_i, device))
+
+
+def packed_from_arrays(data_i, oid, offsets, slots, nb: int, far_data=None,
+                       far_rows=None, far_cols=None, *,
+                       device) -> BlockPacked:
+    """BlockPacked from a JAX pack's ``data_i`` [nb * R_pad, P], ``oid``
+    [K, P] and its plan's ``offsets`` and ``slots`` (plus its far tail,
+    if any)."""
+    data_i = _t(data_i, device)
+    plan = PackPlan(offsets=tuple(int(o) for o in offsets),
+                    slots=tuple(tuple(int(i) for i in s) for s in slots),
+                    P=data_i.shape[-1], nb=int(nb))
+    far = far_data is not None
+    return BlockPacked(
+        data_i=data_i, oid=_t(np.asarray(oid, dtype=np.int32), device),
+        plan=plan, far_data=_t(far_data, device) if far else None,
+        far_rows=np.asarray(far_rows) if far else None,
+        far_cols=np.asarray(far_cols) if far else None)
 
 
 def groups_from_arrays(groups: dict, *, device) -> dict:

@@ -10,10 +10,20 @@ band assembled directly, degree-5 Chebyshev smoothing with one sweep on
 bf16 band copies, an explicit-inverse coarse solve, and CG to rtol 1e-8
 from a full-multigrid start.
 
+``relabel=None`` is ``bench.py``'s ``BENCH_RELABEL=none`` arm: every level
+keeps the R-tree's leaf-rank numbering, so the fine band has many offsets
+(37 at n=64) while a lane touches at most 7.  Every level but the
+coarsest with at least ``multigrid.PACK_MIN_P`` polytopes is then packed
+(``sparse.BlockPacked``; one rule on every device,
+``multigrid.level_pack_plan``), the fine one assembled straight into the
+packed format, and K6/K7 serve those levels, each keeping its f32 band
+for smoothing (no bf16 copy).
+
 Usage::
 
     fs = setup_flagship(n=64, device=torch.device("cuda"))
     res = solve_flagship(fs)
+    fs = setup_flagship(n=64, relabel=None, device=torch.device("cuda"))
 """
 
 from __future__ import annotations
@@ -34,12 +44,12 @@ from polydeal_tpu_torch.assembly.sipg import (
 from polydeal_tpu_torch.mesh.fine_mesh import hyper_cube
 from polydeal_tpu_torch.solvers import multigrid
 from polydeal_tpu_torch.solvers.cg import CGResult
+from polydeal_tpu_torch.sparse import BlockPacked
 
 __all__ = ["Flagship", "setup_flagship", "solve_flagship"]
 
 # the flagship configuration (bench.py's defaults)
 TRIM = 3  # extraction levels kept below the fine DG level
-RELABEL = "lex"
 CHEBYSHEV_DEGREE = 5
 N_SMOOTH = 1
 SMOOTHING_RANGE = 20.0
@@ -52,7 +62,10 @@ class Flagship:
     b: torch.Tensor  # flat fine-level rhs
     band_offsets: np.ndarray
     grid_shapes: list | None
-    setup_phases: dict  # seconds: hierarchy, groups, assemble0, mg_setup
+    # seconds: hierarchy, groups (and the fine pack plan), assemble0, mg_setup
+    setup_phases: dict
+    relabel: str | None  # "lex", or None for the leaf-rank numbering
+    format: str  # the fine level's: "packed" or "banded"
 
     @property
     def n_dofs(self) -> int:
@@ -71,9 +84,12 @@ def setup_flagship(
     dtype=torch.float32,
     precond_dtype=torch.bfloat16,
     coarse_solver: str = "inv",
+    relabel: str | None = "lex",
 ) -> Flagship:
     """Build the hierarchy, the tables, the fine band, the rhs and the
-    multigrid on ``device``.
+    multigrid on ``device``.  Every level is packed or banded by
+    :func:`multigrid.level_pack_plan`; the fine one is assembled straight
+    into its format.
 
     Float32 products stay full float32: TF32 would corrupt the f32 einsum
     assembly and the transfers, so it is switched off here for the
@@ -89,8 +105,9 @@ def setup_flagship(
     lv0 = max(1, agg.n_levels - 1 - TRIM)
     handlers, parents = multigrid.build_rtree_hierarchy(
         mesh, agg, list(range(lv0, agg.n_levels - 1)), degree=degree,
-        relabel=RELABEL)
-    grid_shapes = multigrid.detect_grid_shapes(handlers, parents)
+        relabel=relabel)
+    grid_shapes = (multigrid.detect_grid_shapes(handlers, parents)
+                   if relabel else None)
     ah = handlers[-1]
     t_hier = time.perf_counter() - t0
 
@@ -99,13 +116,22 @@ def setup_flagship(
     diffs = (ft.poly_out - ft.poly_in)[interior].astype(np.int64)
     band_offsets = np.unique(np.concatenate(
         [diffs, -diffs, np.zeros(1, dtype=np.int64)]))
+    if relabel == "lex" and len(band_offsets) > 2 * dim + 3:
+        raise RuntimeError("the lex relabel should give a narrow band, not "
+                           f"{len(band_offsets)} offsets")
     t1 = time.perf_counter()
     groups = build_banded_groups(ah, band_offsets, dtype, device=device)
+    pp = multigrid.level_pack_plan(ah, band_offsets)
+    packed = pp is not None
+    plan = oid = None
+    if packed:
+        plan, oid = pp[0], torch.as_tensor(pp[1], device=device)
     sync()
     t_groups = time.perf_counter() - t1
 
     t2 = time.perf_counter()
-    A0 = assemble_sipg_banded_direct(ah, groups, offsets=band_offsets)
+    A0 = assemble_sipg_banded_direct(ah, groups, offsets=band_offsets,
+                                     pack_plan=plan, pack_oid=oid)
     u_ex = lambda x: torch.prod(torch.sin(math.pi * x), dim=-1)
     f = lambda x: dim * math.pi**2 * u_ex(x)
     b = assemble_rhs_direct(ah, groups, f, u_ex)
@@ -121,11 +147,14 @@ def setup_flagship(
         coarse_solver=coarse_solver, device=device)
     sync()
     t_mg = time.perf_counter() - t3
+    if packed and not isinstance(mg.ells[-1], BlockPacked):
+        raise RuntimeError("the packed path is not engaged")
     return Flagship(
         handlers=handlers, mg=mg, b=b, band_offsets=band_offsets,
         grid_shapes=grid_shapes,
         setup_phases=dict(hierarchy=t_hier, groups=t_groups,
-                          assemble0=t_asm0, mg_setup=t_mg))
+                          assemble0=t_asm0, mg_setup=t_mg),
+        relabel=relabel, format="packed" if packed else "banded")
 
 
 def solve_flagship(fs: Flagship, rtol: float = 1e-8, fmg: bool = True,

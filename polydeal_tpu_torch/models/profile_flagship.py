@@ -2,10 +2,11 @@
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
-    python -m polydeal_tpu_torch.models.profile_flagship
+    python -m polydeal_tpu_torch.models.profile_flagship [--relabel none]
 
-Sets the flagship (n=64, p=1) up on ``cuda:0`` and measures, in one
-process:
+Sets the flagship (n=64, p=1) up on ``cuda:0`` -- with ``--relabel none``
+without the lex relabel, so the fine level and levels 4096 and 32768 are
+packed and run K6/K7 -- and measures, in one process:
 
 * warm solves on the host clock (synchronised): two warm-ups, then
   five timed solves;
@@ -19,13 +20,15 @@ process:
   operations by total time.  The profiler slows the host's dispatch, so
   the traced solve is slower than the untimed ones and its idle share is
   an upper bound for them;
-* one traced warm fine-level band assembly, read the same way.
+* one traced warm fine-level band assembly (straight into the packed
+  format when the fine level is packed), read the same way.
 
 Prints the card and a table, and last one JSON object with every number.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -116,12 +119,16 @@ def _traced(fn, top: int):
     return (hi - lo) / 1e3, busy / 1e3, ops
 
 
-def main() -> int:
+def main(argv=None) -> int:
     from polydeal_tpu_torch.assembly.sipg import (
         assemble_sipg_banded_direct, build_banded_groups)
     from polydeal_tpu_torch.models.flagship import (setup_flagship,
                                                     solve_flagship)
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--relabel", choices=("lex", "none"), default="lex",
+                    help="the hierarchy's numbering (none: packed levels)")
+    relabel = None if ap.parse_args(argv).relabel == "none" else "lex"
     if not torch.cuda.is_available():
         raise SystemExit("profile_flagship: needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -131,7 +138,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    fs = setup_flagship(n=N, device=dev)
+    fs = setup_flagship(n=N, device=dev, relabel=relabel)
     mg = fs.mg
     nb = mg.ells[-1].n_basis
     bt = fs.b.reshape(-1, nb).T.contiguous()
@@ -154,7 +161,11 @@ def main() -> int:
     fine = fs.handlers[-1]
     tabs = build_banded_groups(fine, fs.band_offsets, torch.float32,
                                device=dev)
-    band = lambda: assemble_sipg_banded_direct(fine, tabs, fs.band_offsets)
+    A = mg.ells[-1]
+    pack = (dict(pack_plan=A.plan, pack_oid=A.oid) if fs.format == "packed"
+            else {})
+    band = lambda: assemble_sipg_banded_direct(fine, tabs, fs.band_offsets,
+                                               **pack)
     parts["fine_band_ms"] = _cuda_ms(band, reps=5)
     band_span, band_busy, band_ops = _traced(band, top=8)
     del tabs
@@ -163,6 +174,7 @@ def main() -> int:
 
     out = dict(
         card=smi, n=N, n_dofs=fs.n_dofs, levels=fs.level_sizes,
+        relabel=fs.relabel, fine_format=fs.format,
         iterations=res.iterations,
         setup_phases_s=fs.setup_phases,
         warm_solve_s=walls, warm_solve_median_s=statistics.median(walls),

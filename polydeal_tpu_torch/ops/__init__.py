@@ -9,6 +9,16 @@ from polydeal_tpu_torch.ops.fused_cheb import (
     banded_cheb_step_t_ref,
     banded_residual_t,
     banded_residual_t_ref,
+    packed_cheb_step_t,
+    packed_cheb_step_t_ref,
+    packed_residual_t,
+    packed_residual_t_ref,
+)
+from polydeal_tpu_torch.ops.packed import (
+    PackPlan,
+    build_pack_plan,
+    packed_matvec_t,
+    packed_matvec_t_ref,
 )
 from polydeal_tpu_torch.ops.sipg_kernels import (
     boundary_blocks,
@@ -26,6 +36,14 @@ __all__ = [
     "banded_cheb_step_t_ref",
     "banded_residual_t",
     "banded_residual_t_ref",
+    "PackPlan",
+    "build_pack_plan",
+    "packed_matvec_t",
+    "packed_matvec_t_ref",
+    "packed_cheb_step_t",
+    "packed_cheb_step_t_ref",
+    "packed_residual_t",
+    "packed_residual_t_ref",
     "volume_blocks",
     "volume_blocks_ref",
     "face_group_blocks",

@@ -47,8 +47,10 @@ def banded_matvec_t_imajor_ref(data_i: torch.Tensor, offsets, nb: int,
     return torch.einsum("ikjp,kjp->ip", D, Xg)
 
 
-def check_kernel_args(data_i, offsets, nb, vecs):
-    """Validate what the CUDA kernels take; returns (n_off, R_pad, P)."""
+def check_kernel_args(data_i, offsets, nb, vecs, n_slots=None):
+    """Validate what the CUDA kernels take; returns (n_off, R_pad, P).
+    Each i-slab holds ``n_slots`` row blocks (default: one per offset; the
+    packed format's K)."""
     dev = data_i.device
     if data_i.dim() != 2 or nb <= 0 or data_i.shape[0] % nb:
         raise ValueError(f"data_i {tuple(data_i.shape)} is not [nb*R_pad, P]"
@@ -60,8 +62,9 @@ def check_kernel_args(data_i, offsets, nb, vecs):
     P = data_i.shape[1]
     R_pad = data_i.shape[0] // nb
     n_off = offsets.numel()
-    if R_pad < n_off * nb:
-        raise ValueError(f"R_pad={R_pad} < n_off*nb={n_off * nb}")
+    slots = n_off if n_slots is None else n_slots
+    if R_pad < slots * nb:
+        raise ValueError(f"R_pad={R_pad} < slots*nb={slots * nb}")
     vdt = vecs[0].dtype
     if vdt not in _VEC_DTYPES:
         raise TypeError(f"vector dtype {vdt} not supported (f32 or f64)")

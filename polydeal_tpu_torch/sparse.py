@@ -1,6 +1,8 @@
-"""Banded block matrix with dense n_b x n_b blocks, on torch tensors.
+"""Banded and packed block matrices with dense n_b x n_b blocks, on torch
+tensors.
 
-Counterpart of ``polydeal_tpu/sparse.py`` ``BlockBanded``.  The polytope
+Counterpart of ``polydeal_tpu/sparse.py`` ``BlockBanded`` and
+``BlockPacked``.  The polytope
 axis P is last, every column access is a shift by a band offset, and the
 zero blocks stored at rows lacking an offset annihilate what falls outside
 the matrix.  Offsets stay a host numpy array (they shape the program), with
@@ -9,7 +11,9 @@ an int32 device copy for the kernels.
 SpMV dispatch: a band with the i-major copy ``data_i`` multiplies through
 K1 (``ops/banded.py``), which launches the CUDA kernel on a CUDA tensor and
 runs its plain version on a CPU tensor; a band without it runs the plain
-roll+einsum over the o-major ``data``.
+roll+einsum over the o-major ``data``.  A ``BlockPacked`` (the per-lane
+K-slot format of ``ops/packed.py``, for wide offset sets) multiplies
+through K6 and smooths through K7.
 """
 
 from __future__ import annotations
@@ -23,9 +27,12 @@ from polydeal_tpu_torch.ops.banded import banded_matvec_t_imajor
 from polydeal_tpu_torch.ops.fused_cheb import (
     banded_cheb_step_t,
     banded_residual_t,
+    packed_cheb_step_t,
+    packed_residual_t,
 )
+from polydeal_tpu_torch.ops.packed import PackPlan, packed_matvec_t
 
-__all__ = ["BlockBanded"]
+__all__ = ["BlockBanded", "BlockPacked", "pack_blocks"]
 
 
 @dataclass
@@ -154,6 +161,204 @@ class BlockBanded:
             return torch.stack([self.data_i[i * R_pad + k0 * nb + i]
                                 for i in range(nb)], dim=0)
         return torch.stack([self.data[k0, i, i, :] for i in range(nb)], dim=0)
+
+    def diagonal(self) -> torch.Tensor:
+        """Flat main diagonal [P * nb]."""
+        return self.diagonal_t().T.reshape(-1)
+
+    def to_packed(self, plan: PackPlan, oid: torch.Tensor, far_rows=None,
+                  far_cols=None) -> "BlockPacked":
+        """Pack the wide band into the per-lane K-slot format
+        (``ops/packed.py``); ``oid`` [K, P] int32 is on the band's device
+        and ``far_rows``/``far_cols`` (from ``build_pack_plan``) are the
+        block-COO tail, extracted in their (offset, row) order.  A masked
+        selection per slot (offsets in one slot are conflict-free: at most
+        one is active per lane); needs the o-major ``data``."""
+        if self._omajor_dropped():
+            raise ValueError("to_packed needs the o-major band")
+
+        def row(o):
+            b_idx = int(np.searchsorted(self.offsets, o))
+            if b_idx >= self.offsets.shape[0] or self.offsets[b_idx] != o:
+                raise ValueError(f"plan offset {o} not in the band")
+            return self.data[b_idx]
+
+        far_data = None
+        if far_rows is not None and far_rows.size:
+            foffs = far_cols - far_rows  # sorted by (offset, row)
+            far_data = torch.cat([
+                row(int(o))[:, :, torch.as_tensor(
+                    far_rows[foffs == o], device=self.data.device)]
+                .permute(2, 0, 1) for o in np.unique(foffs)], dim=0)
+        return BlockPacked(data_i=pack_blocks(row, plan, oid), oid=oid,
+                           plan=plan, far_data=far_data, far_rows=far_rows,
+                           far_cols=far_cols)
+
+
+def pack_blocks(block_of, plan: PackPlan, oid: torch.Tensor) -> torch.Tensor:
+    """The packed ``data_i`` [nb * R_pad, P]: slot k at lane p holds
+    ``block_of(offset)`` [nb, nb, P] of the offset ``oid[k, p]`` names
+    (offsets in one slot are conflict-free: at most one is active per
+    lane), zero where the slot is empty; rows (i, k, j), each i-slab
+    zero-padded to R_pad rows."""
+    packed_k = []
+    for k in range(plan.K):
+        acc = None
+        for o_idx in plan.slots[k]:
+            blk = block_of(plan.offsets[o_idx])
+            acc = torch.where((oid[k] == o_idx)[None, None, :], blk,
+                              blk.new_zeros(()) if acc is None else acc)
+        packed_k.append(acc)
+    nb, _, P = packed_k[0].shape
+    pad = plan.R_pad - plan.K * nb
+    slabs = []
+    for i in range(nb):
+        slabs += [pk[i] for pk in packed_k]
+        if pad:
+            slabs.append(packed_k[0].new_zeros((pad, P)))
+    return torch.cat(slabs, dim=0)
+
+
+@dataclass
+class BlockPacked:
+    """Per-lane packed banded block matrix (see ``ops/packed.py``).
+
+    ``data_i`` [nb * R_pad, P] i-major packed slabs; ``oid`` [K, P] int32
+    on the same device (which offset each slot holds per lane, -1 = none);
+    ``plan`` the host colouring; ``far_data`` [n_far, nb, nb] with host
+    ``far_rows``/``far_cols`` the block-COO tail of offsets split off the
+    slots (none under the single-device full colouring)."""
+
+    data_i: torch.Tensor
+    oid: torch.Tensor
+    plan: PackPlan
+    far_data: torch.Tensor | None = None
+    far_rows: np.ndarray | None = None
+    far_cols: np.ndarray | None = None
+    offsets_t: torch.Tensor = field(init=False, repr=False)
+
+    def __post_init__(self):
+        dev = self.data_i.device
+        self.offsets_t = torch.as_tensor(self.plan.offsets,
+                                         dtype=torch.int32, device=dev)
+        if self._has_far():
+            self._far_rows_t = torch.as_tensor(self.far_rows, device=dev)
+            self._far_cols_t = torch.as_tensor(self.far_cols, device=dev)
+
+    def _has_far(self) -> bool:
+        return self.far_data is not None and self.far_rows.size > 0
+
+    @property
+    def n_basis(self) -> int:
+        return self.plan.nb
+
+    @property
+    def n_block_rows(self) -> int:
+        return self.data_i.shape[-1]
+
+    @property
+    def n_block_cols(self) -> int:
+        return self.data_i.shape[-1]
+
+    @property
+    def shape(self):
+        n = self.n_basis * self.n_block_rows
+        return (n, n)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data_i.dtype
+
+    def astype(self, dtype) -> "BlockPacked":
+        fd = None if self.far_data is None else self.far_data.to(dtype)
+        return BlockPacked(self.data_i.to(dtype), self.oid, self.plan, fd,
+                           self.far_rows, self.far_cols)
+
+    def matvec_t(self, xt: torch.Tensor) -> torch.Tensor:
+        """Transposed-layout SpMV (K6, plus the far tail): [nb, P] ->
+        [nb, P]."""
+        y = packed_matvec_t(self.data_i, self.oid, self.offsets_t,
+                            self.n_basis, xt.contiguous())
+        if self._has_far():
+            # block-COO tail: gather, block products, scatter-add by row
+            g = xt.T[self._far_cols_t]  # [n_far, nb]
+            prod = torch.einsum("kij,kj->ki", self.far_data.to(xt.dtype), g)
+            yb = torch.zeros((self.n_block_rows, self.n_basis),
+                             dtype=xt.dtype, device=xt.device)
+            y = y + yb.index_add_(0, self._far_rows_t, prod).T
+        return y
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        xt = x.reshape(self.n_block_rows, self.n_basis).T
+        y = self.matvec_t(xt)
+        return y.T.reshape(-1) if x.dim() == 1 else y.T
+
+    def fused_cheb_ok(self) -> bool:
+        """Fused smoothing (K7) covers full-colouring packs only: a far
+        block-COO tail would be missing from the kernel's A x."""
+        return not self._has_far()
+
+    def cheb_step_t(self, xt, dvec, b, dinv, c1: float, c2: float):
+        """Fused Chebyshev step (K7); see :meth:`BlockBanded.cheb_step_t`."""
+        t = xt.dtype
+
+        def vec(v):
+            return None if v is None else v.to(t).contiguous()
+
+        return packed_cheb_step_t(self.data_i, self.oid, self.offsets_t,
+                                  self.n_basis, xt.contiguous(), vec(dvec),
+                                  vec(b), vec(dinv), c1, c2)
+
+    def residual_t(self, xt, b):
+        """Fused r = b - A x (K7) in the transposed layout."""
+        return packed_residual_t(self.data_i, self.oid, self.offsets_t,
+                                 self.n_basis, xt.contiguous(),
+                                 b.to(xt.dtype).contiguous())
+
+    def _slot_block(self, k: int) -> torch.Tensor:
+        """[nb, nb, P]: the rows (i, k, j) of slot k."""
+        nb, R_pad = self.n_basis, self.plan.R_pad
+        return self.data_i.reshape(nb, R_pad, -1)[:, k * nb:(k + 1) * nb]
+
+    def to_banded(self) -> BlockBanded:
+        """Exact unpack to the dense band (per-slot masked expansion)."""
+        if self._has_far():
+            raise ValueError("cannot unpack a pack with a far tail")
+        plan = self.plan
+        slot_of = {o: k for k, sl in enumerate(plan.slots) for o in sl}
+        zero = torch.zeros((), dtype=self.dtype, device=self.data_i.device)
+        rows = [torch.where((self.oid[slot_of[o]] == o)[None, None, :],
+                            self._slot_block(slot_of[o]), zero)
+                for o in range(len(plan.offsets))]
+        return BlockBanded(data=torch.stack(rows, dim=0),
+                           offsets=np.asarray(plan.offsets, dtype=np.int64),
+                           n_block_cols=self.n_block_cols)
+
+    def sparsity_pairs(self):
+        """(src, dst) directed block pairs of this pack (host numpy),
+        including any far tail, without the diagonal: enough to rebuild a
+        plan."""
+        oid = self.oid.cpu().numpy()
+        offs = np.asarray(self.plan.offsets)
+        ks, ps = np.nonzero(oid >= 0)
+        src = ps.astype(np.int64)
+        dst = src + offs[oid[ks, ps]]
+        if self._has_far():
+            src = np.concatenate([src, np.asarray(self.far_rows)])
+            dst = np.concatenate([dst, np.asarray(self.far_cols)])
+        keep = src != dst
+        return src[keep], dst[keep]
+
+    def diagonal_t(self) -> torch.Tensor:
+        """[nb, P].  Offset 0 is on every lane, so it conflicts with every
+        other offset and the colouring gives it a slot of its own."""
+        plan = self.plan
+        o0 = plan.offsets.index(0)
+        (s0,) = [k for k, sl in enumerate(plan.slots) if o0 in sl]
+        if plan.slots[s0] != (o0,):
+            raise ValueError("offset 0 must be alone in its slot")
+        blk = self._slot_block(s0)
+        return torch.stack([blk[i, i] for i in range(self.n_basis)], dim=0)
 
     def diagonal(self) -> torch.Tensor:
         """Flat main diagonal [P * nb]."""

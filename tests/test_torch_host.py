@@ -142,19 +142,30 @@ def test_banded_groups_equal(name):
 
 
 def test_port_never_imports_jax():
-    """``import polydeal_tpu_torch`` plus a full small flagship solve leave
-    jax and the JAX package out of sys.modules."""
+    """``import polydeal_tpu_torch`` plus a full small flagship solve, and
+    a packed one without the relabel, leave jax and the JAX package out of
+    sys.modules."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
         "import polydeal_tpu_torch\n"
+        "import polydeal_tpu_torch.interop\n"
         "import polydeal_tpu_torch.models.profile_flagship\n"
+        "import polydeal_tpu_torch.ops.packed\n"
+        "from polydeal_tpu_torch.sparse import BlockPacked\n"
+        "from polydeal_tpu_torch.solvers import multigrid\n"
         "from polydeal_tpu_torch.models.flagship import (setup_flagship,\n"
         "                                                solve_flagship)\n"
         "fs = setup_flagship(n=4, device=torch.device('cpu'),\n"
         "                    dtype=torch.float64, precond_dtype=None)\n"
         "res = solve_flagship(fs)\n"
         "assert res.iterations > 0\n"
+        "multigrid.PACK_MIN_P = 0\n"
+        "fs = setup_flagship(n=8, device=torch.device('cpu'),\n"
+        "                    dtype=torch.float64, precond_dtype=None,\n"
+        "                    relabel=None)\n"
+        "assert isinstance(fs.mg.ells[-1], BlockPacked)\n"
+        "assert solve_flagship(fs).iterations > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'polydeal_tpu')]\n"
         "print('BAD', bad)\n"
