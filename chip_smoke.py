@@ -29,7 +29,19 @@ Phases (each must pass; nothing falls back to the CPU):
      phase 5's f64 one; then K6/K7 against their plain versions on every
      packed level's real pack (all three K7 modes, f32 and f64), timed
      beside a torch.sparse CSR product of the same pack; then a small f64
-     packed solve (n=16) on the card against the same solve on the CPU.
+     packed solve (n=16) on the card against the same solve on the CPU;
+  7. the monodomain at bench.py's bench_monodomain configuration (3D,
+     n_refinements=6: 1,048,576 DoF, p=1, lex relabel, BDF2 with dt=5e-5,
+     one BDF1 step then 20 BDF2 steps, R3MG-preconditioned CG to rtol
+     1e-8): 2-5 CG iterations a step, u finite with max u at quadrature in
+     (0.01, 2.0), K0-K5 launched, and the integrals of u and u^2 within
+     1e-3 of an f64 run of the same steps on the card; then a small f64
+     monodomain (n_refinements=3, five steps) on the card against the CPU.
+K0 (o-major banded SpMV) is held against its plain version on the real
+bands of phases 5-7 once each exists (phase 3's check, on real bands): the
+4096-lane lex flagship level in f32 and as its bf16 smoother copy, the
+19-offset 512-lane level without the relabel, the monodomain's 64-, 512-
+and 4096-lane levels and its fine band, each also in f64.
 Prints the card, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}.
 """
@@ -44,6 +56,11 @@ import time
 import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# monodomain: BDF2 steps after the BDF1 one (bench.py's n_steps), and those
+# of its f64 reference run
+MONO_STEPS = 20
+MONO_STEPS_F64 = 20
 
 # flagship fine level: nb=4 (p=1, 3D), 7 offsets of the lex-relabelled
 # 64^3 grid, R_pad = 28, P = 64^3
@@ -455,8 +472,8 @@ def small_solve_check(torch, dev, **kw):
 
 
 def level_formats(fs) -> list:
-    """Per level, coarse to fine: (P, "banded", n_off) or (P, "packed",
-    n_off, K, R_pad, max |offset|)."""
+    """Per level of ``fs.mg``, coarse to fine: (P, "banded", n_off) or (P,
+    "packed", n_off, K, R_pad, max |offset|)."""
     out = []
     for e in fs.mg.ells:
         if hasattr(e, "plan"):
@@ -587,6 +604,192 @@ def check_packed_levels(torch, fs, dev):
     return out
 
 
+def k0_work(band, data, vsz: int):
+    """(bytes, operations) of one K0 call on ``band``'s offsets with
+    ``data``: the band entries this band's offsets reach (a lane whose
+    column leaves [0, P) reads none) once, x read once, y written once."""
+    nb, P = band.n_basis, band.n_block_rows
+    live = sum(max(0, P - abs(int(o))) for o in band.offsets) * nb * nb
+    return live * data.element_size() + 2 * nb * P * vsz, 2 * live
+
+
+def check_k0(torch, label, band, out):
+    """K0 against its plain version on a real o-major band, in the band's
+    type (f32 vectors for a bf16 or f32 band) and as f64, 1e-5 / 1e-12
+    relative to the largest entry; timed beside the plain version and, for
+    an f32 band, a torch.sparse CSR product of the same band.  Adds each
+    case to ``out`` (label -> row)."""
+    from polydeal_tpu_torch.ops import (banded_matvec_t_omajor,
+                                        banded_matvec_t_omajor_ref)
+    from polydeal_tpu_torch.sparse import BlockBanded
+
+    dev = band.data.device
+    nb, P = band.n_basis, band.n_block_rows
+    offs = band.offsets_t
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for data in (band.data, band.data.double()):
+        dname = str(data.dtype).split(".")[-1]
+        vdt = torch.float64 if dname == "float64" else torch.float32
+        x = torch.randn(nb, P, generator=gen, device=dev,
+                        dtype=torch.float64).to(vdt)
+        kf = lambda: banded_matvec_t_omajor(data, offs, x)
+        pf = lambda: banded_matvec_t_omajor_ref(data, offs, x)
+        got, ref = kf(), pf()
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        ms, pms = time_pair(torch, kf, pf)
+        nbytes, flops = k0_work(band, data, x.element_size())
+        b_ms, b_by = bound(nbytes, flops,
+                           "float64" if dname == "float64" else "float32")
+        lms = None
+        if dname == "float32":
+            bi = BlockBanded(data, band.offsets, P).with_imajor()
+            A = csr_of_band(torch, bi.data_i, band.offsets.tolist(), nb,
+                            bi.data_i.shape[0] // nb, P)
+            xf = x.T.contiguous().view(-1)
+            yl = torch.mv(A, xf).view(P, nb).T
+            lerr = float((yl - got).abs().max()) / float(yl.abs().max())
+            if not lerr <= TOL[dname]:
+                fail(f"CSR product disagrees with K0 on {label}: rel "
+                     f"{lerr:.3e}")
+            lms = time_one(torch, lambda: torch.mv(A, xf))
+            del A, xf, yl, bi
+        row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lms)
+        out[f"{label} {dname}"] = row
+        log(f"  K0 {label} {dname} (P={P}, {len(band.offsets)} offsets, "
+            f"max |offset| {int(abs(band.offsets).max())}): "
+            f"max_abs_err={err:.3e} rel={rel:.3e} (tol {TOL[dname]:g}); "
+            f"{ms:.4f} ms (plain {pms:.4f}, CSR "
+            f"{'-' if lms is None else f'{lms:.4f}'}; bound {b_ms:.4f} "
+            f"{b_by}: {nbytes / 1e6:.2f} MB)")
+        if not rel <= TOL[dname]:
+            fail(f"K0 disagrees with its plain version on {label} {dname}: "
+                 f"rel {rel:.3e} > {TOL[dname]:g}")
+        del data, x, got, ref
+
+
+def mono_steps(solver, n_steps):
+    """One BDF1 step, then ``n_steps`` BDF2 steps (bench_monodomain's
+    order); returns (u, w, iterations per step, the BDF2 steps' wall
+    seconds, synchronised)."""
+    import torch
+
+    dt = solver.cfg.dt
+    u, w = solver.initial_state()
+    sync = torch.cuda.synchronize if u.is_cuda else (lambda: None)
+    u1, w1, it1 = solver.step(u, u, w, 0.0, True)
+    sync()
+    t0 = time.perf_counter()
+    uf, _, wf, its = solver.steps_scan(u1, u, w1, dt, n_steps)
+    sync()
+    return uf, wf, [it1] + its, time.perf_counter() - t0
+
+
+def integrals(solver, u):
+    """(int u, int u^2) over the fine mesh: independent of the numbering."""
+    uq = solver.u_at_quad(u).double()
+    w = solver.w_t.double()
+    return float((w * uq).sum()), float((w * uq * uq).sum())
+
+
+def small_mono_check(torch, dev):
+    """The monodomain at n_refinements=3 (levels 8/64/512, all on K0), f64,
+    one BDF1 and four BDF2 steps, on the card against the CPU: the same
+    iterations per step and u within 1e-10."""
+    from polydeal_tpu_torch.models.monodomain import (MonodomainSolver,
+                                                      bench_config)
+
+    res = {}
+    for name, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        s = MonodomainSolver.build(bench_config(3), dtype=torch.float64,
+                                   relabel="lex", device=device)
+        u, w, its, _ = mono_steps(s, 4)
+        res[name] = (its, u.cpu(), w.cpu())
+    (ic, uc, wc), (ig, ug, wg) = res["cpu"], res["cuda"]
+    du = float((uc - ug).abs().max())
+    dw = float((wc - wg).abs().max())
+    log(f"  n_refinements=3 f64: iterations cpu {ic}, cuda {ig}; "
+        f"max |u_cuda - u_cpu| = {du:.3e} (max |u| {float(uc.abs().max()):.3e}"
+        f"), max |w_cuda - w_cpu| = {dw:.3e}")
+    if ic != ig or not du <= 1e-10:
+        fail("small f64 monodomain on the card disagrees with the CPU")
+
+
+def phase7(torch, dev, k0):
+    """Phase 7: the monodomain at bench_monodomain's configuration on the
+    card, its f64 run, K0 on its real bands and the small card-against-CPU
+    check; returns the launch counts of the f32 run (setup, a cold and a
+    warm pass of the steps)."""
+    from polydeal_tpu_torch.models.monodomain import (MonodomainSolver,
+                                                      bench_config)
+    from polydeal_tpu_torch.ops import _build
+
+    log("phase 7: monodomain, bench_monodomain's configuration, on the card")
+    _build.reset_launches()
+    ms = MonodomainSolver.build(bench_config(6), relabel="lex", device=dev)
+    mono_steps(ms, MONO_STEPS)  # cold
+    u, w, its, wall = mono_steps(ms, MONO_STEPS)
+    counts = dict(_build.launches)
+    n_dofs = ms.handler.n_dofs
+    formats = [(e.n_block_rows, "banded" if e.data_i is None else
+                "banded+i-major", len(e.offsets)) for e in ms.mg.ells]
+    phases = {k: round(v, 3) for k, v in ms.setup_phases.items()}
+    uq_max = float(ms.u_at_quad(u).max())
+    log(f"  levels (P, format, offsets): {formats}, {n_dofs} DoF")
+    log(f"  setup phases (s): {phases}")
+    log(f"  {MONO_STEPS} warm BDF2 steps: {wall:.4f} s, "
+        f"{MONO_STEPS / wall:.2f} steps/s, "
+        f"{n_dofs * MONO_STEPS / wall:.1f} DoF*steps/s")
+    log(f"  CG iterations per step (BDF1, then BDF2): {its}, mean over the "
+        f"BDF2 steps {sum(its[1:]) / MONO_STEPS:.3f}")
+    log(f"  max u at quadrature {uq_max:.6f}")
+    log(f"  launches over setup + 2 passes of the steps: {counts}")
+    if tuple(u.shape) != (n_dofs,) or not bool(torch.isfinite(u).all()):
+        fail("monodomain u has the wrong shape or non-finite values")
+    if n_dofs != 1048576:
+        fail(f"monodomain has {n_dofs} DoF, not 1,048,576")
+    if not 0.01 < uq_max < 2.0:
+        fail(f"monodomain max u {uq_max:.4f} outside (0.01, 2.0)")
+    if not all(2 <= i <= 5 for i in its):
+        fail(f"monodomain CG iterations {its} outside 2-5 per step")
+    for name in ("banded_matvec_omajor", "banded_matvec_imajor",
+                 "banded_fused_cheb", "volume_blocks", "face_group_blocks",
+                 "boundary_blocks"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was never launched on the monodomain path")
+    # the f32 state the f64 run is held to: the same steps
+    u32 = (u if MONO_STEPS_F64 == MONO_STEPS
+           else mono_steps(ms, MONO_STEPS_F64)[0])
+    m32 = integrals(ms, u32)
+    for e in ms.mg.ells[1:4]:  # 64, 512 and 4096 lanes: K0's levels
+        check_k0(torch, f"monodomain {e.n_block_rows}-lane", e, k0)
+    check_k0(torch, "monodomain fine (block-Jacobi operator)", ms.A, k0)
+    del ms, u, w
+    torch.cuda.empty_cache()
+
+    ref = MonodomainSolver.build(bench_config(6), dtype=torch.float64,
+                                 relabel="lex", device=dev)
+    u64, _, its64, wall64 = mono_steps(ref, MONO_STEPS_F64)
+    m64 = integrals(ref, u64)
+    del ref
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(m32, m64)]
+    # not gated: a sharp Heaviside of the ionic model may flip at single
+    # quadrature points between f32 and f64
+    dmax = float((u32.double() - u64).abs().max())
+    log(f"  f64 run ({MONO_STEPS_F64} BDF2 steps, {wall64:.4f} s): "
+        f"iterations {its64}; int u {m64[0]:.9e} (f32 {m32[0]:.9e}, rel "
+        f"{rel[0]:.3e}), int u^2 {m64[1]:.9e} (f32 {m32[1]:.9e}, rel "
+        f"{rel[1]:.3e}); max |u_32 - u_64| {dmax:.3e} (max |u_64| "
+        f"{float(u64.abs().max()):.3e})")
+    if not max(rel) <= 1e-3:
+        fail(f"monodomain f32 integrals differ from the f64 run by {rel}")
+    small_mono_check(torch, dev)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -657,7 +860,8 @@ def main() -> int:
     if not 18 <= res.iterations <= 22:
         fail(f"flagship took {res.iterations} iterations, outside 18-22")
     for name in ("banded_matvec_imajor", "banded_fused_cheb",
-                 "volume_blocks", "face_group_blocks", "boundary_blocks"):
+                 "banded_matvec_omajor", "volume_blocks",
+                 "face_group_blocks", "boundary_blocks"):
         if counts[name] <= 0:
             fail(f"kernel {name} was never launched on the main path")
 
@@ -685,6 +889,13 @@ def main() -> int:
     del ref, res64
     torch.cuda.empty_cache()
     level_sipg_check(torch, fs, dev)
+    # K0 serves the 4096-lane level (no i-major copy): its f32 band and
+    # the bf16 copy the smoother multiplies by
+    if fs.mg.ells[1].data_i is not None:
+        fail("the 4096-lane lex level carries an i-major copy")
+    k0 = {}
+    check_k0(torch, "lex flagship 4096-lane", fs.mg.ells[1], k0)
+    check_k0(torch, "lex flagship 4096-lane bf16 copy", fs.mg.lo_ells[1], k0)
     del fs, res, x
     torch.cuda.empty_cache()
 
@@ -732,17 +943,24 @@ def main() -> int:
             fail(f"kernel {name} was never launched on the packed path")
     del resp, xp, x64_cells
     kres.update(check_packed_levels(torch, fsp, dev))
+    check_k0(torch, "relabel=None 512-lane", fsp.mg.ells[0], k0)
     del fsp
     torch.cuda.empty_cache()
     formats16 = small_solve_check(torch, dev, relabel=None)
     if not all(f[1] == "packed" for f in formats16[1:]):
         fail(f"small packed solve levels are {formats16}")
 
+    counts7 = phase7(torch, dev, k0)
+    kres["K0"] = dict(k0["monodomain 4096-lane float32"],
+                      max_abs_err=max(r["max_abs_err"] for r in k0.values()))
+
     banded, sipg, packed = ("polydeal_tpu_torch/csrc/banded.cu",
                             "polydeal_tpu_torch/csrc/sipg.cu",
                             "polydeal_tpu_torch/csrc/packed.cu")
     rows = [("banded_matvec_imajor", "K1", banded,
              "polydeal_tpu/ops/banded.py:65"),
+            ("banded_matvec_omajor", "K0", banded,
+             "polydeal_tpu/ops/banded.py:176"),
             ("banded_fused_cheb", "K2", banded,
              "polydeal_tpu/ops/fused_cheb.py:210"),
             ("volume_blocks", "volume_blocks", sipg,
@@ -756,10 +974,10 @@ def main() -> int:
             ("packed_fused_cheb", "K7", packed,
              "polydeal_tpu/ops/fused_cheb.py:122")]
     # launches: each kernel's count on its path (K1-K5 phase 5, K6/K7
-    # phase 6)
+    # phase 6, K0 phase 7)
+    path = {"K6": counts6, "K7": counts6, "K0": counts7}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rpl,
-                    launches=(counts6 if key in ("K6", "K7")
-                              else counts)[name], **kres[key])
+                    launches=path.get(key, counts)[name], **kres[key])
                for name, key, src, rpl in rows]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
 from polydeal_tpu_torch.assembly.sipg import (
+    assemble_mass_banded_direct,
     assemble_rhs_direct,
     assemble_sipg_banded_direct,
     build_banded_groups,
@@ -12,4 +13,5 @@ __all__ = [
     "build_banded_groups",
     "assemble_rhs_direct",
     "assemble_sipg_banded_direct",
+    "assemble_mass_banded_direct",
 ]

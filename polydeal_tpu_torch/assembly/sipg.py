@@ -36,6 +36,7 @@ __all__ = [
     "build_banded_groups",
     "assemble_rhs_direct",
     "assemble_sipg_banded_direct",
+    "assemble_mass_banded_direct",
 ]
 
 
@@ -240,3 +241,20 @@ def assemble_sipg_banded_direct(
     if pack_plan is not None:
         return _emit_packed(pieces, offsets, pack_plan, pack_oid)
     return _emit_banded(pieces, offsets, nb, P, layout)
+
+
+def assemble_mass_banded_direct(ah: AgglomerationHandler, tables: dict,
+                                coeff_fn=None, basis=None) -> torch.Tensor:
+    """Block-diagonal mass matrix over the slot-padded tables, in the
+    band-row layout [nb, nb, P] (add it to a band's offset-0 row).  An
+    einsum, as in the JAX package: no TPU kernel computes it.
+    ``coeff_fn`` maps real points [..., dim] to a coefficient [...]."""
+    basis = basis or ah.basis
+    vol = tables["vol"]
+    B = basis.eval_t(vol["pts"])  # [C, q, nb, P]
+    w = vol["w"]
+    if coeff_fn is not None:
+        ext_t, lo_t = tables["ext_t"], tables["lo_t"]
+        r = lo_t[None, None] + vol["pts"] * ext_t[None, None]
+        w = w * coeff_fn(torch.movedim(r, 2, -1))
+    return torch.einsum("cqip,cqjp,cqp->ijp", B, B, w)

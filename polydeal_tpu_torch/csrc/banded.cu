@@ -1,9 +1,11 @@
 // Banded block SpMV (K1) and fused Chebyshev step / residual (K2) for
-// Hopper (sm_90a), over the i-major band layout of BlockBanded.data_i.
+// Hopper (sm_90a), over the i-major band layout of BlockBanded.data_i;
+// and the o-major banded SpMV (K0) over BlockBanded.data.
 //
 // Replaces the TPU Pallas kernels
 //   K1  polydeal_tpu/ops/banded.py      _banded_matvec_imajor_impl
 //   K2  polydeal_tpu/ops/fused_cheb.py  _banded_fused_impl
+//   K0  polydeal_tpu/ops/banded.py      _banded_matvec_impl
 //
 // Layout (shared with the JAX package, so one array feeds either):
 //   data_i [nb * R_pad, P], row i*R_pad + k*nb + j multiplies x[j, p + off_k];
@@ -31,6 +33,21 @@
 // Types: data bf16, f32 or f64; vectors f32 or f64.  Accumulation runs in
 // the vector type (f64 for an f64 solve).  Row offsets use 64-bit
 // arithmetic (row * P exceeds 2^31 beyond ~1.6e7 lanes x rows).
+//
+// K0, the o-major layout: data [n_off, nb, nb, P], element (o, i, j, p) at
+// ((o*nb + i)*nb + j)*P + p, multiplies x[j, p + off_o];
+//   y[i,p] = sum_o sum_j data[o,i,j,p] * x[j, p+off_o], x zero outside [0,P).
+// Accumulation follows the Pallas kernel's contract: f32 for bf16 or f32
+// data, f64 for f64 data; y is written in the vector type.  Bound by memory
+// like K1 (the band is read once), but the path that runs it is the small
+// multigrid levels (64 to 4,096 lanes), where one thread per lane would
+// leave the card nearly empty (16 blocks at 4,096 lanes).  So each thread
+// computes one output (i, p): a grid of (lane blocks, nb), nb times the
+// threads of K1, each reading its own nb*n_off band elements once, coalesced
+// along p, and x[j, p+off_o] through a bounds-checked load (a far offset is
+// one more load, served by L1/L2).  The offset table is staged in shared
+// memory.  The Pallas kernel's lane tiles, halo padding, funnel shifts and
+// x resident in VMEM have no counterpart.
 //
 // Plain C interface for ctypes (built by polydeal_tpu_torch/ops/_build.py):
 // each entry point launches on the given stream and returns
@@ -131,6 +148,46 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K0's accumulator: f64 for f64 data, f32 otherwise
+template <typename TD>
+struct AccOf {
+  using type = float;
+};
+
+template <>
+struct AccOf<double> {
+  using type = double;
+};
+
+template <typename TD, typename TV>
+__global__ void __launch_bounds__(kThreads)
+    banded_matvec_omajor_kernel(const TD* __restrict__ data,
+                                const TV* __restrict__ x,
+                                const int* __restrict__ offsets, int n_off,
+                                int nb, int64_t P, TV* __restrict__ y) {
+  using TA = typename AccOf<TD>::type;
+  extern __shared__ int s_off[];
+  for (int k = threadIdx.x; k < n_off; k += blockDim.x) {
+    s_off[k] = offsets[k];
+  }
+  __syncthreads();
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (p >= P) return;
+  const int i = blockIdx.y;
+  TA acc = TA(0);
+  for (int o = 0; o < n_off; ++o) {
+    const int64_t q = p + s_off[o];
+    if (q < 0 || q >= P) continue;  // x is zero outside [0, P)
+    const TD* rows = data + (static_cast<int64_t>(o) * nb + i) * nb * P + p;
+    for (int j = 0; j < nb; ++j) {
+      acc += load_as<TA>(rows + static_cast<int64_t>(j) * P) *
+             static_cast<TA>(x[static_cast<int64_t>(j) * P + q]);
+    }
+  }
+  y[static_cast<int64_t>(i) * P + p] = static_cast<TV>(acc);
+}
+
 inline unsigned int n_blocks(int64_t P) {
   return static_cast<unsigned int>((P + kThreads - 1) / kThreads);
 }
@@ -158,6 +215,17 @@ int launch_fused(const void* data, const void* x, const int* offsets,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TD, typename TV>
+int launch_omajor(const void* data, const void* x, const int* offsets,
+                  int n_off, int nb, int64_t P, void* y, cudaStream_t s) {
+  const dim3 grid(n_blocks(P), static_cast<unsigned int>(nb));
+  const size_t smem = static_cast<size_t>(n_off) * sizeof(int);
+  banded_matvec_omajor_kernel<TD, TV><<<grid, kThreads, smem, s>>>(
+      static_cast<const TD*>(data), static_cast<const TV*>(x), offsets, n_off,
+      nb, P, static_cast<TV*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Calls F<TD, TV>(args...) for the supported (data, vector) dtype pairs.
 #define PD_DISPATCH(F, data_dt, vec_dt, ...)                             \
   if (vec_dt == F32) {                                                   \
@@ -179,6 +247,14 @@ extern "C" int pd_banded_matvec(const void* data, int data_dt, const void* x,
   PD_DISPATCH(launch_matvec, data_dt, vec_dt, data, x, offsets, n_off, nb,
               R_pad, static_cast<int64_t>(P), y,
               static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int pd_banded_matvec_omajor(const void* data, int data_dt,
+                                       const void* x, int vec_dt,
+                                       const int* offsets, int n_off, int nb,
+                                       long long P, void* y, void* stream) {
+  PD_DISPATCH(launch_omajor, data_dt, vec_dt, data, x, offsets, n_off, nb,
+              static_cast<int64_t>(P), y, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pd_banded_fused(const void* data, int data_dt, const void* x,

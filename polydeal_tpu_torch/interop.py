@@ -1,9 +1,10 @@
 """Carry the JAX package's objects, given as numpy arrays, into the port.
 
 The two packages share layouts on purpose: a band, its i-major copy, a
-pack, the slot-padded assembly tables and the transfer embeddings are the
-same arrays in both.  These helpers build the port's objects from those
-arrays, so tests can run both packages on the same band and tables.
+pack, the slot-padded assembly tables, the transfer embeddings and the
+monodomain state are the same arrays in both.  These helpers build the
+port's objects from those arrays, so tests can run both packages on the
+same band and tables.
 Nothing here imports jax: the caller converts with ``np.asarray``.
 """
 
@@ -17,7 +18,7 @@ from polydeal_tpu_torch.solvers.multigrid import Transfer
 from polydeal_tpu_torch.sparse import BlockBanded, BlockPacked
 
 __all__ = ["banded_from_arrays", "packed_from_arrays", "groups_from_arrays",
-           "transfer_from_arrays"]
+           "transfer_from_arrays", "monodomain_state_from_arrays"]
 
 
 def _t(a, device):
@@ -75,3 +76,9 @@ def transfer_from_arrays(E, parent, n_coarse: int, grid_shape=None, *,
                     n_coarse=int(n_coarse),
                     grid_shape=None if grid_shape is None
                     else tuple(grid_shape))
+
+
+def monodomain_state_from_arrays(u, u_prev, w, *, device) -> tuple:
+    """(u, u_prev, w) tensors from a JAX monodomain state in its layouts:
+    ``u`` and ``u_prev`` [n_dofs], the gating state ``w`` [3, C, q, P]."""
+    return _t(u, device), _t(u_prev, device), _t(w, device)

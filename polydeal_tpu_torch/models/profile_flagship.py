@@ -1,8 +1,10 @@
-"""Where the flagship solve's time goes on a CUDA card.
+"""Where the flagship solve's, or the monodomain step's, time goes on a
+CUDA card.
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
     python -m polydeal_tpu_torch.models.profile_flagship [--relabel none]
+    python -m polydeal_tpu_torch.models.profile_flagship --model monodomain
 
 Sets the flagship (n=64, p=1) up on ``cuda:0`` -- with ``--relabel none``
 without the lex relabel, so the fine level and levels 4096 and 32768 are
@@ -23,6 +25,13 @@ packed and run K6/K7 -- and measures, in one process:
 * one traced warm fine-level band assembly (straight into the packed
   format when the fine level is packed), read the same way.
 
+With ``--model monodomain`` it sets up ``bench.py``'s bench_monodomain
+configuration (n_refinements=6, 1,048,576 DoF, lex relabel) instead and
+measures: the 20 warm BDF2 steps after the BDF1 one on the host clock
+(synchronised; one warm-up pass, then five timed) with the CG iterations
+of every step; one V-cycle and one fine-level SpMV by CUDA events; and
+one traced warm BDF2 step, read as the traced solve above.
+
 Prints the card and a table, and last one JSON object with every number.
 """
 
@@ -36,10 +45,12 @@ import time
 
 import torch
 
-__all__ = ["busy_us", "traced_span", "device_intervals", "main"]
+__all__ = ["busy_us", "traced_span", "device_intervals", "main",
+           "profile_flagship", "profile_monodomain"]
 
 _LABEL = "flagship_solve"  # the traced range's record_function label
 N = 64
+N_STEPS = 20  # monodomain BDF2 steps per timed pass (bench.py's)
 REPEATS = 5
 
 
@@ -119,24 +130,62 @@ def _traced(fn, top: int):
     return (hi - lo) / 1e3, busy / 1e3, ops
 
 
-def main(argv=None) -> int:
+def _print_ops(tables) -> None:
+    for title, rows in tables:
+        print(f"{'device op, ' + title + ' (first 70 chars)':70s} "
+              f"{'count':>6s} {'ms':>9s} {'share':>6s}")
+        for d in rows:
+            print(f"{d['name'][:70]:70s} {d['count']:6d} {d['ms']:9.3f} "
+                  f"{d['share']:6.1%}")
+
+
+def profile_monodomain(dev, smi: str) -> dict:
+    """The monodomain's numbers (see the module docstring)."""
+    from polydeal_tpu_torch.models.monodomain import (MonodomainSolver,
+                                                      bench_config)
+
+    cfg = bench_config(6, N_STEPS)
+    s = MonodomainSolver.build(cfg, relabel="lex", device=dev)
+    dt = cfg.dt
+    u, w = s.initial_state()
+    u1, w1, it1 = s.step(u, u, w, 0.0, True)
+
+    def steps():
+        out = s.steps_scan(u1, u, w1, dt, N_STEPS)
+        torch.cuda.synchronize()
+        return out
+
+    steps()
+    walls = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        _, _, _, iters = steps()
+        walls.append(time.perf_counter() - t0)
+    mg = s.mg
+    parts = dict(v_cycle_ms=_cuda_ms(lambda: mg.v_cycle(u1)),
+                 fine_spmv_ms=_cuda_ms(lambda: mg.ells[-1].matvec(u1)))
+    span, busy, ops = _traced(lambda: s.step(u1, u, w1, dt, False), top=15)
+    med = statistics.median(walls)
+    _print_ops([("one BDF2 step", ops)])
+    return dict(
+        card=smi, model="monodomain", n_dofs=s.handler.n_dofs,
+        levels=[e.n_block_rows for e in mg.ells], relabel="lex",
+        n_steps=N_STEPS, iterations_per_step=[it1] + list(iters),
+        cg_iters_per_step=sum(iters) / N_STEPS,
+        setup_phases_s=s.setup_phases, warm_steps_s=walls,
+        warm_steps_median_s=med, steps_per_s=N_STEPS / med,
+        dof_steps_per_s=s.handler.n_dofs * N_STEPS / med, **parts,
+        traced_step_ms=span, traced_busy_ms=busy,
+        traced_busy_share=busy / span, traced_idle_share=1.0 - busy / span,
+        device_ops=ops)
+
+
+def profile_flagship(dev, smi: str, relabel) -> dict:
+    """The flagship's numbers (see the module docstring)."""
     from polydeal_tpu_torch.assembly.sipg import (
         assemble_sipg_banded_direct, build_banded_groups)
     from polydeal_tpu_torch.models.flagship import (setup_flagship,
                                                     solve_flagship)
-
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--relabel", choices=("lex", "none"), default="lex",
-                    help="the hierarchy's numbering (none: packed levels)")
-    relabel = None if ap.parse_args(argv).relabel == "none" else "lex"
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_flagship: needs a CUDA device")
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
 
     fs = setup_flagship(n=N, device=dev, relabel=relabel)
     mg = fs.mg
@@ -172,8 +221,10 @@ def main(argv=None) -> int:
 
     span, busy, ops = _traced(solve, top=15)
 
-    out = dict(
-        card=smi, n=N, n_dofs=fs.n_dofs, levels=fs.level_sizes,
+    _print_ops([("solve", ops), ("fine band assembly", band_ops)])
+    return dict(
+        card=smi, model="flagship", n=N, n_dofs=fs.n_dofs,
+        levels=fs.level_sizes,
         relabel=fs.relabel, fine_format=fs.format,
         iterations=res.iterations,
         setup_phases_s=fs.setup_phases,
@@ -183,12 +234,29 @@ def main(argv=None) -> int:
         traced_busy_share=busy / span, traced_idle_share=1.0 - busy / span,
         device_ops=ops, traced_band_ms=band_span,
         traced_band_busy_ms=band_busy, band_device_ops=band_ops)
-    for title, rows in (("solve", ops), ("fine band assembly", band_ops)):
-        print(f"{'device op, ' + title + ' (first 70 chars)':70s} "
-              f"{'count':>6s} {'ms':>9s} {'share':>6s}")
-        for d in rows:
-            print(f"{d['name'][:70]:70s} {d['count']:6d} {d['ms']:9.3f} "
-                  f"{d['share']:6.1%}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("flagship", "monodomain"),
+                    default="flagship")
+    ap.add_argument("--relabel", choices=("lex", "none"), default="lex",
+                    help="the flagship hierarchy's numbering (none: packed "
+                         "levels)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_flagship: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    if args.model == "monodomain":
+        out = profile_monodomain(dev, smi)
+    else:
+        out = profile_flagship(dev, smi,
+                               None if args.relabel == "none" else "lex")
     print(json.dumps(out), flush=True)
     return 0
 

@@ -3,6 +3,8 @@
 from polydeal_tpu_torch.ops.banded import (
     banded_matvec_t_imajor,
     banded_matvec_t_imajor_ref,
+    banded_matvec_t_omajor,
+    banded_matvec_t_omajor_ref,
 )
 from polydeal_tpu_torch.ops.fused_cheb import (
     banded_cheb_step_t,
@@ -32,6 +34,8 @@ from polydeal_tpu_torch.ops.sipg_kernels import (
 __all__ = [
     "banded_matvec_t_imajor",
     "banded_matvec_t_imajor_ref",
+    "banded_matvec_t_omajor",
+    "banded_matvec_t_omajor_ref",
     "banded_cheb_step_t",
     "banded_cheb_step_t_ref",
     "banded_residual_t",

@@ -1,15 +1,17 @@
 """K1: the i-major banded block SpMV, the hot op of CG and of the
-eigenvalue estimates.
+eigenvalue estimates; K0: the same product over the o-major band.
 
-Counterpart of ``polydeal_tpu/ops/banded.py`` ``banded_matvec_t_imajor``
-(Pallas kernel ``_banded_matvec_imajor_impl``).  On a CUDA tensor the
-wrapper launches the hand-written kernel of ``csrc/banded.cu`` (and raises
-if it cannot); on a CPU tensor it runs the plain PyTorch version
-:func:`banded_matvec_t_imajor_ref`, which computes the same function.
+K1 is the counterpart of ``polydeal_tpu/ops/banded.py``
+``banded_matvec_t_imajor`` (Pallas kernel ``_banded_matvec_imajor_impl``),
+K0 of ``banded_matvec_t_pallas`` (Pallas kernel ``_banded_matvec_impl``).
+On a CUDA tensor each wrapper launches its hand-written kernel of
+``csrc/banded.cu`` (and raises if it cannot); on a CPU tensor it runs its
+plain PyTorch version (``*_ref``), which computes the same function.
 
-Layout contract (shared with the JAX package): ``data_i`` [nb * R_pad, P]
-with rows ordered (i, k, j) and R_pad >= n_off * nb (padding rows are never
-read); ``xt`` [nb, P]; x reads zero outside [0, P).
+Layout contracts (shared with the JAX package): K1 takes ``data_i``
+[nb * R_pad, P] with rows ordered (i, k, j) and R_pad >= n_off * nb
+(padding rows are never read); K0 takes ``data`` [n_off, nb, nb, P]; both
+take ``xt`` [nb, P], and x reads zero outside [0, P).
 """
 
 from __future__ import annotations
@@ -20,9 +22,12 @@ import torch.nn.functional as F
 
 from polydeal_tpu_torch.ops import _build
 
-__all__ = ["banded_matvec_t_imajor", "banded_matvec_t_imajor_ref"]
+__all__ = ["banded_matvec_t_imajor", "banded_matvec_t_imajor_ref",
+           "banded_matvec_t_omajor", "banded_matvec_t_omajor_ref"]
 
 _VEC_DTYPES = (torch.float32, torch.float64)
+# K0 stages its offset table in 48 KB of shared memory
+_MAX_OFFSETS = 48 * 1024 // 4
 
 
 def _host_offsets(offsets) -> list[int]:
@@ -104,4 +109,64 @@ def banded_matvec_t_imajor(data_i: torch.Tensor, offsets, nb: int,
     if rc != 0:
         raise RuntimeError(f"K1 banded_matvec_imajor launch failed: {rc}")
     _build.launches["banded_matvec_imajor"] += 1
+    return y
+
+
+def banded_matvec_t_omajor_ref(data: torch.Tensor, offsets,
+                               xt: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K0: x zero-padded and gathered at each
+    offset's shifted window (no roll, so lanes whose column leaves [0, P)
+    read zero whatever the band stores there); accumulates in f64 for an
+    f64 band and in f32 otherwise, and returns ``xt``'s dtype."""
+    offs = _host_offsets(offsets)
+    P = data.shape[-1]
+    acc = torch.float64 if data.dtype == torch.float64 else torch.float32
+    H = max([abs(o) for o in offs] + [0])
+    xpad = F.pad(xt.to(acc), (H, H))  # zeros outside [0, P)
+    Xg = torch.stack([xpad[:, H + o:H + o + P] for o in offs])
+    return torch.einsum("oijp,ojp->ip", data.to(acc), Xg).to(xt.dtype)
+
+
+def check_omajor_args(data, offsets, xt):
+    """Validate what K0 takes, as :func:`check_kernel_args` does for K1;
+    returns (n_off, nb, P)."""
+    if data.dim() != 4 or data.shape[1] != data.shape[2]:
+        raise ValueError(f"data {tuple(data.shape)} is not [n_off, nb, nb, "
+                         f"P]")
+    if not data.is_contiguous():
+        raise ValueError("kernel operands must be contiguous")
+    n_off, nb, _, P = data.shape
+    # the o-major band viewed as n_off * nb rows per i-slab
+    check_kernel_args(data.view(nb * n_off * nb, P), offsets, nb, (xt,))
+    if offsets.numel() != n_off:
+        raise ValueError(f"{offsets.numel()} offsets for {n_off} band rows")
+    if n_off > _MAX_OFFSETS:
+        raise ValueError(f"{n_off} offsets exceed K0's shared-memory table "
+                         f"({_MAX_OFFSETS})")
+    return n_off, nb, P
+
+
+def banded_matvec_t_omajor(data: torch.Tensor, offsets,
+                           xt: torch.Tensor) -> torch.Tensor:
+    """y[i, p] = sum_o sum_j data[o, i, j, p] * x[j, p + offsets[o]] (K0).
+
+    ``data`` [n_off, nb, nb, P] bf16, f32 or f64, contiguous; ``offsets``
+    the band's int32 device table (``BlockBanded.offsets_t``); ``xt``
+    [nb, P] f32 or f64.  Accumulates in f64 for f64 data, in f32
+    otherwise; returns y [nb, P] in ``xt``'s dtype."""
+    if xt.device.type == "cpu":
+        return banded_matvec_t_omajor_ref(data, offsets, xt)
+    if xt.device.type != "cuda":
+        raise RuntimeError(f"no K0 kernel for device {xt.device}")
+    n_off, nb, P = check_omajor_args(data, offsets, xt)
+    y = torch.empty_like(xt)
+    lib = _build.load_library()
+    with torch.cuda.device(xt.device):
+        rc = lib.pd_banded_matvec_omajor(
+            data.data_ptr(), _build.DTYPE_CODES[data.dtype], xt.data_ptr(),
+            _build.DTYPE_CODES[xt.dtype], offsets.data_ptr(), n_off, nb, P,
+            y.data_ptr(), _build.stream_handle(xt.device))
+    if rc != 0:
+        raise RuntimeError(f"K0 banded_matvec_omajor launch failed: {rc}")
+    _build.launches["banded_matvec_omajor"] += 1
     return y

@@ -1,4 +1,9 @@
-from polydeal_tpu_torch.solvers.cg import CGResult, cg_solve
+from polydeal_tpu_torch.solvers.cg import (
+    CGResult,
+    block_jacobi_preconditioner,
+    cg_solve,
+    jacobi_preconditioner,
+)
 from polydeal_tpu_torch.solvers.chebyshev import (
     ChebyshevSmoother,
     estimate_lambda_max,
@@ -16,6 +21,8 @@ from polydeal_tpu_torch.solvers.multigrid import (
 __all__ = [
     "CGResult",
     "cg_solve",
+    "block_jacobi_preconditioner",
+    "jacobi_preconditioner",
     "ChebyshevSmoother",
     "estimate_lambda_max",
     "Multigrid",

@@ -1,8 +1,9 @@
 """Preconditioned conjugate gradients on torch tensors.
 
-Counterpart of ``polydeal_tpu/solvers/cg.py`` ``cg_solve``.  The JAX
-version is one ``lax.while_loop``; here it is a Python loop whose only
-host synchronisation per iteration is the norm test.
+Counterpart of ``polydeal_tpu/solvers/cg.py`` ``cg_solve`` and its point
+and block Jacobi preconditioners.  The JAX version is one
+``lax.while_loop``; here it is a Python loop whose only host
+synchronisation per iteration is the norm test.
 """
 
 from __future__ import annotations
@@ -11,13 +12,32 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["cg_solve", "CGResult"]
+__all__ = ["cg_solve", "CGResult", "block_jacobi_preconditioner",
+           "jacobi_preconditioner"]
 
 
 class CGResult(NamedTuple):
     x: torch.Tensor
     iterations: int
     residual: torch.Tensor  # final |r|_2 (0-dim, on the device)
+
+
+def jacobi_preconditioner(diagonal: torch.Tensor) -> Callable:
+    inv = 1.0 / diagonal
+    return lambda r: inv * r
+
+
+def block_jacobi_preconditioner(diag_blocks: torch.Tensor) -> Callable:
+    """M^{-1} from the n_b x n_b diagonal blocks [P, nb, nb] (inverted
+    once), applied to a flat vector."""
+    n_poly, nb, _ = diag_blocks.shape
+    inv = torch.linalg.inv(diag_blocks)
+
+    def apply(r):
+        rb = r.reshape(n_poly, nb)
+        return torch.einsum("pij,pj->pi", inv, rb).reshape(-1)
+
+    return apply
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -9,11 +9,11 @@ directly.  The whole V-cycle runs in the transposed [nb, P] layout.
 
 Levels with at least :data:`IMAJOR_MIN_P` polytopes carry the i-major
 band copy, so their SpMVs run K1 and their smoothing steps and residuals
-run K2 (ops/); smaller levels run the plain roll+einsum, as the JAX
-package leaves them to XLA.  A level whose band has many more offsets than
-a lane touches (the R-tree numbering without the relabel) is packed
-(:func:`maybe_pack_level`, ``sparse.BlockPacked``) and runs K6 and K7
-instead.
+run K2 (ops/); smaller levels multiply through K0 over the o-major band,
+where the JAX package leaves the product to XLA.  A level whose band has
+many more offsets than a lane touches (the R-tree numbering without the
+relabel) is packed (:func:`maybe_pack_level`, ``sparse.BlockPacked``) and
+runs K6 and K7 instead.
 """
 
 from __future__ import annotations

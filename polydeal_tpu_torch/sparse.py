@@ -9,11 +9,12 @@ the matrix.  Offsets stay a host numpy array (they shape the program), with
 an int32 device copy for the kernels.
 
 SpMV dispatch: a band with the i-major copy ``data_i`` multiplies through
-K1 (``ops/banded.py``), which launches the CUDA kernel on a CUDA tensor and
-runs its plain version on a CPU tensor; a band without it runs the plain
-roll+einsum over the o-major ``data``.  A ``BlockPacked`` (the per-lane
-K-slot format of ``ops/packed.py``, for wide offset sets) multiplies
-through K6 and smooths through K7.
+K1 (``ops/banded.py``), a band without it through K0 over the o-major
+``data`` (where the JAX package leaves the product to XLA); each launches
+its CUDA kernel on a CUDA tensor and runs its plain version on a CPU
+tensor.  A ``BlockPacked`` (the per-lane K-slot format of
+``ops/packed.py``, for wide offset sets) multiplies through K6 and smooths
+through K7.
 """
 
 from __future__ import annotations
@@ -23,7 +24,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from polydeal_tpu_torch.ops.banded import banded_matvec_t_imajor
+from polydeal_tpu_torch.ops.banded import (
+    banded_matvec_t_imajor,
+    banded_matvec_t_omajor,
+)
 from polydeal_tpu_torch.ops.fused_cheb import (
     banded_cheb_step_t,
     banded_residual_t,
@@ -95,11 +99,8 @@ class BlockBanded:
         if self.data_i is not None:
             return banded_matvec_t_imajor(self.data_i, self.offsets_t,
                                           self.n_basis, xt.contiguous())
-        y = torch.zeros_like(xt)
-        for k, o in enumerate(self.offsets):
-            xs = torch.roll(xt, -int(o), dims=1) if o != 0 else xt
-            y = y + torch.einsum("ijp,jp->ip", self.data[k].to(xt.dtype), xs)
-        return y
+        return banded_matvec_t_omajor(self.data, self.offsets_t,
+                                      xt.contiguous())
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         nb = self.n_basis
@@ -165,6 +166,32 @@ class BlockBanded:
     def diagonal(self) -> torch.Tensor:
         """Flat main diagonal [P * nb]."""
         return self.diagonal_t().T.reshape(-1)
+
+    def diag_blocks(self) -> torch.Tensor:
+        """[P, nb, nb] diagonal blocks (block-Jacobi input), a view."""
+        k0, nb, P = self._k0(), self.n_basis, self.n_block_rows
+        src = self.data_i if self._omajor_dropped() else self.data
+        if k0 is None:
+            return torch.zeros((P, nb, nb), dtype=src.dtype,
+                               device=src.device)
+        if self._omajor_dropped():  # the i-major rows (i, k0, j)
+            R_pad = self.data_i.shape[0] // nb
+            blk = self.data_i.reshape(nb, R_pad, P)
+            return blk[:, k0 * nb:(k0 + 1) * nb].permute(2, 0, 1)
+        return self.data[k0].permute(2, 0, 1)
+
+    def add_to_diagonal_band(self, blocks_t: torch.Tensor) -> "BlockBanded":
+        """New BlockBanded with ``blocks_t`` [nb, nb, P] added to the
+        offset-0 band row (e.g. a scaled mass matrix); any i-major copy is
+        stale after the update, so the result has none."""
+        k0 = self._k0()
+        if k0 is None:
+            raise ValueError("band has no diagonal row")
+        if self._omajor_dropped():
+            raise ValueError("add_to_diagonal_band needs the o-major band")
+        data = self.data.clone(memory_format=torch.contiguous_format)
+        data[k0] += blocks_t.to(data.dtype)
+        return BlockBanded(data, self.offsets, self.n_block_cols)
 
     def to_packed(self, plan: PackPlan, oid: torch.Tensor, far_rows=None,
                   far_cols=None) -> "BlockPacked":

@@ -1,10 +1,13 @@
 """The port's jax-free host copies against the JAX package's originals.
 
 Mesh, R-tree, handler arrays, the lex-relabelled hierarchy, grid-shape
-detection and the slot-padded banded tables must be EXACTLY equal: the
-port's host modules are copies that differ only in their imports.  Also
-checks that the port imports neither jax nor the JAX package.
+detection, the slot-padded banded tables and the monodomain configuration
+must be EXACTLY equal: the port's host modules are copies that differ only
+in their imports.  Also checks that the port imports neither jax nor the
+JAX package.
 """
+
+import dataclasses
 
 import os
 import subprocess
@@ -19,7 +22,9 @@ torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 import polydeal_tpu as pd  # noqa: E402
+import polydeal_tpu.config as jcfg  # noqa: E402
 import polydeal_tpu_torch as tpd  # noqa: E402
+import polydeal_tpu_torch.config as tcfg  # noqa: E402
 from polydeal_tpu.agglomeration import RTreeAgglomerator  # noqa: E402
 from polydeal_tpu.assembly.sipg import build_banded_groups  # noqa: E402
 from polydeal_tpu.solvers import (  # noqa: E402
@@ -141,10 +146,23 @@ def test_banded_groups_equal(name):
                 assert _eq(np.asarray(da[k]), db[k].numpy()), k
 
 
+def test_config_copy_equal():
+    """Every config class has the same fields and defaults, and both
+    packages read each other's text."""
+    for name in jcfg.__all__:
+        a, b = getattr(jcfg, name), getattr(tcfg, name)
+        if dataclasses.is_dataclass(a):
+            assert ([(f.name, f.type) for f in dataclasses.fields(a)]
+                    == [(f.name, f.type) for f in dataclasses.fields(b)])
+            assert jcfg.to_text(a()) == tcfg.to_text(b())
+    text = jcfg.to_text(jcfg.MonodomainConfig(dim=3, degree=2))
+    assert tcfg.to_text(tcfg.from_text(text)) == text
+
+
 def test_port_never_imports_jax():
-    """``import polydeal_tpu_torch`` plus a full small flagship solve, and
-    a packed one without the relabel, leave jax and the JAX package out of
-    sys.modules."""
+    """``import polydeal_tpu_torch`` plus a full small flagship solve, a
+    packed one without the relabel and two monodomain steps leave jax and
+    the JAX package out of sys.modules."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -152,6 +170,10 @@ def test_port_never_imports_jax():
         "import polydeal_tpu_torch.interop\n"
         "import polydeal_tpu_torch.models.profile_flagship\n"
         "import polydeal_tpu_torch.ops.packed\n"
+        "import polydeal_tpu_torch.config\n"
+        "import polydeal_tpu_torch.checkpoint\n"
+        "from polydeal_tpu_torch.models.monodomain import (\n"
+        "    MonodomainConfig, MonodomainSolver)\n"
         "from polydeal_tpu_torch.sparse import BlockPacked\n"
         "from polydeal_tpu_torch.solvers import multigrid\n"
         "from polydeal_tpu_torch.models.flagship import (setup_flagship,\n"
@@ -166,6 +188,9 @@ def test_port_never_imports_jax():
         "                    relabel=None)\n"
         "assert isinstance(fs.mg.ells[-1], BlockPacked)\n"
         "assert solve_flagship(fs).iterations > 0\n"
+        "s = MonodomainSolver.build(MonodomainConfig(n_refinements=3),\n"
+        "                           device=torch.device('cpu'))\n"
+        "assert len(s.run(n_steps=2)[2]) == 2\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'polydeal_tpu')]\n"
         "print('BAD', bad)\n"

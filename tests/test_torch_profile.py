@@ -1,7 +1,8 @@
 """The trace arithmetic of ``polydeal_tpu_torch.models.profile_flagship``.
 
 The profile itself needs a card; its busy-time union and its reading of a
-profiler trace are checked here on the CPU.
+profiler trace are checked here on the CPU, and that it refuses to run
+without a card.
 """
 
 import pytest
@@ -36,3 +37,13 @@ def test_trace_reading_on_cpu():
     assert pf.device_intervals(events, pf._LABEL) == []
     with pytest.raises(RuntimeError):
         pf.traced_span(events, "no_such_range")
+
+
+@pytest.mark.parametrize("argv", [[], ["--relabel", "none"],
+                                  ["--model", "monodomain"]])
+def test_profile_needs_a_card(argv, monkeypatch):
+    """No CUDA device: every model's profile exits with a message and
+    measures nothing on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        pf.main(argv)
