@@ -37,11 +37,17 @@ Phases (each must pass; nothing falls back to the CPU):
      (0.01, 2.0), K0-K5 launched, and the integrals of u and u^2 within
      1e-3 of an f64 run of the same steps on the card; then a small f64
      monodomain (n_refinements=3, five steps) on the card against the CPU.
-K0 (o-major banded SpMV) is held against its plain version on the real
-bands of phases 5-7 once each exists (phase 3's check, on real bands): the
+K0 (o-major banded SpMV) and fused K0 (its Chebyshev step/residual, all
+three modes) are held against their plain versions on the real bands of
+phases 5-7 once each exists (phase 3's check, on real bands): the
 4096-lane lex flagship level in f32 and as its bf16 smoother copy, the
 19-offset 512-lane level without the relabel, the monodomain's 64-, 512-
-and 4096-lane levels and its fine band, each also in f64.
+and 4096-lane levels (and, for K0, its fine band), each also in f64; with
+CUDA-event, host-clock and traced device time per call.  K2 is held the
+same way on the real i-major bands it serves: the lex flagship's 32768-
+and 262144-lane bf16 smoother copies and the monodomain's f32 32768- and
+262144-lane levels.  Phases 5 and 7 fail unless fused K0 was launched,
+and phase 7 if K0's plain product ran beyond the eigenvalue estimates.
 Prints the card, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}.
 """
@@ -604,44 +610,118 @@ def check_packed_levels(torch, fs, dev):
     return out
 
 
-def k0_work(band, data, vsz: int):
+def k0_work(band, data, vsz: int, fused: bool = False):
     """(bytes, operations) of one K0 call on ``band``'s offsets with
     ``data``: the band entries this band's offsets reach (a lane whose
-    column leaves [0, P) reads none) once, x read once, y written once."""
+    column leaves [0, P) reads none) once, x read once, y written once;
+    fused, x, b, d and dinv read and x', d' written (six operations per
+    vector entry)."""
     nb, P = band.n_basis, band.n_block_rows
     live = sum(max(0, P - abs(int(o))) for o in band.offsets) * nb * nb
-    return live * data.element_size() + 2 * nb * P * vsz, 2 * live
+    n_vec = 6 if fused else 2
+    return (live * data.element_size() + n_vec * nb * P * vsz,
+            2 * live + (6 * nb * P if fused else 0))
 
 
-def check_k0(torch, label, band, out):
+def host_us(torch, fn, reps=1000):
+    """Host-clock microseconds per call of ``fn`` over ``reps`` calls back
+    to back with one synchronise at the end: the wrapper's host work where
+    it outruns the device."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e6
+
+
+def traced_us(torch, fn, kernel, n=50, tries=3):
+    """Device microseconds per launch of ``kernel`` (a substring of its
+    name) over ``n`` calls of ``fn``, from a torch.profiler trace; a trace
+    that came back without the kernel's records (seen once in a dozen
+    back-to-back traces) is taken again, up to ``tries`` times."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name]
+        if spans:
+            return sum(spans) / len(spans)
+    fail(f"{tries} traces of {n} calls hold no {kernel} launch")
+
+
+def hold(label, got, ref, tol):
+    """Max abs error of a kernel's outputs against its plain version's,
+    failing beyond ``tol`` relative to the largest entry; (err, rel)."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err = rel = 0.0
+    for g, r in zip(got, ref):
+        e = float((g - r).abs().max())
+        err, rel = max(err, e), max(rel, e / float(r.abs().max()))
+    if not rel <= tol:
+        fail(f"{label} disagrees with its plain version: rel {rel:.3e} > "
+             f"{tol:g}")
+    return err, rel
+
+
+def cheb_vectors(torch, gen, nb, P, dtype):
+    """Seeded x, b, d and dinv (in [1, 2)) [nb, P] on the generator's
+    device."""
+    dev = gen.device
+    x, b, d = (torch.randn(nb, P, generator=gen, device=dev,
+                           dtype=torch.float64).to(dtype) for _ in range(3))
+    dinv = 1.0 + torch.rand(nb, P, generator=gen, device=dev,
+                            dtype=torch.float64).to(dtype)
+    return x, b, d, dinv
+
+
+def check_k0(torch, label, band, out, fused=True):
     """K0 against its plain version on a real o-major band, in the band's
     type (f32 vectors for a bf16 or f32 band) and as f64, 1e-5 / 1e-12
     relative to the largest entry; timed beside the plain version and, for
-    an f32 band, a torch.sparse CSR product of the same band.  Adds each
-    case to ``out`` (label -> row)."""
-    from polydeal_tpu_torch.ops import (banded_matvec_t_omajor,
-                                        banded_matvec_t_omajor_ref)
+    an f32 band, a torch.sparse CSR product of the same band.  With
+    ``fused``, fused K0's three modes too, on the same band.  Each call
+    goes through the band's kept launch arguments, as ``BlockBanded``'s
+    do, and is timed traced (device time per launch: the row's ``ms``),
+    by CUDA events back to back and by the host clock (the wrapper's work
+    per call, which back to back outruns a launch of a few microseconds).
+    Adds each case to ``out`` (label -> row; fused rows end in " fused")."""
+    from polydeal_tpu_torch.ops import fused_cheb as fc
+    from polydeal_tpu_torch.ops.banded import (banded_matvec_t_omajor,
+                                               banded_matvec_t_omajor_ref,
+                                               omajor_band)
     from polydeal_tpu_torch.sparse import BlockBanded
 
     dev = band.data.device
     nb, P = band.n_basis, band.n_block_rows
     offs = band.offsets_t
     gen = torch.Generator(device=dev).manual_seed(4)
+    c1, c2 = 0.37, 1.21
     for data in (band.data, band.data.double()):
         dname = str(data.dtype).split(".")[-1]
         vdt = torch.float64 if dname == "float64" else torch.float32
-        x = torch.randn(nb, P, generator=gen, device=dev,
-                        dtype=torch.float64).to(vdt)
-        kf = lambda: banded_matvec_t_omajor(data, offs, x)
+        pdt = "float64" if dname == "float64" else "float32"
+        tol = TOL[dname]
+        kb = omajor_band(data, offs)
+        x, b, d, dinv = cheb_vectors(torch, gen, nb, P, vdt)
+        kf = lambda: banded_matvec_t_omajor(data, offs, x, band=kb)
         pf = lambda: banded_matvec_t_omajor_ref(data, offs, x)
-        got, ref = kf(), pf()
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        rel = err / float(ref.abs().max())
+        got = kf()
+        err, rel = hold(f"K0 on {label} {dname}", got, pf(), tol)
         ms, pms = time_pair(torch, kf, pf)
+        hus, dus = host_us(torch, kf), traced_us(torch, kf, "omajor_kernel")
         nbytes, flops = k0_work(band, data, x.element_size())
-        b_ms, b_by = bound(nbytes, flops,
-                           "float64" if dname == "float64" else "float32")
+        b_ms, b_by = bound(nbytes, flops, pdt)
         lms = None
         if dname == "float32":
             bi = BlockBanded(data, band.offsets, P).with_imajor()
@@ -650,24 +730,111 @@ def check_k0(torch, label, band, out):
             xf = x.T.contiguous().view(-1)
             yl = torch.mv(A, xf).view(P, nb).T
             lerr = float((yl - got).abs().max()) / float(yl.abs().max())
-            if not lerr <= TOL[dname]:
+            if not lerr <= tol:
                 fail(f"CSR product disagrees with K0 on {label}: rel "
                      f"{lerr:.3e}")
             lms = time_one(torch, lambda: torch.mv(A, xf))
             del A, xf, yl, bi
-        row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lms)
-        out[f"{label} {dname}"] = row
+        out[f"{label} {dname}"] = dict(
+            max_abs_err=err, ms=dus / 1e3, plain_ms=pms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lms, events_ms=ms, host_us=hus)
         log(f"  K0 {label} {dname} (P={P}, {len(band.offsets)} offsets, "
             f"max |offset| {int(abs(band.offsets).max())}): "
-            f"max_abs_err={err:.3e} rel={rel:.3e} (tol {TOL[dname]:g}); "
-            f"{ms:.4f} ms (plain {pms:.4f}, CSR "
+            f"max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:g}); "
+            f"{ms:.4f} ms by events, host {hus:.2f} us/call, traced "
+            f"{dus:.2f} us/launch (plain {pms:.4f}, CSR "
             f"{'-' if lms is None else f'{lms:.4f}'}; bound {b_ms:.4f} "
             f"{b_by}: {nbytes / 1e6:.2f} MB)")
-        if not rel <= TOL[dname]:
-            fail(f"K0 disagrees with its plain version on {label} {dname}: "
-                 f"rel {rel:.3e} > {TOL[dname]:g}")
-        del data, x, got, ref
+        if fused:
+            modes = {
+                "step": (lambda: fc.banded_cheb_step_t_omajor(
+                    data, offs, x, d, b, dinv, c1, c2, band=kb),
+                    lambda: fc.banded_cheb_step_t_omajor_ref(
+                        data, offs, x, d, b, dinv, c1, c2)),
+                "step0": (lambda: fc.banded_cheb_step_t_omajor(
+                    data, offs, x, None, b, dinv, c1, c2, band=kb),
+                    lambda: fc.banded_cheb_step_t_omajor_ref(
+                        data, offs, x, None, b, dinv, c1, c2)),
+                "residual": (lambda: fc.banded_residual_t_omajor(
+                    data, offs, x, b, band=kb),
+                    lambda: fc.banded_residual_t_omajor_ref(
+                        data, offs, x, b))}
+            ferr = frel = 0.0
+            for mode, (kf, pf) in modes.items():
+                e, r = hold(f"fused K0 {mode} on {label} {dname}", kf(),
+                            pf(), tol)
+                ferr, frel = max(ferr, e), max(frel, r)
+            kf, pf = modes["step"]
+            ms, pms = time_pair(torch, kf, pf)
+            hus, dus = (host_us(torch, kf),
+                        traced_us(torch, kf, "omajor_kernel"))
+            nbytes, flops = k0_work(band, data, x.element_size(), True)
+            b_ms, b_by = bound(nbytes, flops, pdt)
+            out[f"{label} {dname} fused"] = dict(
+                max_abs_err=ferr, ms=dus / 1e3, plain_ms=pms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, events_ms=ms, host_us=hus)
+            log(f"  fused K0 {label} {dname}: step0/step/residual "
+                f"max_abs_err={ferr:.3e} rel={frel:.3e} (tol {tol:g}); step "
+                f"{ms:.4f} ms by events, host {hus:.2f} us/call, traced "
+                f"{dus:.2f} us/launch (plain {pms:.4f}; bound {b_ms:.4f} "
+                f"{b_by}: {nbytes / 1e6:.2f} MB)")
+        del data, x, b, d, dinv, got, kb
+
+
+def check_k2(torch, label, band, out):
+    """K2's three modes against their plain versions on a real i-major
+    band, in the band's type (f32 vectors for a bf16 or f32 band) and as
+    f64, 1e-5 / 1e-12 relative to the largest entry, through the band's
+    kept launch arguments; the step traced (device time per launch: the
+    row's ``ms``) and timed by CUDA events beside the plain version, with
+    its bound: the band's n_off*nb*nb*P entries and six vectors once.
+    Adds each case to ``out`` (label -> row)."""
+    from polydeal_tpu_torch.ops import fused_cheb as fc
+    from polydeal_tpu_torch.ops.banded import imajor_band
+
+    di0 = band.data_i
+    nb, P, offs = band.n_basis, di0.shape[1], band.offsets_t
+    n_off = len(band.offsets)
+    gen = torch.Generator(device=di0.device).manual_seed(5)
+    c1, c2 = 0.37, 1.21
+    for di in (di0, di0.double()):
+        dname = str(di.dtype).split(".")[-1]
+        vdt = torch.float64 if dname == "float64" else torch.float32
+        tol = TOL[dname]
+        kb = imajor_band(di, offs, nb)
+        x, b, d, dinv = cheb_vectors(torch, gen, nb, P, vdt)
+        modes = {
+            "step": (lambda: fc.banded_cheb_step_t(
+                di, offs, nb, x, d, b, dinv, c1, c2, band=kb),
+                lambda: fc.banded_cheb_step_t_ref(
+                    di, offs, nb, x, d, b, dinv, c1, c2)),
+            "step0": (lambda: fc.banded_cheb_step_t(
+                di, offs, nb, x, None, b, dinv, c1, c2, band=kb),
+                lambda: fc.banded_cheb_step_t_ref(
+                    di, offs, nb, x, None, b, dinv, c1, c2)),
+            "residual": (lambda: fc.banded_residual_t(di, offs, nb, x, b,
+                                                      band=kb),
+                         lambda: fc.banded_residual_t_ref(di, offs, nb, x,
+                                                          b))}
+        err = rel = 0.0
+        for mode, (kf, pf) in modes.items():
+            e, r = hold(f"K2 {mode} on {label} {dname}", kf(), pf(), tol)
+            err, rel = max(err, e), max(rel, r)
+        ms, pms = time_pair(torch, *modes["step"])
+        dus = traced_us(torch, modes["step"][0], "fused_kernel")
+        ent = n_off * nb * nb * P
+        nbytes = ent * di.element_size() + 6 * nb * P * x.element_size()
+        b_ms, b_by = bound(nbytes, 2 * ent + 6 * nb * P,
+                           "float64" if dname == "float64" else "float32")
+        out[f"{label} {dname}"] = dict(
+            max_abs_err=err, ms=dus / 1e3, plain_ms=pms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, events_ms=ms)
+        log(f"  K2 {label} {dname} (P={P}, {n_off} offsets): step0/step/"
+            f"residual max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:g}); "
+            f"step traced {dus:.2f} us/launch, {b_ms * 1e3 / dus:.1%} of "
+            f"its bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB); "
+            f"{ms:.4f} ms by events back to back; plain {pms:.4f}")
+        del di, x, b, d, dinv, kb
 
 
 def mono_steps(solver, n_steps):
@@ -717,11 +884,11 @@ def small_mono_check(torch, dev):
         fail("small f64 monodomain on the card disagrees with the CPU")
 
 
-def phase7(torch, dev, k0):
+def phase7(torch, dev, k0, k2):
     """Phase 7: the monodomain at bench_monodomain's configuration on the
-    card, its f64 run, K0 on its real bands and the small card-against-CPU
-    check; returns the launch counts of the f32 run (setup, a cold and a
-    warm pass of the steps)."""
+    card, its f64 run, K0, fused K0 and K2 on its real bands and the small
+    card-against-CPU check; returns the launch counts of the f32 run
+    (setup, a cold and a warm pass of the steps)."""
     from polydeal_tpu_torch.models.monodomain import (MonodomainSolver,
                                                       bench_config)
     from polydeal_tpu_torch.ops import _build
@@ -754,18 +921,27 @@ def phase7(torch, dev, k0):
         fail(f"monodomain max u {uq_max:.4f} outside (0.01, 2.0)")
     if not all(2 <= i <= 5 for i in its):
         fail(f"monodomain CG iterations {its} outside 2-5 per step")
-    for name in ("banded_matvec_omajor", "banded_matvec_imajor",
-                 "banded_fused_cheb", "volume_blocks", "face_group_blocks",
-                 "boundary_blocks"):
+    for name in ("banded_matvec_omajor", "banded_fused_omajor",
+                 "banded_matvec_imajor", "banded_fused_cheb", "volume_blocks",
+                 "face_group_blocks", "boundary_blocks"):
         if counts[name] <= 0:
             fail(f"kernel {name} was never launched on the monodomain path")
+    # every K0 level smooths through fused K0: its plain product serves the
+    # eigenvalue estimates only (Multigrid.setup: 26 products a level)
+    eig = 26 * sum(e.data_i is None for e in ms.mg.ells[1:])
+    if counts["banded_matvec_omajor"] > eig:
+        fail(f"K0's plain product ran {counts['banded_matvec_omajor']} times,"
+             f" more than the {eig} of the eigenvalue estimates")
     # the f32 state the f64 run is held to: the same steps
     u32 = (u if MONO_STEPS_F64 == MONO_STEPS
            else mono_steps(ms, MONO_STEPS_F64)[0])
     m32 = integrals(ms, u32)
     for e in ms.mg.ells[1:4]:  # 64, 512 and 4096 lanes: K0's levels
         check_k0(torch, f"monodomain {e.n_block_rows}-lane", e, k0)
-    check_k0(torch, "monodomain fine (block-Jacobi operator)", ms.A, k0)
+    check_k0(torch, "monodomain fine (block-Jacobi operator)", ms.A, k0,
+             fused=False)
+    for e in ms.mg.ells[4:]:  # 32768 and 262144 lanes: K2's levels
+        check_k2(torch, f"monodomain {e.n_block_rows}-lane", e, k2)
     del ms, u, w
     torch.cuda.empty_cache()
 
@@ -860,8 +1036,8 @@ def main() -> int:
     if not 18 <= res.iterations <= 22:
         fail(f"flagship took {res.iterations} iterations, outside 18-22")
     for name in ("banded_matvec_imajor", "banded_fused_cheb",
-                 "banded_matvec_omajor", "volume_blocks",
-                 "face_group_blocks", "boundary_blocks"):
+                 "banded_matvec_omajor", "banded_fused_omajor",
+                 "volume_blocks", "face_group_blocks", "boundary_blocks"):
         if counts[name] <= 0:
             fail(f"kernel {name} was never launched on the main path")
 
@@ -889,13 +1065,17 @@ def main() -> int:
     del ref, res64
     torch.cuda.empty_cache()
     level_sipg_check(torch, fs, dev)
-    # K0 serves the 4096-lane level (no i-major copy): its f32 band and
-    # the bf16 copy the smoother multiplies by
+    # K0 and fused K0 serve the 4096-lane level (no i-major copy): its f32
+    # band (the FMG residuals) and the bf16 copy the smoother runs on; K2
+    # the bf16 copies of the 32768- and 262144-lane levels
     if fs.mg.ells[1].data_i is not None:
         fail("the 4096-lane lex level carries an i-major copy")
-    k0 = {}
+    k0, k2 = {}, {}
     check_k0(torch, "lex flagship 4096-lane", fs.mg.ells[1], k0)
     check_k0(torch, "lex flagship 4096-lane bf16 copy", fs.mg.lo_ells[1], k0)
+    for e in fs.mg.lo_ells[2:]:
+        check_k2(torch, f"lex flagship {e.n_block_rows}-lane bf16 copy", e,
+                 k2)
     del fs, res, x
     torch.cuda.empty_cache()
 
@@ -950,9 +1130,16 @@ def main() -> int:
     if not all(f[1] == "packed" for f in formats16[1:]):
         fail(f"small packed solve levels are {formats16}")
 
-    counts7 = phase7(torch, dev, k0)
-    kres["K0"] = dict(k0["monodomain 4096-lane float32"],
-                      max_abs_err=max(r["max_abs_err"] for r in k0.values()))
+    counts7 = phase7(torch, dev, k0, k2)
+    for key, rows, main_row in (
+            ("K0", {k: r for k, r in k0.items() if not k.endswith("fused")},
+             "monodomain 4096-lane float32"),
+            ("K0 fused", {k: r for k, r in k0.items() if k.endswith("fused")},
+             "monodomain 4096-lane float32 fused"),
+            ("K2", k2, "lex flagship 262144-lane bf16 copy bfloat16")):
+        worst = max(r["max_abs_err"] for r in rows.values())
+        kres[key] = dict(rows[main_row], max_abs_err=max(
+            worst, kres.get(key, {}).get("max_abs_err", 0.0)))
 
     banded, sipg, packed = ("polydeal_tpu_torch/csrc/banded.cu",
                             "polydeal_tpu_torch/csrc/sipg.cu",
@@ -960,6 +1147,8 @@ def main() -> int:
     rows = [("banded_matvec_imajor", "K1", banded,
              "polydeal_tpu/ops/banded.py:65"),
             ("banded_matvec_omajor", "K0", banded,
+             "polydeal_tpu/ops/banded.py:176"),
+            ("banded_fused_omajor", "K0 fused", banded,
              "polydeal_tpu/ops/banded.py:176"),
             ("banded_fused_cheb", "K2", banded,
              "polydeal_tpu/ops/fused_cheb.py:210"),
@@ -974,10 +1163,13 @@ def main() -> int:
             ("packed_fused_cheb", "K7", packed,
              "polydeal_tpu/ops/fused_cheb.py:122")]
     # launches: each kernel's count on its path (K1-K5 phase 5, K6/K7
-    # phase 6, K0 phase 7)
-    path = {"K6": counts6, "K7": counts6, "K0": counts7}
+    # phase 6, K0 and fused K0 phase 7)
+    path = {"K6": counts6, "K7": counts6, "K0": counts7, "K0 fused": counts7}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rpl,
-                    launches=path.get(key, counts)[name], **kres[key])
+                    launches=path.get(key, counts)[name],
+                    **{k: kres[key][k] for k in keys})
                for name, key, src, rpl in rows]
     print(smi)
     print(json.dumps({"kernels": kernels}))

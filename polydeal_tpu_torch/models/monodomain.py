@@ -11,7 +11,8 @@ Every level is assembled directly in the banded layout as sigma*K +
 mass_coeff*M (the mass in the diagonal band row) through the SIPG block
 kernels K3-K5, and each step solves with R3MG-preconditioned CG from a
 zero start.  On the card the levels below ``multigrid.IMAJOR_MIN_P``
-polytopes multiply through K0, the larger ones through K1/K2.  The JAX
+polytopes smooth through fused K0, the larger ones through K2 (K1 for the
+CG operator).  The JAX
 package's ``lax.scan`` time loop is a Python loop of :meth:`step` here;
 each CG iteration syncs with the host once, for its norm test.
 

@@ -18,8 +18,10 @@ packed and run K6/K7 -- and measures, in one process:
   (K3-K5 and the lane rolls and concatenations around them);
 * one traced warm solve under ``torch.profiler``: the device's busy time
   (the union of its kernel, copy and fill intervals) over the solve's span
-  in the same trace, hence the busy and idle shares; and the device
-  operations by total time.  The profiler slows the host's dispatch, so
+  in the same trace, hence the busy and idle shares; the number of device
+  operations (launches, copies and fills); and the device operations by
+  total time (K2's name carries its lanes per thread, so the fine and the
+  32768-lane level read apart).  The profiler slows the host's dispatch, so
   the traced solve is slower than the untimed ones and its idle share is
   an upper bound for them;
 * one traced warm fine-level band assembly (straight into the packed
@@ -106,7 +108,8 @@ def _cuda_ms(fn, reps: int = 20) -> float:
 
 def _traced(fn, top: int):
     """Trace one call of ``fn`` under ``torch.profiler``: (span_ms,
-    busy_ms, the ``top`` device operations by total time as dicts)."""
+    busy_ms, device operations (launches, copies and fills), the ``top``
+    device operations by total time as dicts)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -127,7 +130,7 @@ def _traced(fn, top: int):
     ops = [dict(name=n[:100], count=c, ms=t / 1e3, share=t / dev_sum)
            for n, (c, t) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][1])[:top]]
-    return (hi - lo) / 1e3, busy / 1e3, ops
+    return (hi - lo) / 1e3, busy / 1e3, len(dev_ev), ops
 
 
 def _print_ops(tables) -> None:
@@ -164,7 +167,8 @@ def profile_monodomain(dev, smi: str) -> dict:
     mg = s.mg
     parts = dict(v_cycle_ms=_cuda_ms(lambda: mg.v_cycle(u1)),
                  fine_spmv_ms=_cuda_ms(lambda: mg.ells[-1].matvec(u1)))
-    span, busy, ops = _traced(lambda: s.step(u1, u, w1, dt, False), top=15)
+    span, busy, n_ops, ops = _traced(lambda: s.step(u1, u, w1, dt, False),
+                                     top=15)
     med = statistics.median(walls)
     _print_ops([("one BDF2 step", ops)])
     return dict(
@@ -177,7 +181,7 @@ def profile_monodomain(dev, smi: str) -> dict:
         dof_steps_per_s=s.handler.n_dofs * N_STEPS / med, **parts,
         traced_step_ms=span, traced_busy_ms=busy,
         traced_busy_share=busy / span, traced_idle_share=1.0 - busy / span,
-        device_ops=ops)
+        traced_device_ops=n_ops, device_ops=ops)
 
 
 def profile_flagship(dev, smi: str, relabel) -> dict:
@@ -216,10 +220,10 @@ def profile_flagship(dev, smi: str, relabel) -> dict:
     band = lambda: assemble_sipg_banded_direct(fine, tabs, fs.band_offsets,
                                                **pack)
     parts["fine_band_ms"] = _cuda_ms(band, reps=5)
-    band_span, band_busy, band_ops = _traced(band, top=8)
+    band_span, band_busy, _, band_ops = _traced(band, top=8)
     del tabs
 
-    span, busy, ops = _traced(solve, top=15)
+    span, busy, n_ops, ops = _traced(solve, top=15)
 
     _print_ops([("solve", ops), ("fine band assembly", band_ops)])
     return dict(
@@ -232,7 +236,7 @@ def profile_flagship(dev, smi: str, relabel) -> dict:
         **parts,
         traced_solve_ms=span, traced_busy_ms=busy,
         traced_busy_share=busy / span, traced_idle_share=1.0 - busy / span,
-        device_ops=ops, traced_band_ms=band_span,
+        traced_device_ops=n_ops, device_ops=ops, traced_band_ms=band_span,
         traced_band_busy_ms=band_busy, band_device_ops=band_ops)
 
 

@@ -8,8 +8,12 @@ from polydeal_tpu_torch.ops.banded import (
 )
 from polydeal_tpu_torch.ops.fused_cheb import (
     banded_cheb_step_t,
+    banded_cheb_step_t_omajor,
+    banded_cheb_step_t_omajor_ref,
     banded_cheb_step_t_ref,
     banded_residual_t,
+    banded_residual_t_omajor,
+    banded_residual_t_omajor_ref,
     banded_residual_t_ref,
     packed_cheb_step_t,
     packed_cheb_step_t_ref,
@@ -40,6 +44,10 @@ __all__ = [
     "banded_cheb_step_t_ref",
     "banded_residual_t",
     "banded_residual_t_ref",
+    "banded_cheb_step_t_omajor",
+    "banded_cheb_step_t_omajor_ref",
+    "banded_residual_t_omajor",
+    "banded_residual_t_omajor_ref",
     "PackPlan",
     "build_pack_plan",
     "packed_matvec_t",

@@ -37,10 +37,10 @@ _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # dtype codes of the C interface (enum DType in csrc/*.cu)
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
-# launches per kernel since the last reset: K1, K2, K0 (csrc/banded.cu),
-# K3, K4, K5 (csrc/sipg.cu) and K6, K7 (csrc/packed.cu)
+# launches per kernel since the last reset: K1, K2, K0 and fused K0
+# (csrc/banded.cu), K3, K4, K5 (csrc/sipg.cu) and K6, K7 (csrc/packed.cu)
 launches = {"banded_matvec_imajor": 0, "banded_fused_cheb": 0,
-            "banded_matvec_omajor": 0,
+            "banded_matvec_omajor": 0, "banded_fused_omajor": 0,
             "volume_blocks": 0, "face_group_blocks": 0,
             "boundary_blocks": 0, "packed_matvec": 0,
             "packed_fused_cheb": 0}
@@ -122,6 +122,10 @@ def load_library() -> ctypes.CDLL:
     # K0: as K1 without R_pad
     lib.pd_banded_matvec_omajor.argtypes = [vp, i32, vp, i32, vp, i32, i32,
                                             i64, vp, vp]
+    # fused K0: as K2 without R_pad
+    lib.pd_banded_fused_omajor.argtypes = [vp, i32, vp, i32, vp, i32, i32,
+                                           i64, vp, vp, vp, f64, f64, i32, vp,
+                                           vp, vp]
     # the packed pair: as the banded one, with oid before the offsets and
     # K after n_off
     lib.pd_packed_matvec.argtypes = [vp, i32, vp, i32, vp, vp, i32, i32, i32,
@@ -138,7 +142,8 @@ def load_library() -> ctypes.CDLL:
     lib.pd_sipg_face.argtypes = [i32, i32, i32, vp, vp, vp, vp, vp, vp, i64,
                                  f64, i32, i32, i64, vp, vp]
     for fn in (lib.pd_banded_matvec, lib.pd_banded_fused,
-               lib.pd_banded_matvec_omajor, lib.pd_packed_matvec,
+               lib.pd_banded_matvec_omajor, lib.pd_banded_fused_omajor,
+               lib.pd_packed_matvec,
                lib.pd_packed_fused, lib.pd_sipg_volume, lib.pd_sipg_boundary,
                lib.pd_sipg_face):
         fn.restype = i32
@@ -147,5 +152,11 @@ def load_library() -> ctypes.CDLL:
 
 
 def stream_handle(device: torch.device) -> int:
-    """The current CUDA stream of ``device`` as a C pointer value."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as a C pointer value.  The
+    kernels launch on the current device, so ``device`` must be it: this
+    raises rather than switch devices."""
+    cur = torch._C._cuda_getDevice()
+    if device.index != cur:
+        raise RuntimeError(f"tensors on {device}, but the current device is "
+                           f"cuda:{cur} (select it with torch.cuda.device)")
+    return torch._C._cuda_getCurrentRawStream(cur)

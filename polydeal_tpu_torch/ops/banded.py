@@ -12,6 +12,12 @@ Layout contracts (shared with the JAX package): K1 takes ``data_i``
 [nb * R_pad, P] with rows ordered (i, k, j) and R_pad >= n_off * nb
 (padding rows are never read); K0 takes ``data`` [n_off, nb, nb, P]; both
 take ``xt`` [nb, P], and x reads zero outside [0, P).
+
+The launch path: a band's unchanging arguments are validated once into a
+:class:`KernelBand`, which ``BlockBanded`` and ``BlockPacked`` keep and pass
+as ``band=``, so a launch checks only its vectors.  Kernels launch on the
+current device's current stream; a tensor on another device raises (no
+device switch).
 """
 
 from __future__ import annotations
@@ -23,7 +29,9 @@ import torch.nn.functional as F
 from polydeal_tpu_torch.ops import _build
 
 __all__ = ["banded_matvec_t_imajor", "banded_matvec_t_imajor_ref",
-           "banded_matvec_t_omajor", "banded_matvec_t_omajor_ref"]
+           "banded_matvec_t_omajor", "banded_matvec_t_omajor_ref",
+           "KernelBand", "imajor_band", "omajor_band", "launch_band",
+           "launch_product"]
 
 _VEC_DTYPES = (torch.float32, torch.float64)
 # K0 stages its offset table in 48 KB of shared memory
@@ -52,10 +60,65 @@ def banded_matvec_t_imajor_ref(data_i: torch.Tensor, offsets, nb: int,
     return torch.einsum("ikjp,kjp->ip", D, Xg)
 
 
-def check_kernel_args(data_i, offsets, nb, vecs, n_slots=None):
-    """Validate what the CUDA kernels take; returns (n_off, R_pad, P).
-    Each i-slab holds ``n_slots`` row blocks (default: one per offset; the
-    packed format's K)."""
+class KernelBand:
+    """A band's unchanging launch arguments, validated once: the band's
+    pointer and dtype code, the C entry's band arguments (offset table,
+    n_off, nb, ...), P and the device.  Made by :func:`imajor_band`,
+    :func:`omajor_band` or ``ops/packed.packed_band``; a ``BlockBanded`` or
+    ``BlockPacked`` keeps its own from its first launch, so a launch checks
+    only its vectors (:meth:`vec_code`).
+
+    ``layout`` names the C entries and launch counters (``_ENTRIES``);
+    ``keep`` holds the tensors whose pointers ``args`` carries."""
+
+    __slots__ = ("layout", "dtype", "nb", "P", "device", "head", "args",
+                 "keep", "n_off", "R_pad")
+
+    def __init__(self, layout, data, nb, P, n_off, R_pad, args, keep):
+        self.layout, self.dtype, self.nb, self.P = layout, data.dtype, nb, P
+        self.device = data.device
+        self.head = (data.data_ptr(), _build.DTYPE_CODES[data.dtype])
+        self.n_off, self.R_pad, self.args, self.keep = n_off, R_pad, args, keep
+
+    def vec_code(self, vecs) -> int:
+        """Check one launch's vectors -- one f32 or f64 dtype (f64 for an
+        f64 band), [nb, P], contiguous, on the band's device -- and return
+        their dtype code."""
+        vdt = vecs[0].dtype
+        if vdt not in _VEC_DTYPES:
+            raise TypeError(f"vector dtype {vdt} not supported (f32 or f64)")
+        if vdt == torch.float32 and self.dtype == torch.float64:
+            raise TypeError("f64 band needs f64 vectors")
+        shape = (self.nb, self.P)
+        for v in vecs:
+            if v.device != self.device:
+                raise ValueError(f"tensor on {v.device}, band on "
+                                 f"{self.device}")
+            if not v.is_contiguous():
+                raise ValueError("kernel operands must be contiguous")
+            if v.shape != shape or v.dtype != vdt:
+                raise ValueError(f"vector {tuple(v.shape)} {v.dtype} is not "
+                                 f"[{self.nb}, {self.P}] {vdt}")
+        return _build.DTYPE_CODES[vdt]
+
+
+# per layout, (C entry, launch counter, kernel) of the product and of the
+# fused Chebyshev step / residual
+_ENTRIES = {
+    "imajor": (("pd_banded_matvec", "banded_matvec_imajor", "K1"),
+               ("pd_banded_fused", "banded_fused_cheb", "K2")),
+    "omajor": (("pd_banded_matvec_omajor", "banded_matvec_omajor", "K0"),
+               ("pd_banded_fused_omajor", "banded_fused_omajor",
+                "fused K0")),
+    "packed": (("pd_packed_matvec", "packed_matvec", "K6"),
+               ("pd_packed_fused", "packed_fused_cheb", "K7")),
+}
+
+
+def imajor_band(data_i, offsets, nb, n_slots=None) -> KernelBand:
+    """Validate an i-major band [nb * R_pad, P] for K1/K2, each i-slab
+    holding ``n_slots`` row blocks (default: one per offset; the packed
+    format's K)."""
     dev = data_i.device
     if data_i.dim() != 2 or nb <= 0 or data_i.shape[0] % nb:
         raise ValueError(f"data_i {tuple(data_i.shape)} is not [nb*R_pad, P]"
@@ -70,46 +133,60 @@ def check_kernel_args(data_i, offsets, nb, vecs, n_slots=None):
     slots = n_off if n_slots is None else n_slots
     if R_pad < slots * nb:
         raise ValueError(f"R_pad={R_pad} < slots*nb={slots * nb}")
-    vdt = vecs[0].dtype
-    if vdt not in _VEC_DTYPES:
-        raise TypeError(f"vector dtype {vdt} not supported (f32 or f64)")
-    if vdt == torch.float32 and data_i.dtype == torch.float64:
-        raise TypeError("f64 band needs f64 vectors")
-    for t in (data_i, offsets, *vecs):
+    for t in (data_i, offsets):
         if t.device != dev:
             raise ValueError(f"tensor on {t.device}, band on {dev}")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
-    for v in vecs:
-        if tuple(v.shape) != (nb, P) or v.dtype != vdt:
-            raise ValueError(f"vector {tuple(v.shape)} {v.dtype} is not "
-                             f"[{nb}, {P}] {vdt}")
-    return n_off, R_pad, P
+    return KernelBand("imajor", data_i, nb, P, n_off, R_pad,
+                      (offsets.data_ptr(), n_off, nb, R_pad, P), (offsets,))
+
+
+def check_kernel_args(data_i, offsets, nb, vecs, n_slots=None):
+    """Validate what the CUDA kernels take (:func:`imajor_band`, then the
+    vectors); returns (n_off, R_pad, P)."""
+    band = imajor_band(data_i, offsets, nb, n_slots)
+    band.vec_code(vecs)
+    return band.n_off, band.R_pad, band.P
+
+
+def launch_band(band: KernelBand, fused: bool, vecs, tail):
+    """Launch the band's product (``fused=False``) or fused entry with the
+    vector pointers and scalars ``tail`` after its band arguments; raises
+    if the launch fails, counts it if not."""
+    entry, counter, name = _ENTRIES[band.layout][fused]
+    if band.device.type != "cuda":
+        raise RuntimeError(f"no {name} kernel for device {band.device}")
+    vcode = band.vec_code(vecs)
+    lib = _build.load_library()
+    rc = getattr(lib, entry)(*band.head, vecs[0].data_ptr(), vcode,
+                             *band.args, *tail,
+                             _build.stream_handle(band.device))
+    if rc != 0:
+        raise RuntimeError(f"{name} ({entry}) launch failed: {rc}")
+    _build.launches[counter] += 1
+
+
+def launch_product(band: KernelBand, xt: torch.Tensor) -> torch.Tensor:
+    """y = A x through the band's product kernel (K1, K0 or K6)."""
+    y = torch.empty_like(xt)
+    launch_band(band, False, (xt,), (y.data_ptr(),))
+    return y
 
 
 def banded_matvec_t_imajor(data_i: torch.Tensor, offsets, nb: int,
-                           xt: torch.Tensor) -> torch.Tensor:
+                           xt: torch.Tensor, *,
+                           band: KernelBand | None = None) -> torch.Tensor:
     """y[i, p] = sum_k sum_j data_i[i*R_pad + k*nb + j, p] * x[j, p+off_k].
 
     ``offsets`` is an int32 tensor on the band's device (read by the
-    kernel on the device); returns y [nb, P] in ``xt``'s dtype."""
+    kernel on the device); ``band`` this band's :func:`imajor_band`, if
+    the caller keeps one.  Returns y [nb, P] in ``xt``'s dtype."""
     if xt.device.type == "cpu":
         return banded_matvec_t_imajor_ref(data_i, offsets, nb, xt)
-    if xt.device.type != "cuda":
-        raise RuntimeError(f"no K1 kernel for device {xt.device}")
-    n_off, R_pad, P = check_kernel_args(data_i, offsets, nb, (xt,))
-    y = torch.empty_like(xt)
-    lib = _build.load_library()
-    with torch.cuda.device(xt.device):
-        rc = lib.pd_banded_matvec(
-            data_i.data_ptr(), _build.DTYPE_CODES[data_i.dtype],
-            xt.data_ptr(), _build.DTYPE_CODES[xt.dtype], offsets.data_ptr(),
-            n_off, nb, R_pad, P, y.data_ptr(),
-            _build.stream_handle(xt.device))
-    if rc != 0:
-        raise RuntimeError(f"K1 banded_matvec_imajor launch failed: {rc}")
-    _build.launches["banded_matvec_imajor"] += 1
-    return y
+    if band is None:
+        band = imajor_band(data_i, offsets, nb)
+    return launch_product(band, xt)
 
 
 def banded_matvec_t_omajor_ref(data: torch.Tensor, offsets,
@@ -127,9 +204,9 @@ def banded_matvec_t_omajor_ref(data: torch.Tensor, offsets,
     return torch.einsum("oijp,ojp->ip", data.to(acc), Xg).to(xt.dtype)
 
 
-def check_omajor_args(data, offsets, xt):
-    """Validate what K0 takes, as :func:`check_kernel_args` does for K1;
-    returns (n_off, nb, P)."""
+def omajor_band(data, offsets) -> KernelBand:
+    """Validate an o-major band [n_off, nb, nb, P] for K0 (plain or
+    fused), as :func:`imajor_band` does for K1/K2."""
     if data.dim() != 4 or data.shape[1] != data.shape[2]:
         raise ValueError(f"data {tuple(data.shape)} is not [n_off, nb, nb, "
                          f"P]")
@@ -137,36 +214,36 @@ def check_omajor_args(data, offsets, xt):
         raise ValueError("kernel operands must be contiguous")
     n_off, nb, _, P = data.shape
     # the o-major band viewed as n_off * nb rows per i-slab
-    check_kernel_args(data.view(nb * n_off * nb, P), offsets, nb, (xt,))
+    imajor_band(data.view(nb * n_off * nb, P), offsets, nb)
     if offsets.numel() != n_off:
         raise ValueError(f"{offsets.numel()} offsets for {n_off} band rows")
     if n_off > _MAX_OFFSETS:
         raise ValueError(f"{n_off} offsets exceed K0's shared-memory table "
                          f"({_MAX_OFFSETS})")
-    return n_off, nb, P
+    return KernelBand("omajor", data, nb, P, n_off, n_off * nb,
+                      (offsets.data_ptr(), n_off, nb, P), (offsets,))
 
 
-def banded_matvec_t_omajor(data: torch.Tensor, offsets,
-                           xt: torch.Tensor) -> torch.Tensor:
+def check_omajor_args(data, offsets, xt):
+    """Validate what K0 takes (:func:`omajor_band`, then x); returns
+    (n_off, nb, P)."""
+    band = omajor_band(data, offsets)
+    band.vec_code((xt,))
+    return band.n_off, band.nb, band.P
+
+
+def banded_matvec_t_omajor(data: torch.Tensor, offsets, xt: torch.Tensor,
+                           *, band: KernelBand | None = None
+                           ) -> torch.Tensor:
     """y[i, p] = sum_o sum_j data[o, i, j, p] * x[j, p + offsets[o]] (K0).
 
     ``data`` [n_off, nb, nb, P] bf16, f32 or f64, contiguous; ``offsets``
     the band's int32 device table (``BlockBanded.offsets_t``); ``xt``
-    [nb, P] f32 or f64.  Accumulates in f64 for f64 data, in f32
-    otherwise; returns y [nb, P] in ``xt``'s dtype."""
+    [nb, P] f32 or f64; ``band`` this band's :func:`omajor_band`, if the
+    caller keeps one.  Accumulates in f64 for f64 data, in f32 otherwise;
+    returns y [nb, P] in ``xt``'s dtype."""
     if xt.device.type == "cpu":
         return banded_matvec_t_omajor_ref(data, offsets, xt)
-    if xt.device.type != "cuda":
-        raise RuntimeError(f"no K0 kernel for device {xt.device}")
-    n_off, nb, P = check_omajor_args(data, offsets, xt)
-    y = torch.empty_like(xt)
-    lib = _build.load_library()
-    with torch.cuda.device(xt.device):
-        rc = lib.pd_banded_matvec_omajor(
-            data.data_ptr(), _build.DTYPE_CODES[data.dtype], xt.data_ptr(),
-            _build.DTYPE_CODES[xt.dtype], offsets.data_ptr(), n_off, nb, P,
-            y.data_ptr(), _build.stream_handle(xt.device))
-    if rc != 0:
-        raise RuntimeError(f"K0 banded_matvec_omajor launch failed: {rc}")
-    _build.launches["banded_matvec_omajor"] += 1
-    return y
+    if band is None:
+        band = omajor_band(data, offsets)
+    return launch_product(band, xt)

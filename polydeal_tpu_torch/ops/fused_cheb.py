@@ -1,33 +1,45 @@
-"""K2 and K7: the fused Chebyshev step and residual, on the i-major band
-(K2) and on the packed band (K7).
+"""K2, fused K0 and K7: the fused Chebyshev step and residual, on the
+i-major band (K2), on the o-major band (fused K0) and on the packed band
+(K7).
 
 Counterpart of ``polydeal_tpu/ops/fused_cheb.py`` ``banded_cheb_step_t``,
 ``banded_residual_t`` (Pallas kernel ``_banded_fused_impl``) and
 ``packed_cheb_step_t``, ``packed_residual_t`` (``_packed_fused_impl``).
-One kernel computes y = A x as K1 (or K6) does and consumes it in its
+One kernel computes y = A x as K1 (K0, K6) does and consumes it in its
 epilogue:
 
   step      (x, d) -> (x', d'):  d' = c1*d + c2*dinv*(b - y);  x' = x + d'
   step0     (x,)   -> (x', d'):  d' = c2*dinv*(b - y);         x' = x + d'
   residual  (x,)   -> b - y
 
+The ``_omajor`` entry points compute K2's function on a band without the
+i-major copy (the small multigrid levels), where the JAX package runs the
+product and the update unfused; their plain versions are K0's plain
+product followed by the same update.
+
 On a CUDA tensor the wrappers launch the kernels of ``csrc/banded.cu`` and
 ``csrc/packed.cu`` (and raise if they cannot); on a CPU tensor they run the
-plain PyTorch versions below.  Accumulation is in the vectors' dtype (f32,
-or f64).
+plain PyTorch versions below.  The update runs in the vectors' dtype (f32,
+or f64); the product accumulates in it for K2 and K7, and as K0 does
+(f64 for an f64 band, f32 otherwise) for fused K0.  ``band=`` takes the
+band's validated launch arguments where the caller keeps them
+(``ops/banded.KernelBand``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from polydeal_tpu_torch.ops import _build
 from polydeal_tpu_torch.ops.banded import (
+    KernelBand,
     banded_matvec_t_imajor_ref,
-    check_kernel_args,
+    banded_matvec_t_omajor_ref,
+    imajor_band,
+    launch_band,
+    omajor_band,
 )
 from polydeal_tpu_torch.ops.packed import (
-    check_packed_args,
+    packed_band,
     packed_matvec_t_ref,
 )
 
@@ -36,6 +48,10 @@ __all__ = [
     "banded_residual_t",
     "banded_cheb_step_t_ref",
     "banded_residual_t_ref",
+    "banded_cheb_step_t_omajor",
+    "banded_residual_t_omajor",
+    "banded_cheb_step_t_omajor_ref",
+    "banded_residual_t_omajor_ref",
     "packed_cheb_step_t",
     "packed_residual_t",
     "packed_cheb_step_t_ref",
@@ -66,6 +82,18 @@ def banded_residual_t_ref(data_i, offsets, nb: int, xt, b):
     return b - banded_matvec_t_imajor_ref(data_i, offsets, nb, xt)
 
 
+def banded_cheb_step_t_omajor_ref(data, offsets, xt, dvec, b, dinv,
+                                  c1: float, c2: float):
+    """Plain version of fused K0's step; ``dvec=None`` is the first step."""
+    r = b - banded_matvec_t_omajor_ref(data, offsets, xt)
+    return _cheb_update(r, xt, dvec, dinv, c1, c2)
+
+
+def banded_residual_t_omajor_ref(data, offsets, xt, b):
+    """Plain version of fused K0's residual b - A x."""
+    return b - banded_matvec_t_omajor_ref(data, offsets, xt)
+
+
 def packed_cheb_step_t_ref(data_i, oid, offsets, nb: int, xt, dvec, b,
                            dinv, c1: float, c2: float):
     """Plain version of K7's step; ``dvec=None`` is the first step."""
@@ -78,75 +106,80 @@ def packed_residual_t_ref(data_i, oid, offsets, nb: int, xt, b):
     return b - packed_matvec_t_ref(data_i, oid, offsets, nb, xt)
 
 
-def _launch(mode, data_i, offsets, nb, xt, b, dvec=None, dinv=None,
-            c1=0.0, c2=0.0, oid=None):
-    """Launch K2, or K7 when ``oid`` (the packed slot table) is given."""
-    name = "K2" if oid is None else "K7"
-    if xt.device.type != "cuda":
-        raise RuntimeError(f"no {name} kernel for device {xt.device}")
-    vecs = [t for t in (xt, b, dvec, dinv) if t is not None]
-    if oid is None:
-        n_off, R_pad, P = check_kernel_args(data_i, offsets, nb, vecs)
-    else:
-        n_off, K, R_pad, P = check_packed_args(data_i, oid, offsets, nb,
-                                               vecs)
+def _launch(band: KernelBand, xt, b, dvec=None, dinv=None, c1=0.0, c2=0.0,
+            step: bool = True):
+    """Launch the band's fused kernel: a step (x', d') or the residual."""
+    mode = "residual" if not step else "step0" if dvec is None else "step"
     out0 = torch.empty_like(xt)
-    out1 = None if mode == "residual" else torch.empty_like(xt)
+    out1 = torch.empty_like(xt) if step else None
+    vecs = [t for t in (xt, b, dvec, dinv) if t is not None]
     ptr = lambda t: None if t is None else t.data_ptr()
-    head = (data_i.data_ptr(), _build.DTYPE_CODES[data_i.dtype],
-            xt.data_ptr(), _build.DTYPE_CODES[xt.dtype])
-    tail = (R_pad, P, b.data_ptr(), ptr(dvec), ptr(dinv), float(c1),
-            float(c2), _MODES[mode], out0.data_ptr(), ptr(out1),
-            _build.stream_handle(xt.device))
-    lib = _build.load_library()
-    with torch.cuda.device(xt.device):
-        if oid is None:
-            rc = lib.pd_banded_fused(*head, offsets.data_ptr(), n_off, nb,
-                                     *tail)
-        else:
-            rc = lib.pd_packed_fused(*head, oid.data_ptr(),
-                                     offsets.data_ptr(), n_off, K, nb, *tail)
-    if rc != 0:
-        raise RuntimeError(f"{name} fused Chebyshev ({mode}) launch failed: "
-                           f"{rc}")
-    _build.launches["banded_fused_cheb" if oid is None
-                    else "packed_fused_cheb"] += 1
-    return out0 if out1 is None else (out0, out1)
+    launch_band(band, True, vecs,
+                (b.data_ptr(), ptr(dvec), ptr(dinv), float(c1), float(c2),
+                 _MODES[mode], out0.data_ptr(), ptr(out1)))
+    return (out0, out1) if step else out0
 
 
 def banded_cheb_step_t(data_i, offsets, nb: int, xt, dvec, b, dinv,
-                       c1: float, c2: float):
-    """One fused Chebyshev step; ``dvec=None`` is the first step (c1 is
-    then unused).  Returns (x', d') in ``xt``'s dtype."""
+                       c1: float, c2: float, *, band=None):
+    """One fused Chebyshev step (K2); ``dvec=None`` is the first step (c1
+    is then unused).  Returns (x', d') in ``xt``'s dtype."""
     if xt.device.type == "cpu":
         return banded_cheb_step_t_ref(data_i, offsets, nb, xt, dvec, b, dinv,
                                       c1, c2)
-    mode = "step0" if dvec is None else "step"
-    return _launch(mode, data_i, offsets, nb, xt, b, dvec, dinv, c1, c2)
+    if band is None:
+        band = imajor_band(data_i, offsets, nb)
+    return _launch(band, xt, b, dvec, dinv, c1, c2)
 
 
-def banded_residual_t(data_i, offsets, nb: int, xt, b):
-    """Fused r = b - A x."""
+def banded_residual_t(data_i, offsets, nb: int, xt, b, *, band=None):
+    """Fused r = b - A x (K2)."""
     if xt.device.type == "cpu":
         return banded_residual_t_ref(data_i, offsets, nb, xt, b)
-    return _launch("residual", data_i, offsets, nb, xt, b)
+    if band is None:
+        band = imajor_band(data_i, offsets, nb)
+    return _launch(band, xt, b, step=False)
+
+
+def banded_cheb_step_t_omajor(data, offsets, xt, dvec, b, dinv, c1: float,
+                              c2: float, *, band=None):
+    """One fused Chebyshev step on the o-major band [n_off, nb, nb, P]
+    (fused K0); ``dvec=None`` is the first step.  Returns (x', d') in
+    ``xt``'s dtype."""
+    if xt.device.type == "cpu":
+        return banded_cheb_step_t_omajor_ref(data, offsets, xt, dvec, b, dinv,
+                                             c1, c2)
+    if band is None:
+        band = omajor_band(data, offsets)
+    return _launch(band, xt, b, dvec, dinv, c1, c2)
+
+
+def banded_residual_t_omajor(data, offsets, xt, b, *, band=None):
+    """Fused r = b - A x on the o-major band (fused K0)."""
+    if xt.device.type == "cpu":
+        return banded_residual_t_omajor_ref(data, offsets, xt, b)
+    if band is None:
+        band = omajor_band(data, offsets)
+    return _launch(band, xt, b, step=False)
 
 
 def packed_cheb_step_t(data_i, oid, offsets, nb: int, xt, dvec, b, dinv,
-                       c1: float, c2: float):
+                       c1: float, c2: float, *, band=None):
     """One fused Chebyshev step on the packed band (K7); ``dvec=None`` is
     the first step.  ``offsets`` is the plan's int32 offset table on the
     band's device.  Returns (x', d') in ``xt``'s dtype."""
     if xt.device.type == "cpu":
         return packed_cheb_step_t_ref(data_i, oid, offsets, nb, xt, dvec, b,
                                       dinv, c1, c2)
-    mode = "step0" if dvec is None else "step"
-    return _launch(mode, data_i, offsets, nb, xt, b, dvec, dinv, c1, c2,
-                   oid=oid)
+    if band is None:
+        band = packed_band(data_i, oid, offsets, nb)
+    return _launch(band, xt, b, dvec, dinv, c1, c2)
 
 
-def packed_residual_t(data_i, oid, offsets, nb: int, xt, b):
+def packed_residual_t(data_i, oid, offsets, nb: int, xt, b, *, band=None):
     """Fused r = b - A x on the packed band (K7)."""
     if xt.device.type == "cpu":
         return packed_residual_t_ref(data_i, oid, offsets, nb, xt, b)
-    return _launch("residual", data_i, offsets, nb, xt, b, oid=oid)
+    if band is None:
+        band = packed_band(data_i, oid, offsets, nb)
+    return _launch(band, xt, b, step=False)

@@ -33,11 +33,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from polydeal_tpu_torch.ops import _build
-from polydeal_tpu_torch.ops.banded import check_kernel_args
+from polydeal_tpu_torch.ops.banded import (
+    KernelBand,
+    imajor_band,
+    launch_product,
+)
 
 __all__ = ["PackPlan", "build_pack_plan", "choose_near_limit",
-           "packed_matvec_t", "packed_matvec_t_ref", "check_packed_args"]
+           "packed_matvec_t", "packed_matvec_t_ref", "packed_band"]
 
 
 @dataclass(frozen=True)
@@ -175,9 +178,9 @@ def packed_matvec_t_ref(data_i: torch.Tensor, oid: torch.Tensor, offsets,
     return torch.einsum("ikjp,jkp->ip", D, Xg)
 
 
-def check_packed_args(data_i, oid, offsets, nb, vecs):
-    """Validate what the packed CUDA kernels take; returns
-    (n_off, K, R_pad, P)."""
+def packed_band(data_i, oid, offsets, nb) -> KernelBand:
+    """Validate a packed band for K6/K7, as ``imajor_band`` does for
+    K1/K2."""
     if data_i.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"packed band dtype {data_i.dtype} not supported "
                         f"(f32 or f64)")
@@ -186,34 +189,26 @@ def check_packed_args(data_i, oid, offsets, nb, vecs):
         raise ValueError("oid must be a contiguous [K, P] int32 tensor on "
                          "the band's device")
     K = oid.shape[0]
-    n_off, R_pad, P = check_kernel_args(data_i, offsets, nb, vecs,
-                                        n_slots=K)
+    band = imajor_band(data_i, offsets, nb, n_slots=K)
+    n_off, R_pad, P = band.n_off, band.R_pad, band.P
     if oid.shape[1] != P:
         raise ValueError(f"oid {tuple(oid.shape)} is not [K, {P}]")
-    return n_off, K, R_pad, P
+    return KernelBand("packed", data_i, nb, P, n_off, R_pad,
+                      (oid.data_ptr(), offsets.data_ptr(), n_off, K, nb,
+                       R_pad, P), (oid, offsets))
 
 
 def packed_matvec_t(data_i: torch.Tensor, oid: torch.Tensor, offsets,
-                    nb: int, xt: torch.Tensor) -> torch.Tensor:
+                    nb: int, xt: torch.Tensor, *,
+                    band: KernelBand | None = None) -> torch.Tensor:
     """y[i, p] = sum_k sum_j data_i[i*R_pad + k*nb + j, p] *
     x[j, p + offsets[oid[k, p]]], inactive slots adding nothing.
 
     ``offsets`` is the plan's int32 offset table on the band's device (as
-    K1 takes its offsets); returns y [nb, P] in ``xt``'s dtype."""
+    K1 takes its offsets); ``band`` this pack's :func:`packed_band`, if the
+    caller keeps one.  Returns y [nb, P] in ``xt``'s dtype."""
     if xt.device.type == "cpu":
         return packed_matvec_t_ref(data_i, oid, offsets, nb, xt)
-    if xt.device.type != "cuda":
-        raise RuntimeError(f"no K6 kernel for device {xt.device}")
-    n_off, K, R_pad, P = check_packed_args(data_i, oid, offsets, nb, (xt,))
-    y = torch.empty_like(xt)
-    lib = _build.load_library()
-    with torch.cuda.device(xt.device):
-        rc = lib.pd_packed_matvec(
-            data_i.data_ptr(), _build.DTYPE_CODES[data_i.dtype],
-            xt.data_ptr(), _build.DTYPE_CODES[xt.dtype], oid.data_ptr(),
-            offsets.data_ptr(), n_off, K, nb, R_pad, P, y.data_ptr(),
-            _build.stream_handle(xt.device))
-    if rc != 0:
-        raise RuntimeError(f"K6 packed_matvec launch failed: {rc}")
-    _build.launches["packed_matvec"] += 1
-    return y
+    if band is None:
+        band = packed_band(data_i, oid, offsets, nb)
+    return launch_product(band, xt)

@@ -36,8 +36,8 @@ class ChebyshevSmoother:
 
     ``step_fn(x, d, c1, c2) -> (x', d')`` is an optional FUSED step
     implementing ``d' = c1*d + c2*Minv(b - A x); x' = x + d'`` with b bound
-    by the caller (kernel K2, ops/fused_cheb.py); ``d=None`` marks the
-    first step (c1 unused).
+    by the caller (kernel K2, fused K0 or K7, ops/fused_cheb.py);
+    ``d=None`` marks the first step (c1 unused).
 
     ``x_is_zero=True`` skips the first operator apply (A 0 = 0): the
     pre-smoother always starts from zero."""

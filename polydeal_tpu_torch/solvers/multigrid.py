@@ -9,8 +9,9 @@ directly.  The whole V-cycle runs in the transposed [nb, P] layout.
 
 Levels with at least :data:`IMAJOR_MIN_P` polytopes carry the i-major
 band copy, so their SpMVs run K1 and their smoothing steps and residuals
-run K2 (ops/); smaller levels multiply through K0 over the o-major band,
-where the JAX package leaves the product to XLA.  A level whose band has
+run K2 (ops/); smaller levels run K0 and fused K0 over the o-major band,
+where the JAX package leaves the product and the update to XLA.  Every
+smoothing step is one fused launch.  A level whose band has
 many more offsets than a lane touches (the R-tree numbering without the
 relabel) is packed (:func:`maybe_pack_level`, ``sparse.BlockPacked``) and
 runs K6 and K7 instead.
@@ -262,7 +263,8 @@ def _with_imajor_if_big(e: BlockBanded,
                         drop_omajor: bool = False) -> BlockBanded:
     """The level's band with the i-major copy attached when the level
     has at least :data:`IMAJOR_MIN_P` polytopes; the one place that
-    decides which banded levels run K1/K2 (a packed level runs K6/K7)."""
+    decides which banded levels run K1/K2 (the others run K0 and fused K0;
+    a packed level runs K6/K7)."""
     if (isinstance(e, BlockBanded) and e.data_i is None
             and e.n_block_rows >= IMAJOR_MIN_P):
         return e.with_imajor(drop_omajor=drop_omajor)
@@ -349,13 +351,15 @@ class Multigrid:
 
     @staticmethod
     def _fused_ok(A, b: torch.Tensor) -> bool:
-        """K2 serves every level that carries the i-major copy, K7 every
-        packed level without a far tail."""
+        """Fused smoothing and residuals for f32 and f64 vectors: K2 on
+        every level that carries the i-major copy, fused K0 on every other
+        banded level, K7 on every packed level without a far tail."""
         return A.fused_cheb_ok() and b.dtype in (torch.float32,
                                                  torch.float64)
 
     def _residual(self, A, x, b):
-        """r = b - A x, through K2 or K7 where the level allows it."""
+        """r = b - A x, through K2, fused K0 or K7 where the level allows
+        it."""
         if self._fused_ok(A, b):
             return A.residual_t(x, b)
         return b - A.matvec_t(x)

@@ -9,12 +9,14 @@ the matrix.  Offsets stay a host numpy array (they shape the program), with
 an int32 device copy for the kernels.
 
 SpMV dispatch: a band with the i-major copy ``data_i`` multiplies through
-K1 (``ops/banded.py``), a band without it through K0 over the o-major
-``data`` (where the JAX package leaves the product to XLA); each launches
+K1 (``ops/banded.py``) and smooths through K2 (``ops/fused_cheb.py``), a
+band without it through K0 over the o-major ``data`` and fused K0 (where
+the JAX package leaves the product and the update to XLA); each launches
 its CUDA kernel on a CUDA tensor and runs its plain version on a CPU
 tensor.  A ``BlockPacked`` (the per-lane K-slot format of
 ``ops/packed.py``, for wide offset sets) multiplies through K6 and smooths
-through K7.
+through K7.  Each keeps its validated launch arguments
+(``ops/banded.KernelBand``) from its first launch.
 """
 
 from __future__ import annotations
@@ -25,18 +27,35 @@ import numpy as np
 import torch
 
 from polydeal_tpu_torch.ops.banded import (
+    KernelBand,
     banded_matvec_t_imajor,
     banded_matvec_t_omajor,
+    imajor_band,
+    omajor_band,
 )
 from polydeal_tpu_torch.ops.fused_cheb import (
     banded_cheb_step_t,
+    banded_cheb_step_t_omajor,
     banded_residual_t,
+    banded_residual_t_omajor,
     packed_cheb_step_t,
     packed_residual_t,
 )
-from polydeal_tpu_torch.ops.packed import PackPlan, packed_matvec_t
+from polydeal_tpu_torch.ops.packed import (
+    PackPlan,
+    packed_band,
+    packed_matvec_t,
+)
 
 __all__ = ["BlockBanded", "BlockPacked", "pack_blocks"]
+
+
+def _vec(v, dtype):
+    """A smoother vector in the iterate's dtype, contiguous; as it is where
+    it already is (``Tensor.to`` costs host time even as a no-op)."""
+    if v is None:
+        return None
+    return (v if v.dtype == dtype else v.to(dtype)).contiguous()
 
 
 @dataclass
@@ -52,6 +71,8 @@ class BlockBanded:
     n_block_cols: int
     data_i: torch.Tensor | None = None
     offsets_t: torch.Tensor = field(init=False, repr=False)
+    _kband: KernelBand | None = field(init=False, repr=False, default=None,
+                                      compare=False)
 
     def __post_init__(self):
         self.offsets = np.asarray(self.offsets, dtype=np.int64)
@@ -94,13 +115,29 @@ class BlockBanded:
         nb = self.n_basis
         return (self.n_block_rows * nb, self.n_block_cols * nb)
 
+    def _band(self, xt) -> KernelBand | None:
+        """The kernels' launch arguments of the layout this band runs
+        (i-major where ``data_i`` exists), validated at the first launch
+        and kept; None for a CPU vector (plain versions)."""
+        if xt.device.type == "cpu":
+            return None
+        if self._kband is None:
+            self._kband = (
+                imajor_band(self.data_i, self.offsets_t, self.n_basis)
+                if self.data_i is not None
+                else omajor_band(self.data, self.offsets_t))
+        return self._kband
+
     def matvec_t(self, xt: torch.Tensor) -> torch.Tensor:
-        """Transposed-layout SpMV: xt [nb, P] -> [nb, P]."""
+        """Transposed-layout SpMV (K1, or K0 without ``data_i``): xt
+        [nb, P] -> [nb, P]."""
+        xt = xt.contiguous()
+        band = self._band(xt)
         if self.data_i is not None:
             return banded_matvec_t_imajor(self.data_i, self.offsets_t,
-                                          self.n_basis, xt.contiguous())
-        return banded_matvec_t_omajor(self.data, self.offsets_t,
-                                      xt.contiguous())
+                                          self.n_basis, xt, band=band)
+        return banded_matvec_t_omajor(self.data, self.offsets_t, xt,
+                                      band=band)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         nb = self.n_basis
@@ -109,25 +146,37 @@ class BlockBanded:
         return y.T.reshape(-1) if x.dim() == 1 else y.T
 
     def fused_cheb_ok(self) -> bool:
-        """Fused smoothing (K2) needs the i-major copy."""
-        return self.data_i is not None
+        """Every band smooths fused: K2 on the i-major copy, fused K0 on
+        the o-major band."""
+        return True
 
     def cheb_step_t(self, xt, dvec, b, dinv, c1: float, c2: float):
-        """Fused Chebyshev step (K2): d' = c1*d + c2*dinv*(b - A x);
-        x' = x + d'.  ``dvec=None`` is the first step."""
+        """Fused Chebyshev step (K2, or fused K0 without ``data_i``):
+        d' = c1*d + c2*dinv*(b - A x); x' = x + d'.  ``dvec=None`` is the
+        first step."""
         t = xt.dtype
-
-        def vec(v):
-            return None if v is None else v.to(t).contiguous()
-
-        return banded_cheb_step_t(self.data_i, self.offsets_t, self.n_basis,
-                                  xt.contiguous(), vec(dvec), vec(b),
-                                  vec(dinv), c1, c2)
+        xt = xt.contiguous()
+        band = self._band(xt)
+        if self.data_i is not None:
+            return banded_cheb_step_t(self.data_i, self.offsets_t,
+                                      self.n_basis, xt, _vec(dvec, t),
+                                      _vec(b, t), _vec(dinv, t), c1, c2,
+                                      band=band)
+        return banded_cheb_step_t_omajor(self.data, self.offsets_t, xt,
+                                         _vec(dvec, t), _vec(b, t),
+                                         _vec(dinv, t), c1, c2, band=band)
 
     def residual_t(self, xt, b):
-        """Fused r = b - A x (K2) in the transposed layout."""
-        return banded_residual_t(self.data_i, self.offsets_t, self.n_basis,
-                                 xt.contiguous(), b.to(xt.dtype).contiguous())
+        """Fused r = b - A x (K2, or fused K0 without ``data_i``) in the
+        transposed layout."""
+        xt = xt.contiguous()
+        b = _vec(b, xt.dtype)
+        band = self._band(xt)
+        if self.data_i is not None:
+            return banded_residual_t(self.data_i, self.offsets_t,
+                                     self.n_basis, xt, b, band=band)
+        return banded_residual_t_omajor(self.data, self.offsets_t, xt, b,
+                                        band=band)
 
     def to_dense(self) -> torch.Tensor:
         """Dense matrix (small/coarse levels only; needs the o-major
@@ -263,6 +312,8 @@ class BlockPacked:
     far_rows: np.ndarray | None = None
     far_cols: np.ndarray | None = None
     offsets_t: torch.Tensor = field(init=False, repr=False)
+    _kband: KernelBand | None = field(init=False, repr=False, default=None,
+                                      compare=False)
 
     def __post_init__(self):
         dev = self.data_i.device
@@ -301,11 +352,22 @@ class BlockPacked:
         return BlockPacked(self.data_i.to(dtype), self.oid, self.plan, fd,
                            self.far_rows, self.far_cols)
 
+    def _band(self, xt) -> KernelBand | None:
+        """The kernels' launch arguments, validated at the first launch
+        and kept; None for a CPU vector (plain versions)."""
+        if xt.device.type == "cpu":
+            return None
+        if self._kband is None:
+            self._kband = packed_band(self.data_i, self.oid, self.offsets_t,
+                                      self.n_basis)
+        return self._kband
+
     def matvec_t(self, xt: torch.Tensor) -> torch.Tensor:
         """Transposed-layout SpMV (K6, plus the far tail): [nb, P] ->
         [nb, P]."""
+        xt = xt.contiguous()
         y = packed_matvec_t(self.data_i, self.oid, self.offsets_t,
-                            self.n_basis, xt.contiguous())
+                            self.n_basis, xt, band=self._band(xt))
         if self._has_far():
             # block-COO tail: gather, block products, scatter-add by row
             g = xt.T[self._far_cols_t]  # [n_far, nb]
@@ -328,19 +390,17 @@ class BlockPacked:
     def cheb_step_t(self, xt, dvec, b, dinv, c1: float, c2: float):
         """Fused Chebyshev step (K7); see :meth:`BlockBanded.cheb_step_t`."""
         t = xt.dtype
-
-        def vec(v):
-            return None if v is None else v.to(t).contiguous()
-
+        xt = xt.contiguous()
         return packed_cheb_step_t(self.data_i, self.oid, self.offsets_t,
-                                  self.n_basis, xt.contiguous(), vec(dvec),
-                                  vec(b), vec(dinv), c1, c2)
+                                  self.n_basis, xt, _vec(dvec, t), _vec(b, t),
+                                  _vec(dinv, t), c1, c2, band=self._band(xt))
 
     def residual_t(self, xt, b):
         """Fused r = b - A x (K7) in the transposed layout."""
+        xt = xt.contiguous()
         return packed_residual_t(self.data_i, self.oid, self.offsets_t,
-                                 self.n_basis, xt.contiguous(),
-                                 b.to(xt.dtype).contiguous())
+                                 self.n_basis, xt, _vec(b, xt.dtype),
+                                 band=self._band(xt))
 
     def _slot_block(self, k: int) -> torch.Tensor:
         """[nb, nb, P]: the rows (i, k, j) of slot k."""

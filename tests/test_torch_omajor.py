@@ -143,13 +143,15 @@ def test_k0_plain_matches_jax_roll_f64(real_levels):
 
 def test_matvec_t_dispatches_to_k0(monkeypatch):
     """A CPU band without the i-major copy multiplies through the K0
-    wrapper, with its o-major band as it is (bf16 stays bf16) and a
-    contiguous x; a band with the copy does not."""
+    wrapper, with its o-major band as it is (bf16 stays bf16), a
+    contiguous x and no kernel arguments (a CPU band launches nothing); a
+    band with the copy does not."""
     calls = []
 
-    def spy(data, offsets, xt):
+    def spy(data, offsets, xt, band):
+        assert band is None
         calls.append((data, offsets, xt))
-        return banded_matvec_t_omajor(data, offsets, xt)
+        return banded_matvec_t_omajor(data, offsets, xt, band=band)
 
     monkeypatch.setattr(tsparse, "banded_matvec_t_omajor", spy)
     rng = np.random.default_rng(3)
