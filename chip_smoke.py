@@ -37,6 +37,23 @@ Phases (each must pass; nothing falls back to the CPU):
      (0.01, 2.0), K0-K5 launched, and the integrals of u and u^2 within
      1e-3 of an f64 run of the same steps on the card; then a small f64
      monodomain (n_refinements=3, five steps) on the card against the CPU.
+  8. the sharded solve (ShardedBandedSystem) at world size 1 on a real
+     NCCL group: bench.py's bench_sharded configuration (the structured
+     n=64 flagship, f32 with bf16 band copies), unsharded (no FMG) and
+     sharded, each cold and then warm: both reach rtol 1e-8 in 21-25
+     iterations, within one of each other, the sharded f32 solution within
+     1e-4 of an f64 solve; unsharded_ms, sharded_ms and their ratio.  Phase
+     5's lex and phase 6's relabel=None systems are sharded the same way
+     before they go (each within one iteration of its unsharded no-FMG
+     solve and 1e-4 of phase 5's f64 solution; the packed one through K6
+     and K7 halo).  K1, K2, K6 and K7 halo against their plain versions on
+     the sharded path's own slabs (the rows of the JSON line, with CSR
+     products of the slabs beside K1/K6 halo) and on 4-way lane cuts of
+     real bands (lex fine f32 and bf16, structured 32768-lane f32 and bf16,
+     relabel=None fine pack), each also in f64, the cuts side by side
+     against the whole level's product; a small f64 sharded solve (n=16)
+     on the card against the CPU.  Fails unless all four halo kernels were
+     launched.
 K0 (o-major banded SpMV) and fused K0 (its Chebyshev step/residual, all
 three modes) are held against their plain versions on the real bands of
 phases 5-7 once each exists (phase 3's check, on real bands): the
@@ -56,8 +73,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -140,10 +159,11 @@ def bound(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def csr_of_slots(torch, data_i, q, live, nb, R_pad):
+def csr_of_slots(torch, data_i, q, live, nb, R_pad, n_cols=None):
     """A band of n_slots row blocks per i-slab (data_i [nb * R_pad, P]) as
     a torch.sparse CSR matrix on flat (p, i) rows and (q, j) columns: slot
-    k of lane p multiplies x[:, q[k, p]] where ``live[k, p]``."""
+    k of lane p multiplies x[:, q[k, p]] where ``live[k, p]``; x has
+    ``n_cols`` lanes (default P; a halo slab's x_ext has P + 2T)."""
     dev = data_i.device
     n_slots, P = q.shape
     D = data_i.view(nb, R_pad, P)[:, :n_slots * nb].reshape(nb, n_slots, nb,
@@ -158,7 +178,8 @@ def csr_of_slots(torch, data_i, q, live, nb, R_pad):
     with warnings.catch_warnings():  # "CSR support is in beta state"
         warnings.simplefilter("ignore", UserWarning)
         A = torch.sparse_coo_tensor(torch.stack([rows, cols]), D[mask],
-                                    (P * nb, P * nb), check_invariants=False)
+                                    (P * nb, (n_cols or P) * nb),
+                                    check_invariants=False)
         return A.coalesce().to_sparse_csr()
 
 
@@ -659,6 +680,38 @@ def traced_us(torch, fn, kernel, n=50, tries=3):
     fail(f"{tries} traces of {n} calls hold no {kernel} launch")
 
 
+L2_BYTES = 50 * 2**20  # the H100's L2 cache
+ROOF_LIMIT = 1.10  # share of its bound above which a reading is refused
+
+
+def cold_traced_us(torch, fn, kernel, nbytes, bound_ms, label, n=50,
+                   tries=3):
+    """``traced_us`` held to the kernel's bound.  Where the call's
+    ``nbytes`` exceed L2, L2 is evicted before every call (a 128 MB write),
+    so each launch reads its operands from HBM, as on the main path, where
+    other levels run between two launches on one band; such a launch
+    cannot beat its bound, so a reading above ``ROOF_LIMIT`` of it is
+    traced again, and the smoke fails if all ``tries`` traces read so.
+    A smaller working set is traced back to back, unchecked."""
+    if nbytes <= L2_BYTES:
+        return traced_us(torch, fn, kernel, n)
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
+
+    def cold():
+        flush.zero_()
+        fn()
+
+    seen = []
+    for _ in range(tries):
+        dus = traced_us(torch, cold, kernel, n)
+        if bound_ms * 1e3 / dus <= ROOF_LIMIT:
+            return dus
+        seen.append(round(dus, 2))
+    fail(f"{label}: {tries} traces read {seen} us a launch, above "
+         f"{ROOF_LIMIT:.0%} of its bound {bound_ms * 1e3:.2f} us with L2 "
+         f"evicted")
+
+
 def hold(label, got, ref, tol):
     """Max abs error of a kernel's outputs against its plain version's,
     failing beyond ``tol`` relative to the largest entry; (err, rel)."""
@@ -785,8 +838,10 @@ def check_k2(torch, label, band, out):
     """K2's three modes against their plain versions on a real i-major
     band, in the band's type (f32 vectors for a bf16 or f32 band) and as
     f64, 1e-5 / 1e-12 relative to the largest entry, through the band's
-    kept launch arguments; the step traced (device time per launch: the
-    row's ``ms``) and timed by CUDA events beside the plain version, with
+    kept launch arguments; the step traced (device time per launch, with
+    L2 evicted where the band exceeds it: the row's ``ms``, held to its
+    bound by ``cold_traced_us``) and timed by CUDA events back to back
+    beside the plain version, with
     its bound: the band's n_off*nb*nb*P entries and six vectors once.
     Adds each case to ``out`` (label -> row)."""
     from polydeal_tpu_torch.ops import fused_cheb as fc
@@ -821,11 +876,12 @@ def check_k2(torch, label, band, out):
             e, r = hold(f"K2 {mode} on {label} {dname}", kf(), pf(), tol)
             err, rel = max(err, e), max(rel, r)
         ms, pms = time_pair(torch, *modes["step"])
-        dus = traced_us(torch, modes["step"][0], "fused_kernel")
         ent = n_off * nb * nb * P
         nbytes = ent * di.element_size() + 6 * nb * P * x.element_size()
         b_ms, b_by = bound(nbytes, 2 * ent + 6 * nb * P,
                            "float64" if dname == "float64" else "float32")
+        dus = cold_traced_us(torch, modes["step"][0], "fused_kernel",
+                             nbytes, b_ms, f"K2 on {label} {dname}")
         out[f"{label} {dname}"] = dict(
             max_abs_err=err, ms=dus / 1e3, plain_ms=pms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None, events_ms=ms)
@@ -966,6 +1022,364 @@ def phase7(torch, dev, k0, k2):
     return counts
 
 
+def ring_ext(torch, x, r, per, T):
+    """x_ext of lane slab r of a global x [nb, P]: the slab's lanes with the
+    T lanes on each side that its ring neighbours own (wrapped at the
+    ends), as the sharded solve's halo exchange gives them."""
+    cols = torch.arange(r * per - T, (r + 1) * per + T,
+                        device=x.device) % x.shape[1]
+    return x[:, cols].contiguous()
+
+
+class Slab:
+    """One shard's slab of a level for the halo kernels: its i-major band
+    (and a pack's oid), offsets, nb, lanes and halo width T, with the kept
+    launch arguments the sharded solve keeps."""
+
+    def __init__(self, torch, data_i, offs, nb, T, oid=None):
+        from polydeal_tpu_torch.ops.banded import imajor_band
+        from polydeal_tpu_torch.ops.packed import packed_band
+
+        self.data_i, self.offs, self.nb, self.T, self.oid = (data_i, offs, nb,
+                                                             T, oid)
+        self.per = data_i.shape[1]
+        self.packed = oid is not None
+        self.kb = (packed_band(data_i, oid, offs, nb) if self.packed
+                   else imajor_band(data_i, offs, nb))
+
+    def calls(self, x_ext, b, d, dinv, c1=0.37, c2=1.21):
+        """{mode: (kernel call, plain call)}: the product (K1 or K6 halo),
+        and the fused step, first step and residual (K2 or K7 halo)."""
+        from polydeal_tpu_torch.ops import banded as bd
+        from polydeal_tpu_torch.ops import fused_cheb as fc
+        from polydeal_tpu_torch.ops import packed as pk
+
+        T, kb = self.T, self.kb
+        if self.packed:
+            a = (self.data_i, self.oid, self.offs, self.nb)
+            prod = (pk.packed_matvec_t_halo, pk.packed_matvec_t_halo_ref)
+            step = (fc.packed_cheb_step_t_halo,
+                    fc.packed_cheb_step_t_halo_ref)
+            res = (fc.packed_residual_t_halo, fc.packed_residual_t_halo_ref)
+        else:
+            a = (self.data_i, self.offs, self.nb)
+            prod = (bd.banded_matvec_t_halo, bd.banded_matvec_t_halo_ref)
+            step = (fc.banded_cheb_step_t_halo,
+                    fc.banded_cheb_step_t_halo_ref)
+            res = (fc.banded_residual_t_halo, fc.banded_residual_t_halo_ref)
+        return {
+            "product": (lambda: prod[0](*a, x_ext, tile=T, band=kb),
+                        lambda: prod[1](*a, x_ext, tile=T)),
+            "step": (lambda: step[0](*a, x_ext, d, b, dinv, c1, c2, tile=T,
+                                     band=kb),
+                     lambda: step[1](*a, x_ext, d, b, dinv, c1, c2, tile=T)),
+            "step0": (lambda: step[0](*a, x_ext, None, b, dinv, c1, c2,
+                                      tile=T, band=kb),
+                      lambda: step[1](*a, x_ext, None, b, dinv, c1, c2,
+                                      tile=T)),
+            "residual": (lambda: res[0](*a, x_ext, b, tile=T, band=kb),
+                         lambda: res[1](*a, x_ext, b, tile=T)),
+        }
+
+    def work(self, vsz: int, step: bool):
+        """(bytes, operations) of one product (x_ext in, y out) or fused
+        step (x_ext, b, d, dinv in, x', d' out; six operations a vector
+        entry): the band entries the kernel reads (a pack's active slots
+        and its oid), each once."""
+        nb, per = self.nb, self.per
+        if self.packed:
+            ent = int((self.oid >= 0).sum()) * nb * nb
+            extra = self.oid.numel() * 4
+        else:
+            ent, extra = len(self.offs) * nb * nb * per, 0
+        n_vec = 5 if step else 1
+        nbytes = (ent * self.data_i.element_size() + extra
+                  + nb * (per + 2 * self.T) * vsz + n_vec * nb * per * vsz)
+        return nbytes, 2 * ent + (6 * nb * per if step else 0)
+
+    def csr(self, torch):
+        """The slab's product as a CSR matrix whose columns are x_ext's."""
+        dev, per, T = self.data_i.device, self.per, self.T
+        p = torch.arange(per, device=dev).view(1, per)
+        if self.packed:
+            o = self.oid.long()
+            q = T + p + self.offs.long()[o.clamp(min=0)]
+            live = o >= 0
+        else:
+            q = T + p + self.offs.long().view(-1, 1)
+            live = torch.ones_like(q, dtype=torch.bool)
+        return csr_of_slots(torch, self.data_i, q, live, self.nb,
+                            self.data_i.shape[0] // self.nb,
+                            n_cols=per + 2 * T)
+
+
+HALO_KERNELS = {False: ("K1 halo", "K2 halo", "banded_matvec_imajor",
+                        "banded_fused_kernel"),
+                True: ("K6 halo", "K7 halo", "packed_matvec_kernel",
+                       "packed_fused_kernel")}
+
+
+def check_halo_slab(torch, label, slab, gen, library=False):
+    """A halo kernel's modes against their plain versions on one slab, with
+    seeded vectors (x_ext's halo from the same draw), in the slab's vector
+    type (f32 for a bf16 or f32 band), 1e-5 / 1e-12 relative; the product
+    and the step timed by CUDA events beside the plain version, traced
+    (device time per launch, ``cold_traced_us``) and beside their bound;
+    with ``library``, a
+    CSR product of the slab with its halo columns too (the product's
+    library yardstick).  Returns each kernel's row (name -> row)."""
+    dname = str(slab.data_i.dtype).split(".")[-1]
+    vdt = torch.float64 if dname == "float64" else torch.float32
+    pdt = "float64" if dname == "float64" else "float32"
+    nb, per, T = slab.nb, slab.per, slab.T
+    x_ext = torch.randn(nb, per + 2 * T, generator=gen, device=gen.device,
+                        dtype=torch.float64).to(vdt)
+    _, b, d, dinv = cheb_vectors(torch, gen, nb, per, vdt)
+    calls = slab.calls(x_ext, b, d, dinv)
+    errs = {}
+    for mode, (kf, pf) in calls.items():
+        errs[mode] = hold(f"{label} {mode} {dname}", kf(), pf(), TOL[dname])
+    pname, fname, ptrace, ftrace = HALO_KERNELS[slab.packed]
+    line, rows = [], {}
+    for name, mode, trace in ((pname, "product", ptrace),
+                              (fname, "step", ftrace)):
+        kf, pf = calls[mode]
+        ms, pms = time_pair(torch, kf, pf, reps=20)
+        nbytes, flops = slab.work(x_ext.element_size(), mode == "step")
+        b_ms, b_by = bound(nbytes, flops, pdt)
+        dus = cold_traced_us(torch, kf, trace, nbytes, b_ms,
+                             f"{name} on {label} {dname}", n=20)
+        lms = None
+        if library and mode == "product":
+            A = slab.csr(torch)
+            xf = x_ext.T.contiguous().view(-1)
+            yl = torch.mv(A, xf).view(per, nb).T
+            lerr = float((yl - kf()).abs().max()) / float(yl.abs().max())
+            if not lerr <= TOL[dname]:
+                fail(f"CSR product disagrees with {name} on {label}: rel "
+                     f"{lerr:.3e}")
+            lms = time_one(torch, lambda: torch.mv(A, xf))
+            del A, xf, yl
+        err = max(e for m, (e, _) in errs.items()
+                  if (m == "product") == (mode == "product"))
+        rows[name] = dict(max_abs_err=err, ms=dus / 1e3, plain_ms=pms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lms,
+                          events_ms=ms)
+        line.append(f"{name} {mode} traced {dus:.2f} us/launch, "
+                    f"{b_ms * 1e3 / dus:.1%} of its bound {b_ms:.4f} ms "
+                    f"({b_by}: {nbytes / 1e6:.1f} MB), events {ms:.4f} ms, "
+                    f"plain {pms:.4f}"
+                    + ("" if lms is None else f", CSR {lms:.4f}"))
+    worst = max(r for _, r in errs.values())
+    log(f"  {label} {dname} (per={per}, T={T}): all modes worst rel "
+        f"{worst:.3e} (tol {TOL[dname]:g}); " + "; ".join(line))
+    del x_ext, b, d, dinv, calls
+    return rows
+
+
+def check_halo_cuts(torch, label, e, n_cut=4):
+    """The halo kernels on ``n_cut`` lane slabs of the real level ``e`` (a
+    band with its i-major copy, or a pack: repacked with a far tail where
+    its plan reaches beyond a slab, as the sharded solve does), with x_ext
+    taken from one seeded global x ring-wrapped at the ends: every mode of
+    every slab against its plain version (``check_halo_slab``, timed on
+    slab 1), and the slabs' products side by side (plus a far tail's
+    product) against the unsharded K1 or K6 product of the whole level.
+    In the level's type and as f64."""
+    from polydeal_tpu_torch.parallel.banded import _shard_ready, _tile_for
+
+    P, nb = e.n_block_rows, e.n_basis
+    per = P // n_cut
+    ready = _shard_ready(e, per)
+    T = _tile_for(ready, per)
+    packed = hasattr(ready, "plan")
+    gen = torch.Generator(device=ready.data_i.device).manual_seed(8)
+    for data in (ready.data_i, ready.data_i.double()):
+        dname = str(data.dtype).split(".")[-1]
+        vdt = torch.float64 if dname == "float64" else torch.float32
+        x = torch.randn(nb, P, generator=gen, device=gen.device,
+                        dtype=torch.float64).to(vdt)
+        ys = []
+        for r in range(n_cut):
+            lanes = slice(r * per, (r + 1) * per)
+            slab = Slab(torch, data[:, lanes].contiguous(), ready.offsets_t,
+                        nb, T, ready.oid[:, lanes].contiguous() if packed
+                        else None)
+            x_ext = ring_ext(torch, x, r, per, T)
+            _, b, d, dinv = cheb_vectors(torch, gen, nb, per, vdt)
+            calls = slab.calls(x_ext, b, d, dinv)
+            for mode, (kf, pf) in calls.items():
+                hold(f"{label} slab {r} {mode} {dname}", kf(), pf(),
+                     TOL[dname])
+            ys.append(calls["product"][0]())
+            if r == 1:
+                check_halo_slab(torch, f"{label} slab 1 of {n_cut}", slab,
+                                gen)
+            del slab, x_ext, b, d, dinv, calls
+        y = torch.cat(ys, dim=1)
+        if packed:
+            from polydeal_tpu_torch.ops.packed import packed_matvec_t
+            whole = packed_matvec_t(e.data_i.to(data.dtype), e.oid,
+                                    e.offsets_t, nb, x)
+            y = y + ready.far_matvec_t(x)
+        else:
+            from polydeal_tpu_torch.ops.banded import banded_matvec_t_imajor
+            whole = banded_matvec_t_imajor(data, ready.offsets_t, nb, x)
+        err, rel = hold(f"{label} {n_cut} slabs side by side against the "
+                        f"whole level's product {dname}", y, whole,
+                        TOL[dname])
+        log(f"  {label} {dname}: {n_cut} slabs of {per} lanes, T={T}"
+            + (f", far tail {ready.far_rows.size} blocks"
+               if packed and ready.far_data is not None else "")
+            + f"; side by side against the whole level's product: rel "
+            f"{rel:.3e}")
+        del x, ys, y, whole
+    torch.cuda.empty_cache()
+
+
+def shard_flagship(torch, label, fs, group, x64, by_cell=False):
+    """A flagship system sharded at world size 1 against its unsharded
+    no-FMG solve: both reach rtol 1e-8, within one iteration of each other,
+    and the f32 sharded solution lies within 1e-4 of ``x64`` (an f64
+    solution of the same system; by cell with ``by_cell``).  Returns (the
+    sharded system, the launch counts of its solve)."""
+    from polydeal_tpu_torch.ops import _build
+    from polydeal_tpu_torch.parallel.banded import ShardedBandedSystem
+
+    bnorm = float(fs.b.norm())
+    ru = fs.mg.solve_cg(fs.b, rtol=1e-8, maxiter=100)
+    ss = ShardedBandedSystem.from_multigrid(fs.mg, group)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    x, k, res = ss.solve_cg(fs.b, rtol=1e-8, maxiter=100)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    xs = cell_order(torch, fs, x) if by_cell else x.double()
+    diff = float((xs - x64).abs().max()) / float(x64.abs().max())
+    halo = {n: c for n, c in counts.items() if n.endswith("_halo")}
+    log(f"  {label} sharded at world size 1: levels (kind, per, T) "
+        f"{[(lv.kind, lv.per, lv.T) for lv in ss.levels]}, replicated "
+        f"bottom {ss.rep_mg.n_levels} level(s); {k} iterations (unsharded "
+        f"no-FMG {ru.iterations}), relative residual {res / bnorm:.3e} "
+        f"(unsharded {float(ru.residual) / bnorm:.3e}); max |x_sharded - "
+        f"x_f64| / max |x_f64| = {diff:.3e}; halo launches {halo}")
+    if tuple(x.shape) != (fs.n_dofs,) or not bool(torch.isfinite(x).all()):
+        fail(f"{label} sharded solution has the wrong shape or non-finite "
+             f"values")
+    if not (res <= 1e-8 * bnorm and float(ru.residual) <= 1e-8 * bnorm):
+        fail(f"{label}: a solve missed rtol 1e-8")
+    if abs(k - ru.iterations) > 1:
+        fail(f"{label}: sharded {k} iterations, unsharded {ru.iterations}")
+    if not diff <= 1e-4:
+        fail(f"{label} sharded f32 solution differs from the f64 one by "
+             f"{diff:.3e}")
+    return ss, counts
+
+
+def small_sharded_check(torch, dev, group):
+    """The structured n=16 f64 system sharded at world size 1 on the card
+    (its kernels) against the same on the CPU (plain versions): the same
+    iterations, solutions within 1e-10."""
+    from polydeal_tpu_torch.models.sharded import setup_sharded, solve_sharded
+
+    res = {}
+    for name, device, grp in (("cpu", torch.device("cpu"), None),
+                              ("cuda", dev, group)):
+        sh = setup_sharded(16, device=device, group=grp, dtype=torch.float64,
+                           precond_dtype=None)
+        x, k, r = solve_sharded(sh)
+        res[name] = (k, x.cpu(), r / float(sh.b.norm()))
+    (ic, xc, rc), (ig, xg, rg) = res["cpu"], res["cuda"]
+    diff = float((xc - xg).abs().max())
+    log(f"  n=16 structured f64 sharded: cpu {ic} iterations (rel res "
+        f"{rc:.3e}), cuda {ig} (rel res {rg:.3e}), max |x_cuda - x_cpu| = "
+        f"{diff:.3e}")
+    if ic != ig or not diff <= 1e-10:
+        fail("small f64 sharded solve on the card disagrees with the CPU")
+
+
+def phase8(torch, dev, group, rows):
+    """Phase 8, bench_sharded's configuration: the structured n=64 flagship
+    unsharded and sharded at world size 1, each cold and then warm; the f64
+    solve it is held to; K1 halo and K2 halo on the main path's slabs (the
+    rows) and on 4-way cuts of the 32768-lane band; the small card-against-
+    CPU check.  Returns the launch counts of the sharded solves."""
+    from polydeal_tpu_torch.models.flagship import setup_flagship
+    from polydeal_tpu_torch.models.sharded import min_ms
+    from polydeal_tpu_torch.ops import _build
+    from polydeal_tpu_torch.parallel.banded import ShardedBandedSystem
+
+    log("phase 8: sharded solve at world size 1 (bench_sharded's "
+        "configuration)")
+    fst = setup_flagship(n=64, hierarchy="structured", device=dev)
+    bnorm = float(fst.b.norm())
+    ru = fst.mg.solve_cg(fst.b, rtol=1e-8, maxiter=100)  # cold
+    unsharded_ms = min_ms(lambda: fst.mg.solve_cg(fst.b, rtol=1e-8,
+                                                  maxiter=100), dev)
+    ss = ShardedBandedSystem.from_multigrid(fst.mg, group)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    x, k, res = ss.solve_cg(fst.b, rtol=1e-8, maxiter=100)  # cold
+    sharded_ms = min_ms(lambda: ss.solve_cg_local(
+        fst.b, rtol=1e-8, maxiter=100), dev)
+    counts = dict(_build.launches)
+    log(f"  levels {fst.level_sizes}, band offsets "
+        f"{fst.band_offsets.tolist()}, {fst.n_dofs} DoF; sharded levels "
+        f"(kind, per, T) {[(lv.kind, lv.per, lv.T) for lv in ss.levels]}")
+    log(f"  unsharded (no FMG): {ru.iterations} iterations, relative "
+        f"residual {float(ru.residual) / bnorm:.3e}; sharded: {k} "
+        f"iterations, relative residual {res / bnorm:.3e}")
+    log(f"  unsharded_ms {unsharded_ms:.3f}, sharded_ms {sharded_ms:.3f}, "
+        f"ratio {sharded_ms / unsharded_ms:.4f} (least of 3 warm solves "
+        f"each)")
+    log(f"  launches over the sharded cold + 3 warm solves: {counts}")
+    if tuple(x.shape) != (fst.n_dofs,) or not bool(torch.isfinite(x).all()):
+        fail("sharded solution has the wrong shape or non-finite values")
+    for it, r, name in ((ru.iterations, float(ru.residual), "unsharded"),
+                        (k, res, "sharded")):
+        if not r <= 1e-8 * bnorm:
+            fail(f"{name} structured solve missed rtol 1e-8")
+        if not 21 <= it <= 25:
+            fail(f"{name} structured solve took {it} iterations, outside "
+                 f"21-25")
+    if abs(k - ru.iterations) > 1:
+        fail(f"sharded {k} iterations, unsharded {ru.iterations}")
+    for name in ("banded_matvec_halo", "banded_fused_halo"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was never launched on the sharded path")
+    ref = setup_flagship(n=64, hierarchy="structured", device=dev,
+                         dtype=torch.float64, precond_dtype=None)
+    r64 = ref.mg.solve_cg(ref.b, rtol=1e-8, maxiter=100)
+    diff = float((x.double() - r64.x).abs().max()) / float(
+        r64.x.abs().max())
+    log(f"  f64 unsharded solve: {r64.iterations} iterations; max "
+        f"|x_sharded_f32 - x_f64| / max |x_f64| = {diff:.3e}")
+    del ref, r64
+    torch.cuda.empty_cache()
+    if not diff <= 1e-4:
+        fail(f"sharded f32 solution differs from the f64 one by {diff:.3e}")
+    # the main path's own slabs: the fine level's f32 band (CG's product)
+    # and its bf16 copy (the smoother's fused steps)
+    fine, pl = ss.levels[-1], ss.params[-1]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows["K1 halo"] = check_halo_slab(torch, "structured fine slab", Slab(
+        torch, pl["data_i"], pl["offsets_t"], fine.nb, fine.T), gen,
+        library=True)["K1 halo"]
+    rows["K2 halo"] = check_halo_slab(
+        torch, "structured fine slab bf16 copy", Slab(
+            torch, pl["lo_data_i"], pl["offsets_t"], fine.nb, fine.T),
+        gen)["K2 halo"]
+    del ss, x
+    torch.cuda.empty_cache()
+    check_halo_cuts(torch, "structured 32768-lane", fst.mg.ells[2])
+    check_halo_cuts(torch, "structured 32768-lane bf16 copy",
+                    fst.mg.lo_ells[2])
+    del fst
+    torch.cuda.empty_cache()
+    small_sharded_check(torch, dev, group)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -999,6 +1413,11 @@ def main() -> int:
     log(f"  built in {build_s:.2f} s")
     for line in ptxas_summary(_build.last_build_log()):
         log(f"  ptxas: {line}")
+    # phase 8's process group: NCCL, one rank, through a FileStore
+    from polydeal_tpu_torch.parallel.sharding import init_group
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    group = init_group(0, 1, device=dev,
+                       store_path=os.path.join(store_dir, "store"))
 
     log("phase 3: kernels against their plain versions (flagship shapes)")
     kres = check_kernels(torch, dev)
@@ -1062,8 +1481,13 @@ def main() -> int:
         fail(f"f32 flagship solution differs from the f64 one by {diff:.3e}")
     # phase 6 holds the packed solve to the same f64 solution, by cell
     x64_cells = cell_order(torch, ref, res64.x)
-    del ref, res64
+    del ref
     torch.cuda.empty_cache()
+    log("phase 8 on phase 5's system: the lex flagship sharded")
+    shard_flagship(torch, "lex flagship", fs, group, res64.x)
+    del res64
+    check_halo_cuts(torch, "lex flagship fine", fs.mg.ells[-1])
+    check_halo_cuts(torch, "lex flagship fine bf16 copy", fs.mg.lo_ells[-1])
     level_sipg_check(torch, fs, dev)
     # K0 and fused K0 serve the 4096-lane level (no i-major copy): its f32
     # band (the FMG residuals) and the bf16 copy the smoother runs on; K2
@@ -1121,6 +1545,22 @@ def main() -> int:
                  "packed_matvec", "packed_fused_cheb"):
         if counts6[name] <= 0:
             fail(f"kernel {name} was never launched on the packed path")
+    log("phase 8 on phase 6's system: the relabel=None flagship sharded")
+    ssp, counts6s = shard_flagship(torch, "relabel=None flagship", fsp,
+                                   group, x64_cells, by_cell=True)
+    for name in ("packed_matvec_halo", "packed_fused_halo"):
+        if counts6s[name] <= 0:
+            fail(f"kernel {name} was never launched on the sharded packed "
+                 f"path")
+    # the sharded path's own fine slab (f32: a pack keeps no bf16 copy)
+    fine, pl = ssp.levels[-1], ssp.params[-1]
+    halo_rows = check_halo_slab(
+        torch, "relabel=None fine slab", Slab(
+            torch, pl["data_i"], pl["offsets_t"], fine.nb, fine.T,
+            pl["oid"]), torch.Generator(device=dev).manual_seed(10),
+        library=True)
+    del ssp, fine, pl
+    check_halo_cuts(torch, "relabel=None fine pack", fsp.mg.ells[-1])
     del resp, xp, x64_cells
     kres.update(check_packed_levels(torch, fsp, dev))
     check_k0(torch, "relabel=None 512-lane", fsp.mg.ells[0], k0)
@@ -1131,6 +1571,10 @@ def main() -> int:
         fail(f"small packed solve levels are {formats16}")
 
     counts7 = phase7(torch, dev, k0, k2)
+    counts8 = phase8(torch, dev, group, halo_rows)
+    torch.distributed.destroy_process_group()
+    shutil.rmtree(store_dir, ignore_errors=True)
+    kres.update(halo_rows)
     for key, rows, main_row in (
             ("K0", {k: r for k, r in k0.items() if not k.endswith("fused")},
              "monodomain 4096-lane float32"),
@@ -1161,10 +1605,21 @@ def main() -> int:
             ("packed_matvec", "K6", packed,
              "polydeal_tpu/ops/packed.py:185"),
             ("packed_fused_cheb", "K7", packed,
-             "polydeal_tpu/ops/fused_cheb.py:122")]
+             "polydeal_tpu/ops/fused_cheb.py:122"),
+            ("banded_matvec_halo", "K1 halo", banded,
+             "polydeal_tpu/ops/banded.py:267"),
+            ("banded_fused_halo", "K2 halo", banded,
+             "polydeal_tpu/ops/fused_cheb.py:417"),
+            ("packed_matvec_halo", "K6 halo", packed,
+             "polydeal_tpu/ops/packed.py:313"),
+            ("packed_fused_halo", "K7 halo", packed,
+             "polydeal_tpu/ops/fused_cheb.py:438")]
     # launches: each kernel's count on its path (K1-K5 phase 5, K6/K7
-    # phase 6, K0 and fused K0 phase 7)
-    path = {"K6": counts6, "K7": counts6, "K0": counts7, "K0 fused": counts7}
+    # phase 6, K0 and fused K0 phase 7, K1/K2 halo phase 8's sharded
+    # solves, K6/K7 halo the sharded relabel=None solve)
+    path = {"K6": counts6, "K7": counts6, "K0": counts7, "K0 fused": counts7,
+            "K1 halo": counts8, "K2 halo": counts8, "K6 halo": counts6s,
+            "K7 halo": counts6s}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rpl,

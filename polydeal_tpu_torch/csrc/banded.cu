@@ -8,7 +8,19 @@
 //   K2  polydeal_tpu/ops/fused_cheb.py  _banded_fused_impl
 //   K0  polydeal_tpu/ops/banded.py      _banded_matvec_impl
 // Fused K0 computes K2's function on the o-major layout, where the JAX
-// package runs the product and the update unfused.
+// package runs the product and the update unfused.  The halo entries
+// (pd_banded_matvec_halo, pd_banded_fused_halo) run K1 and K2 on one
+// shard's lane slab, in place of the JAX package's sharded entry points
+//   polydeal_tpu/ops/banded.py      banded_matvec_t_halo
+//   polydeal_tpu/ops/fused_cheb.py  banded_cheb_step_t_halo,
+//                                   banded_residual_t_halo
+// x is then x_ext [nb, ldx = P + 2 T], whose T lanes on each side are the
+// neighbouring shards' (every |off| <= T): lane p reads column T + p + off
+// of rows ldx apart, and the update's own x at column T + p.  The kernels
+// take x's row stride ldx and the halo width as runtime arguments (the
+// unsharded entries pass ldx = P, halo = 0), so the halo adds no template
+// instantiation; one test, 0 <= halo + p + off < ldx, gives both the zero
+// outside [0, P) and the slab window.
 //
 // Layout (shared with the JAX package, so one array feeds either):
 //   data_i [nb * R_pad, P], row i*R_pad + k*nb + j multiplies x[j, p + off_k];
@@ -110,22 +122,24 @@ __device__ __forceinline__ TV load_as(const TD* p) {
   return as<TV>(*p);
 }
 
-// y[i, p] for one output row i and one lane p (K1).
+// y[i, p] for one output row i and one lane p (K1).  Lane p's column for
+// offset o is halo + p + o in x's rows of ldx entries, zero outside them.
 template <typename TD, typename TV>
 __device__ __forceinline__ TV band_row(const TD* __restrict__ data,
                                        const TV* __restrict__ x,
                                        const int* __restrict__ offsets,
                                        int n_off, int nb, int R_pad,
-                                       int64_t P, int i, int64_t p) {
+                                       int64_t P, int64_t ldx, int64_t halo,
+                                       int i, int64_t p) {
   TV acc = TV(0);
   const TD* slab = data + static_cast<int64_t>(i) * R_pad * P + p;
   for (int k = 0; k < n_off; ++k) {
-    const int64_t q = p + __ldg(offsets + k);
-    if (q < 0 || q >= P) continue;  // x is zero outside [0, P)
+    const int64_t c = halo + p + __ldg(offsets + k);
+    if (c < 0 || c >= ldx) continue;  // x is zero outside its row
     const TD* rows = slab + static_cast<int64_t>(k) * nb * P;
     for (int j = 0; j < nb; ++j) {
       acc += load_as<TV>(rows + static_cast<int64_t>(j) * P) *
-             x[static_cast<int64_t>(j) * P + q];
+             x[static_cast<int64_t>(j) * ldx + c];
     }
   }
   return acc;
@@ -136,14 +150,14 @@ __global__ void __launch_bounds__(kThreads)
     banded_matvec_imajor_kernel(const TD* __restrict__ data,
                                 const TV* __restrict__ x,
                                 const int* __restrict__ offsets, int n_off,
-                                int nb, int R_pad, int64_t P,
-                                TV* __restrict__ y) {
+                                int nb, int R_pad, int64_t P, int64_t ldx,
+                                int64_t halo, TV* __restrict__ y) {
   const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (p >= P) return;
   for (int i = 0; i < nb; ++i) {
     y[static_cast<int64_t>(i) * P + p] =
-        band_row(data, x, offsets, n_off, nb, R_pad, P, i, p);
+        band_row(data, x, offsets, n_off, nb, R_pad, P, ldx, halo, i, p);
   }
 }
 
@@ -217,14 +231,16 @@ __device__ __forceinline__ void store_wide(T* __restrict__ dst,
 }
 
 // Each thread owns W whole lanes from p0 and all NB output rows: the
-// launch guarantees P % W == 0 and 16-byte aligned operands, so no load is
-// partial and the main loop has no bounds test but the zero halo of x.
+// launch guarantees that P, ldx and halo are multiples of W and that the
+// operands are 16-byte aligned, so no load is partial and the main loop
+// has no bounds test but the zero outside x's rows.
 template <typename TD, typename TV, int NB, int W>
 __global__ void __launch_bounds__(kFusedThreads)
     banded_fused_kernel(const TD* __restrict__ data,
                         const TV* __restrict__ x,
                         const int* __restrict__ offsets, int n_off,
-                        int R_pad, int64_t P, const TV* __restrict__ b,
+                        int R_pad, int64_t P, int64_t ldx, int64_t halo,
+                        const TV* __restrict__ b,
                         const TV* __restrict__ d,
                         const TV* __restrict__ dinv, double c1, double c2,
                         int mode, TV* __restrict__ out0,
@@ -241,11 +257,11 @@ __global__ void __launch_bounds__(kFusedThreads)
   }
   for (int k = 0; k < n_off; ++k) {
     const int off = __ldg(offsets + k);
-    const int64_t q0 = p0 + off;
-    // with P % W == 0 a window at a multiple of W lies wholly inside or
-    // wholly outside [0, P)
+    const int64_t q0 = halo + p0 + off;  // x's column of lane p0
+    // with ldx % W == 0 a window at a multiple of W lies wholly inside or
+    // wholly outside [0, ldx)
     const bool x_al = off % W == 0;
-    const bool x_in = q0 >= 0 && q0 < P;
+    const bool x_in = q0 >= 0 && q0 < ldx;
     const TD* slab = data + static_cast<int64_t>(k) * NB * P + p0;
 #pragma unroll
     for (int j0 = 0; j0 < NB; j0 += JB) {
@@ -269,7 +285,7 @@ __global__ void __launch_bounds__(kFusedThreads)
         for (int jj = 0; jj < JB; ++jj) {
           if (j0 + jj >= NB) continue;
           if (x_in) {
-            load_wide<false, W>(x + static_cast<int64_t>(j0 + jj) * P + q0,
+            load_wide<false, W>(x + static_cast<int64_t>(j0 + jj) * ldx + q0,
                                 xv[jj]);
           } else {
 #pragma unroll
@@ -280,11 +296,11 @@ __global__ void __launch_bounds__(kFusedThreads)
 #pragma unroll
         for (int jj = 0; jj < JB; ++jj) {
           if (j0 + jj >= NB) continue;
-          const TV* xr = x + static_cast<int64_t>(j0 + jj) * P + q0;
+          const TV* xr = x + static_cast<int64_t>(j0 + jj) * ldx + q0;
 #pragma unroll
           for (int w = 0; w < W; ++w) {
             const int64_t q = q0 + w;
-            xv[jj][w] = q >= 0 && q < P ? __ldg(xr + w) : TV(0);
+            xv[jj][w] = q >= 0 && q < ldx ? __ldg(xr + w) : TV(0);
           }
         }
       }
@@ -323,7 +339,8 @@ __global__ void __launch_bounds__(kFusedThreads)
     TV bv[W], dv[W], iv[W], xn[W], dn[W];
     load_wide<false, W>(b + idx, bv);
     load_wide<false, W>(dinv + idx, iv);
-    load_wide<false, W>(x + idx, xn);
+    // the update's own x sits at column halo + p0 of x's row i
+    load_wide<false, W>(x + static_cast<int64_t>(i) * ldx + halo + p0, xn);
     if (mode == STEP) load_wide<false, W>(d + idx, dv);
 #pragma unroll
     for (int w = 0; w < W; ++w) {
@@ -407,60 +424,67 @@ inline bool aligned16(const void* p) {
 
 template <typename TD, typename TV>
 int launch_matvec(const void* data, const void* x, const int* offsets,
-                  int n_off, int nb, int R_pad, int64_t P, void* y,
-                  cudaStream_t s) {
+                  int n_off, int nb, int R_pad, int64_t P, int64_t ldx,
+                  int64_t halo, void* y, cudaStream_t s) {
   banded_matvec_imajor_kernel<TD, TV><<<n_blocks(P, kThreads), kThreads, 0,
                                         s>>>(
       static_cast<const TD*>(data), static_cast<const TV*>(x), offsets, n_off,
-      nb, R_pad, P, static_cast<TV*>(y));
+      nb, R_pad, P, ldx, halo, static_cast<TV*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TD, typename TV, int NB, int W>
 void launch_fused_w(const void* data, const void* x, const int* offsets,
-                    int n_off, int R_pad, int64_t P, const void* b,
-                    const void* d, const void* dinv, double c1, double c2,
-                    int mode, void* out0, void* out1, cudaStream_t s) {
+                    int n_off, int R_pad, int64_t P, int64_t ldx,
+                    int64_t halo, const void* b, const void* d,
+                    const void* dinv, double c1, double c2, int mode,
+                    void* out0, void* out1, cudaStream_t s) {
   banded_fused_kernel<TD, TV, NB, W>
       <<<n_blocks(P / W, kFusedThreads), kFusedThreads, 0, s>>>(
           static_cast<const TD*>(data), static_cast<const TV*>(x), offsets,
-          n_off, R_pad, P, static_cast<const TV*>(b),
+          n_off, R_pad, P, ldx, halo, static_cast<const TV*>(b),
           static_cast<const TV*>(d), static_cast<const TV*>(dinv), c1, c2,
           mode, static_cast<TV*>(out0), static_cast<TV*>(out1));
 }
 
 template <typename TD, typename TV, int NB>
 int launch_fused_nb(const void* data, const void* x, const int* offsets,
-                    int n_off, int R_pad, int64_t P, const void* b,
-                    const void* d, const void* dinv, double c1, double c2,
-                    int mode, void* out0, void* out1, cudaStream_t s) {
+                    int n_off, int R_pad, int64_t P, int64_t ldx,
+                    int64_t halo, const void* b, const void* d,
+                    const void* dinv, double c1, double c2, int mode,
+                    void* out0, void* out1, cudaStream_t s) {
   constexpr int W = wide_lanes<TD, TV, NB>();
-  // W lanes a thread where they fill the card, divide P and every operand
-  // is 16-byte aligned; else one lane a thread (the scalar path)
-  if (W > 1 && P / W >= kWideMinThreads && P % W == 0 && aligned16(data) &&
-      aligned16(x) && aligned16(b) && aligned16(d) && aligned16(dinv) &&
-      aligned16(out0) && aligned16(out1)) {
-    launch_fused_w<TD, TV, NB, W>(data, x, offsets, n_off, R_pad, P, b, d,
-                                  dinv, c1, c2, mode, out0, out1, s);
+  // W lanes a thread where they fill the card, divide P and x's row
+  // stride and halo, and every operand is 16-byte aligned; else one lane a
+  // thread (the scalar path)
+  if (W > 1 && P / W >= kWideMinThreads && P % W == 0 && ldx % W == 0 &&
+      halo % W == 0 && aligned16(data) && aligned16(x) && aligned16(b) &&
+      aligned16(d) && aligned16(dinv) && aligned16(out0) &&
+      aligned16(out1)) {
+    launch_fused_w<TD, TV, NB, W>(data, x, offsets, n_off, R_pad, P, ldx,
+                                  halo, b, d, dinv, c1, c2, mode, out0, out1,
+                                  s);
   } else {
-    launch_fused_w<TD, TV, NB, 1>(data, x, offsets, n_off, R_pad, P, b, d,
-                                  dinv, c1, c2, mode, out0, out1, s);
+    launch_fused_w<TD, TV, NB, 1>(data, x, offsets, n_off, R_pad, P, ldx,
+                                  halo, b, d, dinv, c1, c2, mode, out0, out1,
+                                  s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TD, typename TV>
 int launch_fused(const void* data, const void* x, const int* offsets,
-                 int n_off, int nb, int R_pad, int64_t P, const void* b,
-                 const void* d, const void* dinv, double c1, double c2,
-                 int mode, void* out0, void* out1, cudaStream_t s) {
+                 int n_off, int nb, int R_pad, int64_t P, int64_t ldx,
+                 int64_t halo, const void* b, const void* d,
+                 const void* dinv, double c1, double c2, int mode,
+                 void* out0, void* out1, cudaStream_t s) {
   if (mode < RESIDUAL || mode > STEP) return -3;
   switch (nb) {  // nb = (p + dim choose dim) for dim 2-3, p 1-3
 #define PD_NB(N)                                                          \
   case N:                                                                 \
     return launch_fused_nb<TD, TV, N>(data, x, offsets, n_off, R_pad, P,  \
-                                      b, d, dinv, c1, c2, mode, out0,     \
-                                      out1, s);
+                                      ldx, halo, b, d, dinv, c1, c2,      \
+                                      mode, out0, out1, s);
     PD_NB(3)
     PD_NB(4)
     PD_NB(6)
@@ -505,7 +529,7 @@ extern "C" int pd_banded_matvec(const void* data, int data_dt, const void* x,
                                 int nb, int R_pad, long long P, void* y,
                                 void* stream) {
   PD_DISPATCH(launch_matvec, data_dt, vec_dt, data, x, offsets, n_off, nb,
-              R_pad, static_cast<int64_t>(P), y,
+              R_pad, static_cast<int64_t>(P), static_cast<int64_t>(P), 0, y,
               static_cast<cudaStream_t>(stream));
 }
 
@@ -516,7 +540,35 @@ extern "C" int pd_banded_fused(const void* data, int data_dt, const void* x,
                                double c2, int mode, void* out0, void* out1,
                                void* stream) {
   PD_DISPATCH(launch_fused, data_dt, vec_dt, data, x, offsets, n_off, nb,
-              R_pad, static_cast<int64_t>(P), b, d, dinv, c1, c2, mode, out0,
+              R_pad, static_cast<int64_t>(P), static_cast<int64_t>(P), 0, b,
+              d, dinv, c1, c2, mode, out0, out1,
+              static_cast<cudaStream_t>(stream));
+}
+
+// The halo entries: K1 and K2 on a shard's slab, x_ext [nb, ldx] with
+// ldx = P + 2 halo, lane p reading column halo + p + off.
+extern "C" int pd_banded_matvec_halo(const void* data, int data_dt,
+                                     const void* x, int vec_dt,
+                                     const int* offsets, int n_off, int nb,
+                                     int R_pad, long long P, long long ldx,
+                                     long long halo, void* y, void* stream) {
+  PD_DISPATCH(launch_matvec, data_dt, vec_dt, data, x, offsets, n_off, nb,
+              R_pad, static_cast<int64_t>(P), static_cast<int64_t>(ldx),
+              static_cast<int64_t>(halo), y,
+              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int pd_banded_fused_halo(const void* data, int data_dt,
+                                    const void* x, int vec_dt,
+                                    const int* offsets, int n_off, int nb,
+                                    int R_pad, long long P, long long ldx,
+                                    long long halo, const void* b,
+                                    const void* d, const void* dinv,
+                                    double c1, double c2, int mode,
+                                    void* out0, void* out1, void* stream) {
+  PD_DISPATCH(launch_fused, data_dt, vec_dt, data, x, offsets, n_off, nb,
+              R_pad, static_cast<int64_t>(P), static_cast<int64_t>(ldx),
+              static_cast<int64_t>(halo), b, d, dinv, c1, c2, mode, out0,
               out1, static_cast<cudaStream_t>(stream));
 }
 

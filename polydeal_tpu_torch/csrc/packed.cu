@@ -4,6 +4,17 @@
 // Replaces the TPU Pallas kernels
 //   K6  polydeal_tpu/ops/packed.py      _packed_matvec_impl
 //   K7  polydeal_tpu/ops/fused_cheb.py  _packed_fused_impl
+// and, through the halo entries (pd_packed_matvec_halo,
+// pd_packed_fused_halo), the sharded entry points
+//   polydeal_tpu/ops/packed.py      packed_matvec_t_halo
+//   polydeal_tpu/ops/fused_cheb.py  packed_cheb_step_t_halo,
+//                                   packed_residual_t_halo
+// on one shard's lane slab: x is x_ext [nb, ldx = P + 2 T] with the
+// neighbouring shards' T lanes on each side (every plan offset |o| <= T),
+// lane p reads column T + p + off and the update's own x at T + p.  x's row
+// stride ldx and the halo width are runtime arguments (the unsharded
+// entries pass ldx = P, halo = 0).  A far block-COO tail is not in the
+// kernel's product: the caller folds it into b (b_eff = b - A_far x).
 //
 // Layout (shared with the JAX package, so one array feeds either):
 //   data_i [nb * R_pad, P]: row i*R_pad + k*nb + j multiplies x[j, p + off]
@@ -63,25 +74,27 @@ __device__ __forceinline__ void stage_offsets(const int* __restrict__ offsets,
   __syncthreads();
 }
 
-// y[i, p] for one output row i and one lane p.
+// y[i, p] for one output row i and one lane p: x's column for offset o is
+// halo + p + o in rows of ldx entries, zero outside them.
 template <typename TD, typename TV>
 __device__ __forceinline__ TV packed_row(const TD* __restrict__ data,
                                          const TV* __restrict__ x,
                                          const int* __restrict__ oid,
                                          const int* s_off, int n_off, int K,
-                                         int nb, int R_pad, int64_t P, int i,
+                                         int nb, int R_pad, int64_t P,
+                                         int64_t ldx, int64_t halo, int i,
                                          int64_t p) {
   TV acc = TV(0);
   const TD* slab = data + static_cast<int64_t>(i) * R_pad * P + p;
   for (int k = 0; k < K; ++k) {
     const int o = __ldg(oid + static_cast<int64_t>(k) * P + p);
     if (o < 0 || o >= n_off) continue;  // no block in this slot
-    const int64_t q = p + s_off[o];
-    if (q < 0 || q >= P) continue;  // x is zero outside [0, P)
+    const int64_t c = halo + p + s_off[o];
+    if (c < 0 || c >= ldx) continue;  // x is zero outside its row
     const TD* rows = slab + static_cast<int64_t>(k) * nb * P;
     for (int j = 0; j < nb; ++j) {
       acc += static_cast<TV>(rows[static_cast<int64_t>(j) * P]) *
-             x[static_cast<int64_t>(j) * P + q];
+             x[static_cast<int64_t>(j) * ldx + c];
     }
   }
   return acc;
@@ -93,15 +106,16 @@ __global__ void __launch_bounds__(kThreads)
                          const TV* __restrict__ x,
                          const int* __restrict__ oid,
                          const int* __restrict__ offsets, int n_off, int K,
-                         int nb, int R_pad, int64_t P, TV* __restrict__ y) {
+                         int nb, int R_pad, int64_t P, int64_t ldx,
+                         int64_t halo, TV* __restrict__ y) {
   extern __shared__ int s_off[];
   stage_offsets(offsets, n_off, s_off);
   const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (p >= P) return;
   for (int i = 0; i < nb; ++i) {
-    y[static_cast<int64_t>(i) * P + p] =
-        packed_row(data, x, oid, s_off, n_off, K, nb, R_pad, P, i, p);
+    y[static_cast<int64_t>(i) * P + p] = packed_row(
+        data, x, oid, s_off, n_off, K, nb, R_pad, P, ldx, halo, i, p);
   }
 }
 
@@ -111,8 +125,9 @@ __global__ void __launch_bounds__(kThreads)
                         const TV* __restrict__ x,
                         const int* __restrict__ oid,
                         const int* __restrict__ offsets, int n_off, int K,
-                        int nb, int R_pad, int64_t P,
-                        const TV* __restrict__ b, const TV* __restrict__ d,
+                        int nb, int R_pad, int64_t P, int64_t ldx,
+                        int64_t halo, const TV* __restrict__ b,
+                        const TV* __restrict__ d,
                         const TV* __restrict__ dinv, double c1, double c2,
                         int mode, TV* __restrict__ out0,
                         TV* __restrict__ out1) {
@@ -126,8 +141,8 @@ __global__ void __launch_bounds__(kThreads)
   const TV c2v = static_cast<TV>(c2);
   for (int i = 0; i < nb; ++i) {
     const int64_t idx = static_cast<int64_t>(i) * P + p;
-    const TV y = packed_row(data, x, oid, s_off, n_off, K, nb, R_pad, P, i,
-                            p);
+    const TV y = packed_row(data, x, oid, s_off, n_off, K, nb, R_pad, P, ldx,
+                            halo, i, p);
     const TV r = b[idx] - y;
     if (mode == RESIDUAL) {
       out0[idx] = r;
@@ -135,7 +150,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     TV dn = c2v * (dinv[idx] * r);
     if (mode == STEP) dn = c1v * d[idx] + dn;
-    out0[idx] = x[idx] + dn;
+    out0[idx] = x[static_cast<int64_t>(i) * ldx + halo + p] + dn;
     out1[idx] = dn;
   }
 }
@@ -147,24 +162,26 @@ inline unsigned int n_blocks(int64_t P) {
 template <typename TD, typename TV>
 int launch_matvec(const void* data, const void* x, const int* oid,
                   const int* offsets, int n_off, int K, int nb, int R_pad,
-                  int64_t P, void* y, cudaStream_t s) {
+                  int64_t P, int64_t ldx, int64_t halo, void* y,
+                  cudaStream_t s) {
   packed_matvec_kernel<TD, TV>
       <<<n_blocks(P), kThreads, n_off * sizeof(int), s>>>(
           static_cast<const TD*>(data), static_cast<const TV*>(x), oid,
-          offsets, n_off, K, nb, R_pad, P, static_cast<TV*>(y));
+          offsets, n_off, K, nb, R_pad, P, ldx, halo, static_cast<TV*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TD, typename TV>
 int launch_fused(const void* data, const void* x, const int* oid,
                  const int* offsets, int n_off, int K, int nb, int R_pad,
-                 int64_t P, const void* b, const void* d, const void* dinv,
-                 double c1, double c2, int mode, void* out0, void* out1,
-                 cudaStream_t s) {
+                 int64_t P, int64_t ldx, int64_t halo, const void* b,
+                 const void* d, const void* dinv, double c1, double c2,
+                 int mode, void* out0, void* out1, cudaStream_t s) {
   packed_fused_kernel<TD, TV>
       <<<n_blocks(P), kThreads, n_off * sizeof(int), s>>>(
           static_cast<const TD*>(data), static_cast<const TV*>(x), oid,
-          offsets, n_off, K, nb, R_pad, P, static_cast<const TV*>(b),
+          offsets, n_off, K, nb, R_pad, P, ldx, halo,
+          static_cast<const TV*>(b),
           static_cast<const TV*>(d), static_cast<const TV*>(dinv), c1, c2,
           mode, static_cast<TV*>(out0), static_cast<TV*>(out1));
   return static_cast<int>(cudaGetLastError());
@@ -190,7 +207,8 @@ extern "C" int pd_packed_matvec(const void* data, int data_dt, const void* x,
                                 void* stream) {
   PD_PACKED_DISPATCH(launch_matvec, n_off, data_dt, vec_dt, data, x, oid,
                      offsets, n_off, K, nb, R_pad, static_cast<int64_t>(P),
-                     y, static_cast<cudaStream_t>(stream));
+                     static_cast<int64_t>(P), 0, y,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pd_packed_fused(const void* data, int data_dt, const void* x,
@@ -201,7 +219,37 @@ extern "C" int pd_packed_fused(const void* data, int data_dt, const void* x,
                                int mode, void* out0, void* out1,
                                void* stream) {
   PD_PACKED_DISPATCH(launch_fused, n_off, data_dt, vec_dt, data, x, oid,
-                     offsets, n_off, K, nb, R_pad, static_cast<int64_t>(P), b,
+                     offsets, n_off, K, nb, R_pad, static_cast<int64_t>(P),
+                     static_cast<int64_t>(P), 0, b, d, dinv, c1, c2, mode,
+                     out0, out1, static_cast<cudaStream_t>(stream));
+}
+
+// The halo entries: K6 and K7 on a shard's slab, x_ext [nb, ldx] with
+// ldx = P + 2 halo.
+extern "C" int pd_packed_matvec_halo(const void* data, int data_dt,
+                                     const void* x, int vec_dt,
+                                     const int* oid, const int* offsets,
+                                     int n_off, int K, int nb, int R_pad,
+                                     long long P, long long ldx,
+                                     long long halo, void* y, void* stream) {
+  PD_PACKED_DISPATCH(launch_matvec, n_off, data_dt, vec_dt, data, x, oid,
+                     offsets, n_off, K, nb, R_pad, static_cast<int64_t>(P),
+                     static_cast<int64_t>(ldx), static_cast<int64_t>(halo), y,
+                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int pd_packed_fused_halo(const void* data, int data_dt,
+                                    const void* x, int vec_dt, const int* oid,
+                                    const int* offsets, int n_off, int K,
+                                    int nb, int R_pad, long long P,
+                                    long long ldx, long long halo,
+                                    const void* b, const void* d,
+                                    const void* dinv, double c1, double c2,
+                                    int mode, void* out0, void* out1,
+                                    void* stream) {
+  PD_PACKED_DISPATCH(launch_fused, n_off, data_dt, vec_dt, data, x, oid,
+                     offsets, n_off, K, nb, R_pad, static_cast<int64_t>(P),
+                     static_cast<int64_t>(ldx), static_cast<int64_t>(halo), b,
                      d, dinv, c1, c2, mode, out0, out1,
                      static_cast<cudaStream_t>(stream));
 }

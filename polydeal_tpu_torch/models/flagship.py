@@ -10,6 +10,14 @@ band assembled directly, degree-5 Chebyshev smoothing with one sweep on
 bf16 band copies, an explicit-inverse coarse solve, and CG to rtol 1e-8
 from a full-multigrid start.
 
+``hierarchy="structured"`` is ``bench_poisson("structured", ...)``'s arm:
+lexicographic blocks of the grid (``multigrid.build_structured_hierarchy``)
+from side ``max(2, n >> TRIM)`` up, so levels 512/4096/32768/262144 at
+n=64, 7 band offsets on every level, grid-reshape transfers, nothing
+packed.  Its levels are numbered lexicographically by construction, so
+its ``relabel`` is ``"lex"`` and any other raises.  It is also the hierarchy that
+``bench.py``'s ``bench_sharded`` shards (``models/sharded.py``).
+
 ``relabel=None`` is ``bench.py``'s ``BENCH_RELABEL=none`` arm: every level
 keeps the R-tree's leaf-rank numbering, so the fine band has many offsets
 (37 at n=64) while a lane touches at most 7.  Every level but the
@@ -24,6 +32,13 @@ Usage::
     fs = setup_flagship(n=64, device=torch.device("cuda"))
     res = solve_flagship(fs)
     fs = setup_flagship(n=64, relabel=None, device=torch.device("cuda"))
+    fs = setup_flagship(n=64, hierarchy="structured",
+                        device=torch.device("cuda"))
+
+On a CUDA device the kernel library is built or loaded, and CUDA, cuBLAS
+and cuSOLVER initialised, before the first setup clock starts
+(``ops/_build.prepare_device``); ``setup_phases`` reports those seconds as
+``kernel_load`` and ``cuda_init``, apart from the phases.
 """
 
 from __future__ import annotations
@@ -42,6 +57,7 @@ from polydeal_tpu_torch.assembly.sipg import (
     build_banded_groups,
 )
 from polydeal_tpu_torch.mesh.fine_mesh import hyper_cube
+from polydeal_tpu_torch.ops import _build
 from polydeal_tpu_torch.solvers import multigrid
 from polydeal_tpu_torch.solvers.cg import CGResult
 from polydeal_tpu_torch.sparse import BlockPacked
@@ -62,10 +78,13 @@ class Flagship:
     b: torch.Tensor  # flat fine-level rhs
     band_offsets: np.ndarray
     grid_shapes: list | None
-    # seconds: hierarchy, groups (and the fine pack plan), assemble0, mg_setup
+    # seconds of the phases hierarchy, groups (and the fine pack plan),
+    # assemble0 and mg_setup; and, before them and in none of them,
+    # kernel_load and cuda_init (0.0 off CUDA)
     setup_phases: dict
     relabel: str | None  # "lex", or None for the leaf-rank numbering
     format: str  # the fine level's: "packed" or "banded"
+    hierarchy: str = "rtree"  # or "structured"
 
     @property
     def n_dofs(self) -> int:
@@ -85,11 +104,12 @@ def setup_flagship(
     precond_dtype=torch.bfloat16,
     coarse_solver: str = "inv",
     relabel: str | None = "lex",
+    hierarchy: str = "rtree",
 ) -> Flagship:
-    """Build the hierarchy, the tables, the fine band, the rhs and the
-    multigrid on ``device``.  Every level is packed or banded by
-    :func:`multigrid.level_pack_plan`; the fine one is assembled straight
-    into its format.
+    """Build the hierarchy (``"rtree"``, or ``"structured"``), the tables,
+    the fine band, the rhs and the multigrid on ``device``.  Every level is
+    packed or banded by :func:`multigrid.level_pack_plan`; the fine one is
+    assembled straight into its format.
 
     Float32 products stay full float32: TF32 would corrupt the f32 einsum
     assembly and the transfers, so it is switched off here for the
@@ -98,16 +118,28 @@ def setup_flagship(
     torch.backends.cudnn.allow_tf32 = False
     sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
             else (lambda: None))
+    first_use = _build.prepare_device(device)
     dim = 3
     t0 = time.perf_counter()
     mesh = hyper_cube(dim, n)
-    agg = RTreeAgglomerator.build(mesh.cell_centers())
-    lv0 = max(1, agg.n_levels - 1 - TRIM)
-    handlers, parents = multigrid.build_rtree_hierarchy(
-        mesh, agg, list(range(lv0, agg.n_levels - 1)), degree=degree,
-        relabel=relabel)
-    grid_shapes = (multigrid.detect_grid_shapes(handlers, parents)
-                   if relabel else None)
+    if hierarchy == "structured":
+        if relabel != "lex":
+            raise ValueError("the structured hierarchy is numbered "
+                             f"lexicographically: relabel {relabel!r} is not "
+                             "'lex'")
+        handlers, parents, grid_shapes = (
+            multigrid.build_structured_hierarchy(
+                mesh, n, degree=degree, coarsest_side=max(2, n >> TRIM)))
+    elif hierarchy == "rtree":
+        agg = RTreeAgglomerator.build(mesh.cell_centers())
+        lv0 = max(1, agg.n_levels - 1 - TRIM)
+        handlers, parents = multigrid.build_rtree_hierarchy(
+            mesh, agg, list(range(lv0, agg.n_levels - 1)), degree=degree,
+            relabel=relabel)
+        grid_shapes = (multigrid.detect_grid_shapes(handlers, parents)
+                       if relabel else None)
+    else:
+        raise ValueError(f"unknown hierarchy: {hierarchy!r}")
     ah = handlers[-1]
     t_hier = time.perf_counter() - t0
 
@@ -153,8 +185,9 @@ def setup_flagship(
         handlers=handlers, mg=mg, b=b, band_offsets=band_offsets,
         grid_shapes=grid_shapes,
         setup_phases=dict(hierarchy=t_hier, groups=t_groups,
-                          assemble0=t_asm0, mg_setup=t_mg),
-        relabel=relabel, format="packed" if packed else "banded")
+                          assemble0=t_asm0, mg_setup=t_mg, **first_use),
+        relabel=relabel, format="packed" if packed else "banded",
+        hierarchy=hierarchy)
 
 
 def solve_flagship(fs: Flagship, rtol: float = 1e-8, fmg: bool = True,

@@ -48,6 +48,7 @@ from polydeal_tpu_torch.checkpoint import (
 )
 from polydeal_tpu_torch.config import BuenoOrovioParams, MonodomainConfig
 from polydeal_tpu_torch.mesh.fine_mesh import hyper_cube
+from polydeal_tpu_torch.ops import _build
 from polydeal_tpu_torch.solvers import multigrid
 from polydeal_tpu_torch.solvers.cg import (
     block_jacobi_preconditioner,
@@ -153,7 +154,9 @@ class MonodomainSolver:
     A: BlockBanded  # finest-level band (block-Jacobi path)
     jacobi: Callable | None = None  # block-Jacobi M^{-1} when mg is None
     # seconds (host clock, synchronised): hierarchy, transfers, assembly
-    # (every level's tables and band), mg_setup, tables (fine quadrature)
+    # (every level's tables and band), mg_setup, tables (fine quadrature);
+    # and, before them and in none of them, kernel_load and cuda_init
+    # (ops/_build.prepare_device; 0.0 off CUDA)
     setup_phases: dict = field(default_factory=dict)
 
     @classmethod
@@ -165,6 +168,7 @@ class MonodomainSolver:
         Float32 products stay full float32 (no TF32) for the process."""
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        first_use = _build.prepare_device(device)
         clock = _PhaseClock(device)
         p = cfg.ionic
         if mesh is None:
@@ -239,7 +243,7 @@ class MonodomainSolver:
         clock.lap("tables")
         return cls(cfg=cfg, handler=ah, mg=mg, B_t=B_t, w_t=vol["w"],
                    stim_t=stim_t, A=A_fine, jacobi=jacobi,
-                   setup_phases=clock.phases)
+                   setup_phases={**clock.phases, **first_use})
 
     # ------------------------------------------------------------------
     def initial_state(self):

@@ -261,6 +261,10 @@ def main(argv=None) -> int:
     else:
         out = profile_flagship(dev, smi,
                                None if args.relabel == "none" else "lex")
+    ph = out["setup_phases_s"]
+    print(f"first use, before and outside the setup phases (s): kernel_load "
+          f"{ph['kernel_load']:.3f}, cuda_init {ph['cuda_init']:.3f}",
+          flush=True)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -21,11 +21,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 
 import torch
 
 __all__ = ["load_library", "launches", "reset_launches", "last_build_log",
-           "stream_handle", "DTYPE_CODES"]
+           "prepare_device", "stream_handle", "DTYPE_CODES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -38,12 +39,15 @@ _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 # launches per kernel since the last reset: K1, K2, K0 and fused K0
-# (csrc/banded.cu), K3, K4, K5 (csrc/sipg.cu) and K6, K7 (csrc/packed.cu)
+# (csrc/banded.cu), K3, K4, K5 (csrc/sipg.cu) and K6, K7 (csrc/packed.cu);
+# the halo launches of K1, K2, K6 and K7 (on a shard's slab) count apart
 launches = {"banded_matvec_imajor": 0, "banded_fused_cheb": 0,
             "banded_matvec_omajor": 0, "banded_fused_omajor": 0,
             "volume_blocks": 0, "face_group_blocks": 0,
             "boundary_blocks": 0, "packed_matvec": 0,
-            "packed_fused_cheb": 0}
+            "packed_fused_cheb": 0, "banded_matvec_halo": 0,
+            "banded_fused_halo": 0, "packed_matvec_halo": 0,
+            "packed_fused_halo": 0}
 
 _lib = None
 _log = ""
@@ -133,6 +137,18 @@ def load_library() -> ctypes.CDLL:
     lib.pd_packed_fused.argtypes = [vp, i32, vp, i32, vp, vp, i32, i32, i32,
                                     i32, i64, vp, vp, vp, f64, f64, i32, vp,
                                     vp, vp]
+    # the halo entries: as K1, K2, K6 and K7 with x's row stride ldx and
+    # the halo width after P
+    lib.pd_banded_matvec_halo.argtypes = [vp, i32, vp, i32, vp, i32, i32,
+                                          i32, i64, i64, i64, vp, vp]
+    lib.pd_banded_fused_halo.argtypes = [vp, i32, vp, i32, vp, i32, i32, i32,
+                                         i64, i64, i64, vp, vp, vp, f64, f64,
+                                         i32, vp, vp, vp]
+    lib.pd_packed_matvec_halo.argtypes = [vp, i32, vp, i32, vp, vp, i32, i32,
+                                          i32, i32, i64, i64, i64, vp, vp]
+    lib.pd_packed_fused_halo.argtypes = [vp, i32, vp, i32, vp, vp, i32, i32,
+                                         i32, i32, i64, i64, i64, vp, vp, vp,
+                                         f64, f64, i32, vp, vp, vp]
     # (dtype, dim, degree, tables..., [offset,] [penalty,] C, Q, P, out,
     #  stream)
     lib.pd_sipg_volume.argtypes = [i32, i32, i32, vp, vp, vp, i32, i32, i64,
@@ -145,10 +161,33 @@ def load_library() -> ctypes.CDLL:
                lib.pd_banded_matvec_omajor, lib.pd_banded_fused_omajor,
                lib.pd_packed_matvec,
                lib.pd_packed_fused, lib.pd_sipg_volume, lib.pd_sipg_boundary,
-               lib.pd_sipg_face):
+               lib.pd_sipg_face, lib.pd_banded_matvec_halo,
+               lib.pd_banded_fused_halo, lib.pd_packed_matvec_halo,
+               lib.pd_packed_fused_halo):
         fn.restype = i32
     _lib = lib
     return lib
+
+
+def prepare_device(device) -> dict:
+    """Seconds of what a CUDA device's first use costs, paid here so that
+    no setup clock holds it: ``cuda_init`` (the context, and one tiny call
+    each into cuBLAS and cuSOLVER) and ``kernel_load`` (building or
+    loading this library).  On any other device both are 0.0 and nothing
+    is loaded."""
+    out = {"kernel_load": 0.0, "cuda_init": 0.0}
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return out
+    t0 = time.perf_counter()
+    a = torch.eye(4, device=dev) + 1.0
+    (a @ a).sum()  # cuBLAS
+    torch.linalg.lu_factor(a)  # cuSOLVER
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    load_library()
+    out.update(cuda_init=t1 - t0, kernel_load=time.perf_counter() - t1)
+    return out
 
 
 def stream_handle(device: torch.device) -> int:

@@ -3,7 +3,10 @@ eigenvalue estimates; K0: the same product over the o-major band.
 
 K1 is the counterpart of ``polydeal_tpu/ops/banded.py``
 ``banded_matvec_t_imajor`` (Pallas kernel ``_banded_matvec_imajor_impl``),
-K0 of ``banded_matvec_t_pallas`` (Pallas kernel ``_banded_matvec_impl``).
+K0 of ``banded_matvec_t_pallas`` (Pallas kernel ``_banded_matvec_impl``),
+and K1 halo (:func:`banded_matvec_t_halo`) of ``banded_matvec_t_halo``:
+K1 on one shard's lane slab, x read from ``x_ext`` [nb, per + 2T], whose T
+lanes on each side are the neighbouring shards' (``parallel/banded.py``).
 On a CUDA tensor each wrapper launches its hand-written kernel of
 ``csrc/banded.cu`` (and raises if it cannot); on a CPU tensor it runs its
 plain PyTorch version (``*_ref``), which computes the same function.
@@ -30,8 +33,9 @@ from polydeal_tpu_torch.ops import _build
 
 __all__ = ["banded_matvec_t_imajor", "banded_matvec_t_imajor_ref",
            "banded_matvec_t_omajor", "banded_matvec_t_omajor_ref",
+           "banded_matvec_t_halo", "banded_matvec_t_halo_ref",
            "KernelBand", "imajor_band", "omajor_band", "launch_band",
-           "launch_product"]
+           "launch_product", "halo_check"]
 
 _VEC_DTYPES = (torch.float32, torch.float64)
 # K0 stages its offset table in 48 KB of shared memory
@@ -69,36 +73,42 @@ class KernelBand:
     only its vectors (:meth:`vec_code`).
 
     ``layout`` names the C entries and launch counters (``_ENTRIES``);
-    ``keep`` holds the tensors whose pointers ``args`` carries."""
+    ``offsets`` is the int32 offset table and ``keep`` any other tensor
+    whose pointer ``args`` carries; ``max_off`` is the largest |offset|,
+    read from ``offsets`` at the first halo launch."""
 
     __slots__ = ("layout", "dtype", "nb", "P", "device", "head", "args",
-                 "keep", "n_off", "R_pad")
+                 "offsets", "keep", "n_off", "R_pad", "max_off")
 
-    def __init__(self, layout, data, nb, P, n_off, R_pad, args, keep):
+    def __init__(self, layout, data, nb, P, n_off, R_pad, args, offsets,
+                 keep=()):
         self.layout, self.dtype, self.nb, self.P = layout, data.dtype, nb, P
         self.device = data.device
         self.head = (data.data_ptr(), _build.DTYPE_CODES[data.dtype])
-        self.n_off, self.R_pad, self.args, self.keep = n_off, R_pad, args, keep
+        self.n_off, self.R_pad, self.args = n_off, R_pad, args
+        self.offsets, self.keep = offsets, keep
+        self.max_off = None
 
-    def vec_code(self, vecs) -> int:
+    def vec_code(self, vecs, ldx: int | None = None) -> int:
         """Check one launch's vectors -- one f32 or f64 dtype (f64 for an
-        f64 band), [nb, P], contiguous, on the band's device -- and return
-        their dtype code."""
+        f64 band), [nb, P] (the first [nb, ldx] where ``ldx`` is given: a
+        halo launch's x_ext), contiguous, on the band's device -- and
+        return their dtype code."""
         vdt = vecs[0].dtype
         if vdt not in _VEC_DTYPES:
             raise TypeError(f"vector dtype {vdt} not supported (f32 or f64)")
         if vdt == torch.float32 and self.dtype == torch.float64:
             raise TypeError("f64 band needs f64 vectors")
-        shape = (self.nb, self.P)
-        for v in vecs:
+        for n, v in enumerate(vecs):
+            width = ldx if n == 0 and ldx is not None else self.P
             if v.device != self.device:
                 raise ValueError(f"tensor on {v.device}, band on "
                                  f"{self.device}")
             if not v.is_contiguous():
                 raise ValueError("kernel operands must be contiguous")
-            if v.shape != shape or v.dtype != vdt:
+            if v.shape != (self.nb, width) or v.dtype != vdt:
                 raise ValueError(f"vector {tuple(v.shape)} {v.dtype} is not "
-                                 f"[{self.nb}, {self.P}] {vdt}")
+                                 f"[{self.nb}, {width}] {vdt}")
         return _build.DTYPE_CODES[vdt]
 
 
@@ -112,6 +122,13 @@ _ENTRIES = {
                 "fused K0")),
     "packed": (("pd_packed_matvec", "packed_matvec", "K6"),
                ("pd_packed_fused", "packed_fused_cheb", "K7")),
+}
+# the same on a shard's slab (x_ext [nb, P + 2T]): K1, K2, K6 and K7 halo
+_HALO_ENTRIES = {
+    "imajor": (("pd_banded_matvec_halo", "banded_matvec_halo", "K1 halo"),
+               ("pd_banded_fused_halo", "banded_fused_halo", "K2 halo")),
+    "packed": (("pd_packed_matvec_halo", "packed_matvec_halo", "K6 halo"),
+               ("pd_packed_fused_halo", "packed_fused_halo", "K7 halo")),
 }
 
 
@@ -139,7 +156,7 @@ def imajor_band(data_i, offsets, nb, n_slots=None) -> KernelBand:
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
     return KernelBand("imajor", data_i, nb, P, n_off, R_pad,
-                      (offsets.data_ptr(), n_off, nb, R_pad, P), (offsets,))
+                      (offsets.data_ptr(), n_off, nb, R_pad, P), offsets)
 
 
 def check_kernel_args(data_i, offsets, nb, vecs, n_slots=None):
@@ -150,27 +167,56 @@ def check_kernel_args(data_i, offsets, nb, vecs, n_slots=None):
     return band.n_off, band.R_pad, band.P
 
 
-def launch_band(band: KernelBand, fused: bool, vecs, tail):
+def halo_check(offsets, P: int, x_ext: torch.Tensor, tile: int,
+               band: KernelBand | None = None) -> None:
+    """Refuse what a halo product cannot compute, as the JAX package's
+    ``_halo`` entry points do: ``x_ext`` not P + 2 ``tile`` lanes wide, or
+    an offset beyond the halo (|o| > tile: a far offset on a shard).  The
+    largest |offset| is read once into ``band``'s ``max_off`` where a band
+    is given."""
+    if x_ext.shape[-1] != P + 2 * tile:
+        raise ValueError(f"x_ext has {x_ext.shape[-1]} lanes, not per + 2T "
+                         f"= {P} + 2*{tile}")
+    m = None if band is None else band.max_off
+    if m is None:
+        m = max([abs(o) for o in _host_offsets(offsets)] + [0])
+        if band is not None:
+            band.max_off = m
+    if m > tile:
+        raise ValueError(f"offset {m} beyond the halo width T={tile} (a far "
+                         f"offset on a shard)")
+
+
+def launch_band(band: KernelBand, fused: bool, vecs, tail,
+                halo: int | None = None):
     """Launch the band's product (``fused=False``) or fused entry with the
     vector pointers and scalars ``tail`` after its band arguments; raises
-    if the launch fails, counts it if not."""
-    entry, counter, name = _ENTRIES[band.layout][fused]
+    if the launch fails, counts it if not.  ``halo=T`` launches the halo
+    entry, ``vecs[0]`` being the slab's x_ext [nb, P + 2T]."""
+    entries = _ENTRIES if halo is None else _HALO_ENTRIES
+    entry, counter, name = entries[band.layout][fused]
     if band.device.type != "cuda":
         raise RuntimeError(f"no {name} kernel for device {band.device}")
-    vcode = band.vec_code(vecs)
+    extra = ()
+    if halo is not None:
+        halo_check(band.offsets, band.P, vecs[0], halo, band)
+        extra = (band.P + 2 * halo, halo)
+    vcode = band.vec_code(vecs, None if halo is None else extra[0])
     lib = _build.load_library()
     rc = getattr(lib, entry)(*band.head, vecs[0].data_ptr(), vcode,
-                             *band.args, *tail,
+                             *band.args, *extra, *tail,
                              _build.stream_handle(band.device))
     if rc != 0:
         raise RuntimeError(f"{name} ({entry}) launch failed: {rc}")
     _build.launches[counter] += 1
 
 
-def launch_product(band: KernelBand, xt: torch.Tensor) -> torch.Tensor:
-    """y = A x through the band's product kernel (K1, K0 or K6)."""
-    y = torch.empty_like(xt)
-    launch_band(band, False, (xt,), (y.data_ptr(),))
+def launch_product(band: KernelBand, xt: torch.Tensor,
+                   halo: int | None = None) -> torch.Tensor:
+    """y = A x through the band's product kernel (K1, K0 or K6; with
+    ``halo=T`` K1 or K6 halo on the slab's x_ext)."""
+    y = torch.empty((band.nb, band.P), dtype=xt.dtype, device=xt.device)
+    launch_band(band, False, (xt,), (y.data_ptr(),), halo)
     return y
 
 
@@ -221,7 +267,7 @@ def omajor_band(data, offsets) -> KernelBand:
         raise ValueError(f"{n_off} offsets exceed K0's shared-memory table "
                          f"({_MAX_OFFSETS})")
     return KernelBand("omajor", data, nb, P, n_off, n_off * nb,
-                      (offsets.data_ptr(), n_off, nb, P), (offsets,))
+                      (offsets.data_ptr(), n_off, nb, P), offsets)
 
 
 def check_omajor_args(data, offsets, xt):
@@ -247,3 +293,38 @@ def banded_matvec_t_omajor(data: torch.Tensor, offsets, xt: torch.Tensor,
     if band is None:
         band = omajor_band(data, offsets)
     return launch_product(band, xt)
+
+
+def banded_matvec_t_halo_ref(data_i: torch.Tensor, offsets, nb: int,
+                             x_ext: torch.Tensor, *, tile: int
+                             ) -> torch.Tensor:
+    """Plain PyTorch version of K1 halo, accumulating in ``x_ext``'s dtype:
+    offset o reads the window x_ext[:, T + o : T + o + per] (no padding)."""
+    P = data_i.shape[1]
+    halo_check(offsets, P, x_ext, tile)
+    offs = _host_offsets(offsets)
+    n_off = len(offs)
+    R_pad = data_i.shape[0] // nb
+    acc = x_ext.dtype
+    D = (data_i.reshape(nb, R_pad, P)[:, :n_off * nb]
+         .reshape(nb, n_off, nb, P).to(acc))
+    Xg = torch.stack([x_ext[:, tile + o:tile + o + P] for o in offs])
+    return torch.einsum("ikjp,kjp->ip", D, Xg.to(acc))
+
+
+def banded_matvec_t_halo(data_i: torch.Tensor, offsets, nb: int,
+                         x_ext: torch.Tensor, *, tile: int,
+                         band: KernelBand | None = None) -> torch.Tensor:
+    """K1 on one shard's lane slab: y[i, p] = sum_k sum_j
+    data_i[i*R_pad + k*nb + j, p] * x_ext[j, T + p + off_k], p in [0, per).
+
+    ``x_ext`` [nb, per + 2T] carries the neighbouring shards' T lanes on
+    each side; ``tile`` is T, and every |offset| must be <= T (raises
+    otherwise, and on a wrong ``x_ext`` width).  ``band`` is the slab's
+    :func:`imajor_band`, if the caller keeps one.  Returns y [nb, per] in
+    ``x_ext``'s dtype."""
+    if x_ext.device.type == "cpu":
+        return banded_matvec_t_halo_ref(data_i, offsets, nb, x_ext, tile=tile)
+    if band is None:
+        band = imajor_band(data_i, offsets, nb)
+    return launch_product(band, x_ext, halo=tile)

@@ -17,6 +17,16 @@ i-major copy (the small multigrid levels), where the JAX package runs the
 product and the update unfused; their plain versions are K0's plain
 product followed by the same update.
 
+The ``_halo`` entry points (K2 halo and K7 halo: the counterparts of
+``banded_cheb_step_t_halo``, ``banded_residual_t_halo``,
+``packed_cheb_step_t_halo`` and ``packed_residual_t_halo``) compute the same
+on one shard's lane slab: x is read from ``x_ext`` [nb, per + 2T] (the
+neighbouring shards' T lanes on each side, every |offset| <= T), the
+update's own x at lanes [T, T + per); b, d, dinv and the outputs are the
+slab's [nb, per].  A pack's far block-COO tail is not in K7's product: the
+caller passes b_eff = b - A_far x to the step and subtracts A_far x from
+the residual.
+
 On a CUDA tensor the wrappers launch the kernels of ``csrc/banded.cu`` and
 ``csrc/packed.cu`` (and raise if they cannot); on a CPU tensor they run the
 plain PyTorch versions below.  The update runs in the vectors' dtype (f32,
@@ -32,6 +42,7 @@ import torch
 
 from polydeal_tpu_torch.ops.banded import (
     KernelBand,
+    banded_matvec_t_halo_ref,
     banded_matvec_t_imajor_ref,
     banded_matvec_t_omajor_ref,
     imajor_band,
@@ -40,6 +51,7 @@ from polydeal_tpu_torch.ops.banded import (
 )
 from polydeal_tpu_torch.ops.packed import (
     packed_band,
+    packed_matvec_t_halo_ref,
     packed_matvec_t_ref,
 )
 
@@ -56,6 +68,14 @@ __all__ = [
     "packed_residual_t",
     "packed_cheb_step_t_ref",
     "packed_residual_t_ref",
+    "banded_cheb_step_t_halo",
+    "banded_residual_t_halo",
+    "banded_cheb_step_t_halo_ref",
+    "banded_residual_t_halo_ref",
+    "packed_cheb_step_t_halo",
+    "packed_residual_t_halo",
+    "packed_cheb_step_t_halo_ref",
+    "packed_residual_t_halo_ref",
 ]
 
 # mode codes of the C interface (enum Mode in csrc/banded.cu, packed.cu)
@@ -107,16 +127,17 @@ def packed_residual_t_ref(data_i, oid, offsets, nb: int, xt, b):
 
 
 def _launch(band: KernelBand, xt, b, dvec=None, dinv=None, c1=0.0, c2=0.0,
-            step: bool = True):
-    """Launch the band's fused kernel: a step (x', d') or the residual."""
+            step: bool = True, halo: int | None = None):
+    """Launch the band's fused kernel: a step (x', d') or the residual;
+    ``halo=T`` on a shard's slab, ``xt`` being its x_ext."""
     mode = "residual" if not step else "step0" if dvec is None else "step"
-    out0 = torch.empty_like(xt)
-    out1 = torch.empty_like(xt) if step else None
+    out0 = torch.empty_like(b)
+    out1 = torch.empty_like(b) if step else None
     vecs = [t for t in (xt, b, dvec, dinv) if t is not None]
     ptr = lambda t: None if t is None else t.data_ptr()
     launch_band(band, True, vecs,
                 (b.data_ptr(), ptr(dvec), ptr(dinv), float(c1), float(c2),
-                 _MODES[mode], out0.data_ptr(), ptr(out1)))
+                 _MODES[mode], out0.data_ptr(), ptr(out1)), halo)
     return (out0, out1) if step else out0
 
 
@@ -183,3 +204,85 @@ def packed_residual_t(data_i, oid, offsets, nb: int, xt, b, *, band=None):
     if band is None:
         band = packed_band(data_i, oid, offsets, nb)
     return _launch(band, xt, b, step=False)
+
+
+def banded_cheb_step_t_halo_ref(data_i, offsets, nb: int, x_ext, dvec, b,
+                                dinv, c1: float, c2: float, *, tile: int):
+    """Plain version of K2 halo's step; ``dvec=None`` is the first step."""
+    r = b - banded_matvec_t_halo_ref(data_i, offsets, nb, x_ext, tile=tile)
+    xt = x_ext[:, tile:tile + b.shape[-1]]
+    return _cheb_update(r, xt, dvec, dinv, c1, c2)
+
+
+def banded_residual_t_halo_ref(data_i, offsets, nb: int, x_ext, b, *,
+                               tile: int):
+    """Plain version of K2 halo's residual b - A x."""
+    return b - banded_matvec_t_halo_ref(data_i, offsets, nb, x_ext,
+                                        tile=tile)
+
+
+def packed_cheb_step_t_halo_ref(data_i, oid, offsets, nb: int, x_ext, dvec,
+                                b, dinv, c1: float, c2: float, *, tile: int):
+    """Plain version of K7 halo's step (``b`` is b_eff where the pack has a
+    far tail); ``dvec=None`` is the first step."""
+    r = b - packed_matvec_t_halo_ref(data_i, oid, offsets, nb, x_ext,
+                                     tile=tile)
+    xt = x_ext[:, tile:tile + b.shape[-1]]
+    return _cheb_update(r, xt, dvec, dinv, c1, c2)
+
+
+def packed_residual_t_halo_ref(data_i, oid, offsets, nb: int, x_ext, b, *,
+                               tile: int):
+    """Plain version of K7 halo's residual b - A_near x."""
+    return b - packed_matvec_t_halo_ref(data_i, oid, offsets, nb, x_ext,
+                                        tile=tile)
+
+
+def banded_cheb_step_t_halo(data_i, offsets, nb: int, x_ext, dvec, b, dinv,
+                            c1: float, c2: float, *, tile: int, band=None):
+    """One fused Chebyshev step on a shard's i-major slab (K2 halo);
+    ``dvec=None`` is the first step.  Returns (x', d') [nb, per] in
+    ``b``'s dtype."""
+    if x_ext.device.type == "cpu":
+        return banded_cheb_step_t_halo_ref(data_i, offsets, nb, x_ext, dvec,
+                                           b, dinv, c1, c2, tile=tile)
+    if band is None:
+        band = imajor_band(data_i, offsets, nb)
+    return _launch(band, x_ext, b, dvec, dinv, c1, c2, halo=tile)
+
+
+def banded_residual_t_halo(data_i, offsets, nb: int, x_ext, b, *, tile: int,
+                           band=None):
+    """Fused r = b - A x on a shard's i-major slab (K2 halo)."""
+    if x_ext.device.type == "cpu":
+        return banded_residual_t_halo_ref(data_i, offsets, nb, x_ext, b,
+                                          tile=tile)
+    if band is None:
+        band = imajor_band(data_i, offsets, nb)
+    return _launch(band, x_ext, b, step=False, halo=tile)
+
+
+def packed_cheb_step_t_halo(data_i, oid, offsets, nb: int, x_ext, dvec, b,
+                            dinv, c1: float, c2: float, *, tile: int,
+                            band=None):
+    """One fused Chebyshev step on a shard's packed slab (K7 halo).  With a
+    far block-COO tail, ``b`` must be b_eff = b - A_far x: the kernel's
+    product covers the slots only.  Returns (x', d') [nb, per]."""
+    if x_ext.device.type == "cpu":
+        return packed_cheb_step_t_halo_ref(data_i, oid, offsets, nb, x_ext,
+                                           dvec, b, dinv, c1, c2, tile=tile)
+    if band is None:
+        band = packed_band(data_i, oid, offsets, nb)
+    return _launch(band, x_ext, b, dvec, dinv, c1, c2, halo=tile)
+
+
+def packed_residual_t_halo(data_i, oid, offsets, nb: int, x_ext, b, *,
+                           tile: int, band=None):
+    """Fused r = b - A_near x on a shard's packed slab (K7 halo); the
+    caller subtracts a far tail's A_far x."""
+    if x_ext.device.type == "cpu":
+        return packed_residual_t_halo_ref(data_i, oid, offsets, nb, x_ext, b,
+                                          tile=tile)
+    if band is None:
+        band = packed_band(data_i, oid, offsets, nb)
+    return _launch(band, x_ext, b, step=False, halo=tile)

@@ -23,7 +23,11 @@ load at any |o|.
 
 On a CUDA tensor :func:`packed_matvec_t` launches the hand-written kernel
 of ``csrc/packed.cu`` (and raises if it cannot); on a CPU tensor it runs
-the plain PyTorch version :func:`packed_matvec_t_ref`.
+the plain PyTorch version :func:`packed_matvec_t_ref`.  K6 halo
+(:func:`packed_matvec_t_halo`, the counterpart of ``packed_matvec_t_halo``)
+is K6 on one shard's lane slab, x read from ``x_ext`` [nb, per + 2T]; every
+plan offset must then satisfy |o| <= T (``parallel/banded.py`` repacks a
+pack whose plan does not, splitting off a far block-COO tail).
 """
 
 from __future__ import annotations
@@ -35,12 +39,14 @@ import torch
 
 from polydeal_tpu_torch.ops.banded import (
     KernelBand,
+    halo_check,
     imajor_band,
     launch_product,
 )
 
 __all__ = ["PackPlan", "build_pack_plan", "choose_near_limit",
-           "packed_matvec_t", "packed_matvec_t_ref", "packed_band"]
+           "packed_matvec_t", "packed_matvec_t_ref", "packed_band",
+           "packed_matvec_t_halo", "packed_matvec_t_halo_ref"]
 
 
 @dataclass(frozen=True)
@@ -195,7 +201,7 @@ def packed_band(data_i, oid, offsets, nb) -> KernelBand:
         raise ValueError(f"oid {tuple(oid.shape)} is not [K, {P}]")
     return KernelBand("packed", data_i, nb, P, n_off, R_pad,
                       (oid.data_ptr(), offsets.data_ptr(), n_off, K, nb,
-                       R_pad, P), (oid, offsets))
+                       R_pad, P), offsets, (oid,))
 
 
 def packed_matvec_t(data_i: torch.Tensor, oid: torch.Tensor, offsets,
@@ -212,3 +218,43 @@ def packed_matvec_t(data_i: torch.Tensor, oid: torch.Tensor, offsets,
     if band is None:
         band = packed_band(data_i, oid, offsets, nb)
     return launch_product(band, xt)
+
+
+def packed_matvec_t_halo_ref(data_i: torch.Tensor, oid: torch.Tensor,
+                             offsets, nb: int, x_ext: torch.Tensor, *,
+                             tile: int) -> torch.Tensor:
+    """Plain PyTorch version of K6 halo, accumulating in ``x_ext``'s dtype:
+    slot k of lane p reads x_ext[:, T + p + offsets[oid[k, p]]] (inside the
+    slab's window, no padding), an exact zero where the slot is
+    inactive."""
+    K, P = oid.shape
+    halo_check(offsets, P, x_ext, tile)
+    R_pad = data_i.shape[0] // nb
+    acc = x_ext.dtype
+    dev = x_ext.device
+    offs = torch.as_tensor(offsets, device=dev).long()
+    o = oid.long()
+    q = tile + torch.arange(P, device=dev) + offs[o.clamp(min=0)]  # [K, P]
+    Xg = torch.where(o >= 0, x_ext.to(acc)[:, q],
+                     torch.zeros((), dtype=acc, device=dev))  # [nb, K, P]
+    D = (data_i.reshape(nb, R_pad, P)[:, :K * nb]
+         .reshape(nb, K, nb, P).to(acc))
+    return torch.einsum("ikjp,jkp->ip", D, Xg)
+
+
+def packed_matvec_t_halo(data_i: torch.Tensor, oid: torch.Tensor, offsets,
+                         nb: int, x_ext: torch.Tensor, *, tile: int,
+                         band: KernelBand | None = None) -> torch.Tensor:
+    """K6 on one shard's lane slab: y[i, p] = sum_k sum_j
+    data_i[i*R_pad + k*nb + j, p] * x_ext[j, T + p + offsets[oid[k, p]]].
+
+    ``x_ext`` [nb, per + 2T]; ``tile`` is T, and every plan offset must be
+    within it (raises otherwise, and on a wrong ``x_ext`` width).  A far
+    block-COO tail is the caller's.  Returns y [nb, per] in ``x_ext``'s
+    dtype."""
+    if x_ext.device.type == "cpu":
+        return packed_matvec_t_halo_ref(data_i, oid, offsets, nb, x_ext,
+                                        tile=tile)
+    if band is None:
+        band = packed_band(data_i, oid, offsets, nb)
+    return launch_product(band, x_ext, halo=tile)

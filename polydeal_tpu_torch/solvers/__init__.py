@@ -14,6 +14,7 @@ from polydeal_tpu_torch.solvers.multigrid import (
     build_embedding,
     build_multigrid,
     build_rtree_hierarchy,
+    build_structured_hierarchy,
     detect_grid_shapes,
     relabel_band_minimizing,
 )
@@ -30,6 +31,7 @@ __all__ = [
     "build_embedding",
     "build_multigrid",
     "build_rtree_hierarchy",
+    "build_structured_hierarchy",
     "detect_grid_shapes",
     "relabel_band_minimizing",
 ]

@@ -52,13 +52,20 @@ def cg_solve(
     rtol: float = 1e-9,
     atol: float = 0.0,
     maxiter: int = 1000,
+    dot: Callable | None = None,
 ) -> CGResult:
     """Preconditioned CG on A x = b; A and M are linear callables.
 
     Stops when |r| <= max(rtol*|b|, atol), or after ``maxiter``
-    iterations."""
+    iterations.  ``dot`` replaces the inner product (a sharded solve's
+    all-reduced one, on each rank's part of the vectors); the norms are
+    then sqrt(dot(v, v))."""
     if M is None:
         M = lambda r: r
+    if dot is None:
+        dot, norm = _dot, torch.linalg.vector_norm
+    else:
+        norm = lambda v: torch.sqrt(dot(v, v))
     if x0 is None:  # zero guess: r0 = b, no operator apply needed
         x = torch.zeros_like(b)
         r = b
@@ -67,18 +74,18 @@ def cg_solve(
         r = b - A(x0)
     z = M(r)
     p = z
-    rz = _dot(r, z)
-    tol = max(rtol * float(torch.linalg.vector_norm(b)), atol)
+    rz = dot(r, z)
+    tol = max(rtol * float(norm(b)), atol)
     k = 0
-    while k < maxiter and float(torch.linalg.vector_norm(r)) > tol:
+    while k < maxiter and float(norm(r)) > tol:
         Ap = A(p)
-        alpha = rz / _dot(p, Ap)
+        alpha = rz / dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = _dot(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / rz
         p = z + beta * p
         rz = rz_new
         k += 1
-    return CGResult(x=x, iterations=k, residual=torch.linalg.vector_norm(r))
+    return CGResult(x=x, iterations=k, residual=norm(r))

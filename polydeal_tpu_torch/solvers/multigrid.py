@@ -43,6 +43,7 @@ __all__ = [
     "relabel_band_minimizing",
     "detect_grid_shapes",
     "build_rtree_hierarchy",
+    "build_structured_hierarchy",
     "Multigrid",
     "level_pack_plan",
     "maybe_pack_level",
@@ -257,6 +258,72 @@ def build_rtree_hierarchy(
             raise ValueError("hierarchy is not nested")
         parents.append(parent)
     return handlers, parents
+
+
+def build_structured_hierarchy(
+    mesh,
+    n: int,
+    degree: int = 1,
+    family: str = "dgp",
+    coarsest_side: int = 2,
+    n_quad: int | None = None,
+):
+    """Structured fast path: lexicographic block agglomeration on a
+    hyper_cube mesh (n cells per side, power of two), every level in
+    lexicographic order (2 dim + 1 band offsets) with grid-reshape
+    transfers (numpy copy of the JAX package's function).  Levels have
+    side coarsest_side, 2 coarsest_side, ..., n.  Returns (handlers,
+    parents, grid_shapes)."""
+    dim = mesh.dim
+    if n & (n - 1) or n < 2:
+        raise ValueError("n must be a power of two")
+    if mesh.n_cells != n**dim:
+        raise ValueError(f"mesh has {mesh.n_cells} cells, not {n}^{dim}")
+    sides = []
+    s = coarsest_side
+    while s <= n:
+        sides.append(s)
+        s *= 2
+    # cell coords in lex order (axis 0 slowest)
+    ids = np.arange(n**dim)
+    coords = []
+    rem = ids
+    for d in range(dim):
+        stride = n ** (dim - 1 - d)
+        coords.append(rem // stride)
+        rem = rem % stride
+    coords = np.stack(coords, axis=1)  # [n_cells, dim]
+
+    c2ps = []
+    for m in sides:
+        b = n // m
+        bc = coords // b  # block coords
+        lex = np.zeros(ids.shape[0], dtype=np.int64)
+        for d in range(dim):
+            lex = lex * m + bc[:, d]
+        c2ps.append(lex.astype(np.int32))
+    handlers = [
+        AgglomerationHandler(mesh, c2p, degree=degree, family=family,
+                             n_quad=n_quad)
+        for c2p in c2ps
+    ]
+    parents = []
+    grid_shapes = []
+    for li in range(len(sides) - 1):
+        m = sides[li + 1]  # fine side
+        pf = np.arange(m**dim)
+        fc = []
+        rem = pf
+        for d in range(dim):
+            stride = m ** (dim - 1 - d)
+            fc.append(rem // stride)
+            rem = rem % stride
+        par = np.zeros(m**dim, dtype=np.int64)
+        for d in range(dim):
+            par = par * (m // 2) + fc[d] // 2
+        parents.append(par)
+        grid_shapes.append((m,) * dim)
+    return handlers, parents, grid_shapes
 
 
 def _with_imajor_if_big(e: BlockBanded,

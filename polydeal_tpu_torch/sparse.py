@@ -47,7 +47,7 @@ from polydeal_tpu_torch.ops.packed import (
     packed_matvec_t,
 )
 
-__all__ = ["BlockBanded", "BlockPacked", "pack_blocks"]
+__all__ = ["BlockBanded", "BlockPacked", "far_blocks", "pack_blocks"]
 
 
 def _vec(v, dtype):
@@ -259,16 +259,26 @@ class BlockBanded:
                 raise ValueError(f"plan offset {o} not in the band")
             return self.data[b_idx]
 
-        far_data = None
-        if far_rows is not None and far_rows.size:
-            foffs = far_cols - far_rows  # sorted by (offset, row)
-            far_data = torch.cat([
-                row(int(o))[:, :, torch.as_tensor(
-                    far_rows[foffs == o], device=self.data.device)]
-                .permute(2, 0, 1) for o in np.unique(foffs)], dim=0)
         return BlockPacked(data_i=pack_blocks(row, plan, oid), oid=oid,
-                           plan=plan, far_data=far_data, far_rows=far_rows,
-                           far_cols=far_cols)
+                           plan=plan,
+                           far_data=far_blocks(row, far_rows, far_cols),
+                           far_rows=far_rows, far_cols=far_cols)
+
+
+def far_blocks(block_of, far_rows, far_cols) -> torch.Tensor | None:
+    """The far block-COO tail's blocks [n_far, nb, nb], in the (offset,
+    row) order of ``far_rows``/``far_cols`` (``build_pack_plan``'s): row r
+    of offset o is ``block_of(o)`` [nb, nb, P] at lane r.  None without a
+    tail."""
+    if far_rows is None or not far_rows.size:
+        return None
+    foffs = far_cols - far_rows
+    chunks = []
+    for o in np.unique(foffs):
+        blk = block_of(int(o))
+        rows = torch.as_tensor(far_rows[foffs == o], device=blk.device)
+        chunks.append(blk[:, :, rows].permute(2, 0, 1))
+    return torch.cat(chunks, dim=0)
 
 
 def pack_blocks(block_of, plan: PackPlan, oid: torch.Tensor) -> torch.Tensor:
@@ -369,13 +379,20 @@ class BlockPacked:
         y = packed_matvec_t(self.data_i, self.oid, self.offsets_t,
                             self.n_basis, xt, band=self._band(xt))
         if self._has_far():
-            # block-COO tail: gather, block products, scatter-add by row
+            y = y + self.far_matvec_t(xt)
+        return y
+
+    def far_matvec_t(self, xt: torch.Tensor) -> torch.Tensor:
+        """The far block-COO tail's product alone, [nb, P] -> [nb, P] in
+        ``xt``'s dtype (zero without a tail): gather, block products,
+        scatter-add by row."""
+        yb = torch.zeros((self.n_block_rows, self.n_basis), dtype=xt.dtype,
+                         device=xt.device)
+        if self._has_far():
             g = xt.T[self._far_cols_t]  # [n_far, nb]
             prod = torch.einsum("kij,kj->ki", self.far_data.to(xt.dtype), g)
-            yb = torch.zeros((self.n_block_rows, self.n_basis),
-                             dtype=xt.dtype, device=xt.device)
-            y = y + yb.index_add_(0, self._far_rows_t, prod).T
-        return y
+            yb.index_add_(0, self._far_rows_t, prod)
+        return yb.T
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         xt = x.reshape(self.n_block_rows, self.n_basis).T
@@ -406,6 +423,27 @@ class BlockPacked:
         """[nb, nb, P]: the rows (i, k, j) of slot k."""
         nb, R_pad = self.n_basis, self.plan.R_pad
         return self.data_i.reshape(nb, R_pad, -1)[:, k * nb:(k + 1) * nb]
+
+    def repack(self, plan2: PackPlan, oid2: torch.Tensor, far_rows=None,
+               far_cols=None) -> "BlockPacked":
+        """Re-slot under a new plan over the same sparsity (e.g. a near/far
+        split for a shard's halo, ``parallel/banded.py``) without the dense
+        band: each new slot row is a masked per-lane selection of the old
+        slot row holding the same offset, and the far tail is read from the
+        old rows directly, so memory stays O(pack).  Needs a
+        full-colouring source (no far tail); ``oid2`` [K2, P] int32 on the
+        pack's device."""
+        if self._has_far():
+            raise ValueError("repack needs a full-colouring source pack")
+        old_slot = {self.plan.offsets[o]: k
+                    for k, sl in enumerate(self.plan.slots) for o in sl}
+        # the old slot of offset o holds o's block wherever o is active;
+        # other lanes carry a sibling's, masked by the new oid
+        block_of = lambda o: self._slot_block(old_slot[o])
+        return BlockPacked(data_i=pack_blocks(block_of, plan2, oid2),
+                           oid=oid2, plan=plan2,
+                           far_data=far_blocks(block_of, far_rows, far_cols),
+                           far_rows=far_rows, far_cols=far_cols)
 
     def to_banded(self) -> BlockBanded:
         """Exact unpack to the dense band (per-slot masked expansion)."""

@@ -1,8 +1,9 @@
 """The port's jax-free host copies against the JAX package's originals.
 
-Mesh, R-tree, handler arrays, the lex-relabelled hierarchy, grid-shape
-detection, the slot-padded banded tables and the monodomain configuration
-must be EXACTLY equal: the port's host modules are copies that differ only
+Mesh, R-tree, handler arrays, the lex-relabelled and the structured
+hierarchies, grid-shape detection, the slot-padded banded tables, the
+sharded solve's halo send lists and the monodomain configuration must be
+EXACTLY equal: the port's host modules are copies that differ only
 in their imports.  Also checks that the port imports neither jax nor the
 JAX package.
 """
@@ -27,8 +28,12 @@ import polydeal_tpu_torch as tpd  # noqa: E402
 import polydeal_tpu_torch.config as tcfg  # noqa: E402
 from polydeal_tpu.agglomeration import RTreeAgglomerator  # noqa: E402
 from polydeal_tpu.assembly.sipg import build_banded_groups  # noqa: E402
+from polydeal_tpu.parallel.sharding import (  # noqa: E402
+    build_halo_exchange,
+)
 from polydeal_tpu.solvers import (  # noqa: E402
     build_rtree_hierarchy,
+    build_structured_hierarchy,
     detect_grid_shapes,
 )
 from polydeal_tpu_torch.agglomeration import (  # noqa: E402
@@ -37,6 +42,7 @@ from polydeal_tpu_torch.agglomeration import (  # noqa: E402
 from polydeal_tpu_torch.assembly.sipg import (  # noqa: E402
     build_banded_groups as t_build_banded_groups,
 )
+from polydeal_tpu_torch.parallel import sharding as tsh  # noqa: E402
 from polydeal_tpu_torch.solvers import multigrid as tmg  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -123,6 +129,38 @@ def test_hierarchy_and_grid_shapes_equal(name):
         assert ga is not None  # lex levels of a uniform grid are grids
 
 
+@pytest.mark.parametrize("dim,n,side", [(2, 16, 2), (3, 8, 2), (3, 8, 4)])
+def test_structured_hierarchy_equal(dim, n, side):
+    m, t = pd.hyper_cube(dim, n), tpd.hyper_cube(dim, n)
+    ha, pa, ga = build_structured_hierarchy(m, n, degree=1,
+                                            coarsest_side=side)
+    hb, pb, gb = tmg.build_structured_hierarchy(t, n, degree=1,
+                                                coarsest_side=side)
+    assert len(ha) == len(hb) and len(pa) == len(pb) and ga == gb
+    for a, b in zip(ha, hb):
+        assert _eq(a.cell2poly, b.cell2poly)
+        assert a.n_poly == b.n_poly and a.n_basis == b.n_basis
+    for a, b in zip(pa, pb):
+        assert _eq(a, b)
+    with pytest.raises(ValueError):
+        tmg.build_structured_hierarchy(t, n // 2)  # not the mesh's side
+
+
+@pytest.mark.parametrize("n_dev,per,nnz", [(2, 32, 40), (4, 16, 24),
+                                           (8, 8, 12)])
+def test_halo_exchange_equal(n_dev, per, nnz):
+    """Seeded column sets, local and remote, padded with local columns as
+    the sharded far tail pads them."""
+    rng = np.random.default_rng(n_dev)
+    cols = rng.integers(0, n_dev * per, size=(n_dev, nnz))
+    cols[:, -3:] = (np.arange(n_dev) * per)[:, None]
+    a, b = build_halo_exchange(cols, per, n_dev), tsh.build_halo_exchange(
+        cols, per, n_dev)
+    assert _eq(a[0], b[0]) and a[1] == b[1] and a[2] == b[2]
+    assert len(a[3]) == len(b[3]) and all(_eq(x, y)
+                                          for x, y in zip(a[3], b[3]))
+
+
 @pytest.mark.parametrize("name", sorted(MESHES))
 def test_banded_groups_equal(name):
     ha, _, hb, _ = _hierarchies(name)
@@ -161,8 +199,9 @@ def test_config_copy_equal():
 
 def test_port_never_imports_jax():
     """``import polydeal_tpu_torch`` plus a full small flagship solve, a
-    packed one without the relabel and two monodomain steps leave jax and
-    the JAX package out of sys.modules."""
+    packed one without the relabel, two monodomain steps and a sharded
+    solve (one shard, structured hierarchy) leave jax and the JAX package
+    out of sys.modules."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -191,6 +230,11 @@ def test_port_never_imports_jax():
         "s = MonodomainSolver.build(MonodomainConfig(n_refinements=3),\n"
         "                           device=torch.device('cpu'))\n"
         "assert len(s.run(n_steps=2)[2]) == 2\n"
+        "import polydeal_tpu_torch.parallel\n"
+        "from polydeal_tpu_torch.models.sharded import setup_sharded\n"
+        "sh = setup_sharded(n=4, device=torch.device('cpu'),\n"
+        "                   dtype=torch.float64, precond_dtype=None)\n"
+        "assert sh.ss.solve_cg(sh.b)[1] > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'polydeal_tpu')]\n"
         "print('BAD', bad)\n"

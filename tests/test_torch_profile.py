@@ -47,3 +47,30 @@ def test_profile_needs_a_card(argv, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         pf.main(argv)
+
+
+def test_setup_phases_report_first_use_apart(monkeypatch):
+    """The flagship's and the monodomain's setup_phases carry the kernel
+    library's build or load and CUDA's first use as entries of their own
+    (0.0 off CUDA), and a CPU setup never loads the library."""
+    from polydeal_tpu_torch.models.flagship import setup_flagship
+    from polydeal_tpu_torch.models.monodomain import (MonodomainConfig,
+                                                      MonodomainSolver)
+    from polydeal_tpu_torch.ops import _build
+
+    def no_load():
+        raise AssertionError("a CPU setup loaded the kernel library")
+
+    monkeypatch.setattr(_build, "load_library", no_load)
+    cpu = torch.device("cpu")
+    fs = setup_flagship(n=4, device=cpu, dtype=torch.float64,
+                        precond_dtype=None)
+    ms = MonodomainSolver.build(MonodomainConfig(n_refinements=2),
+                                device=cpu)
+    for phases, clocked in (
+            (fs.setup_phases, {"hierarchy", "groups", "assemble0",
+                               "mg_setup"}),
+            (ms.setup_phases, {"hierarchy", "transfers", "assembly",
+                               "mg_setup", "tables"})):
+        assert set(phases) == clocked | {"kernel_load", "cuda_init"}
+        assert phases["kernel_load"] == phases["cuda_init"] == 0.0
