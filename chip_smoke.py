@@ -13,14 +13,19 @@ Phases (each must pass; nothing falls back to the CPU):
      a torch.sparse CSR product of the same band (K1's library yardstick);
      check K3-K5 (volume, face group and boundary SIPG blocks) against
      their plain versions on seeded tables at the flagship's fine-level
-     shapes (p=1, C=1), at a coarse level's (C>1) and at p=2 (nb=10), in
-     f32 and f64, and time both;
+     shapes (p=1, C=1), at a coarse level's (C>1, split over blocks), at
+     p=2 (nb=10), and at 8 lanes at p=2 and p=3 (a lane's points over point
+     ranks, entry ranks sharing staged point values), in f32 and f64, and
+     time both;
   4. a small f64 flagship solve (n=16, every level on the kernels) on the
      card against the same solve on the CPU;
   5. the flagship R3MG Poisson solve at n=64, p=1 (1,048,576 DoF) on the
      card, set up through K3-K5 on every level, which must reach rtol 1e-8
      in 18-22 CG iterations through K1 and K2; then K3-K5 against their
-     plain versions on every level's real f32 tables, timed per level;
+     plain versions on every level's real f32 tables, timed per level
+     beside their bounds, with each level's C, q and launch plan (G, S),
+     and two launches of K3 and K4 bitwise equal on the fine level (S = 1)
+     and the coarsest (S > 1);
   6. the same flagship without the relabel (relabel=None, bench.py's
      BENCH_RELABEL=none arm): the fine level assembled straight into the
      packed format, levels 4096 and 32768 packed, K6 (packed SpMV) and K7
@@ -36,7 +41,9 @@ Phases (each must pass; nothing falls back to the CPU):
      1e-8): 2-5 CG iterations a step, u finite with max u at quadrature in
      (0.01, 2.0), K0-K5 launched, and the integrals of u and u^2 within
      1e-3 of an f64 run of the same steps on the card; then a small f64
-     monodomain (n_refinements=3, five steps) on the card against the CPU.
+     monodomain (n_refinements=3, five steps) on the card against the CPU;
+     K3-K5 on the monodomain's levels (8-262144 lanes, the hierarchy
+     rebuilt as the solver builds it) as on phase 5's.
   8. the sharded solve (ShardedBandedSystem) at world size 1 on a real
      NCCL group: bench.py's bench_sharded configuration (the structured
      n=64 flagship, f32 with bf16 band copies), unsharded (no FMG) and
@@ -70,7 +77,6 @@ Prints the card, a JSON line of per-kernel results, and last
 """
 
 import json
-import math
 import os
 import re
 import shutil
@@ -96,20 +102,9 @@ TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float64": 1e-12}
 # (tests/test_ops.py:182); f64 sums differ by rounding only
 SIPG_TOL = {"float32": 2e-5, "float64": 1e-12}
 
-# NVIDIA's H100 SXM data sheet: HBM rate and peak rates outside the tensor
-# cores, for the bound (least time) of each kernel's work
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
-
-# seeded SIPG tables at the shapes the flagship gives K3-K5 (p=1, 3D, with
-# the lex relabel): (dim, degree, P, (C, q) of the volume, face and boundary
-# groups, a face offset).  "fine" is the 64^3 level, "coarse" the 4096-lane
-# level (C > 1), "p2" the 32768-lane level's shapes at p=2 (nb=10).
-SIPG_SHAPES = {
-    "fine": (3, 1, 64**3, (1, 8), (1, 4), (3, 4), 64),
-    "coarse": (3, 1, 4096, (64, 8), (16, 4), (48, 4), 16),
-    "p2": (3, 2, 32768, (8, 27), (4, 9), (12, 9), 32),
-}
+# bound(nbytes, flops, dtype): the least time of a kernel's work on the
+# card, profile_sipg.bound; main() imports it once the checkout is found
+bound = None
 
 
 def fail(msg: str) -> None:
@@ -149,14 +144,6 @@ def time_one(torch, fn, reps=50):
     fn()
     torch.cuda.synchronize()
     return events_ms(torch, fn, reps)
-
-
-def bound(nbytes: float, flops: float, dtype: str):
-    """(least ms, what bounds it): the bytes the work must move over the
-    HBM rate, or its operations over the peak rate of ``dtype``."""
-    t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def csr_of_slots(torch, data_i, q, live, nb, R_pad, n_cols=None):
@@ -200,30 +187,6 @@ def csr_of_pack(torch, e):
          + e.offsets_t.long()[o.clamp(min=0)])
     live = (o >= 0) & (q >= 0) & (q < P)
     return csr_of_slots(torch, e.data_i, q, live, e.n_basis, e.plan.R_pad)
-
-
-def ptxas_summary(build_log: str) -> list:
-    """One line per compiled kernel: its name (form, type, dim, degree for
-    the SIPG kernels), registers, and the stack and spill report."""
-    out, name, spill = [], None, ""
-    for line in build_log.splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            name = m.group(1)
-            f = (re.search(r"(Volume|Boundary|Face)FormI([fd])Li(\d)ELi(\d)E",
-                           name)
-                 or re.search(r"\d+(\w+_kernel)I(\w+?)EEv", name))
-            if f:
-                name = "<".join(f.groups()[:2]) + "".join(
-                    f", {g}" for g in f.groups()[2:]) + ">"
-            continue
-        if "spill" in line:
-            spill = line.strip()
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.append(f"{name}: {m.group(1)} registers; {spill}")
-            name = None
-    return out
 
 
 def check_kernels(torch, dev):
@@ -319,85 +282,75 @@ def check_kernels(torch, dev):
     return out
 
 
-def sipg_tables(torch, dev, dtype, dim, P, groups, gen):
-    """Seeded tables: unit points in [0, 1), normals, positive weights,
-    face diameters and extents, box origins; one group per (C, q)."""
-    def r(*shape):
-        return torch.rand(*shape, generator=gen, device=dev,
-                          dtype=torch.float64).to(dtype)
-
-    out = [dict(pts_in=r(C, q, dim, P), n=r(C, q, dim, P) - 0.5,
-                w=r(C, q, P), h_f=0.5 + r(C, P)) for C, q in groups]
-    return out, 0.5 + r(dim, P), r(dim, P)
-
-
-def sipg_work(kind, dim, degree, C, q, P, esz):
-    """(bytes, operations) of one K3/K4/K5 call: every input read once and
-    every output written once; operations as the kernel counts them per
-    quadrature point (basis and normal derivatives per side, then each
-    block entry)."""
-    nb = math.comb(degree + dim, dim)
-    legendre = dim * (2 + 7 * (degree - 1) + 2 * (degree + 1))
-    grad = legendre + nb * dim * dim  # real gradients
-    side = grad + nb * (dim - 1) + nb * (2 * dim - 1)  # and phi, dn phi
-    pts = C * q * dim * P
-    if kind == "volume":
-        nbytes = (pts + C * q * P + dim * P + nb * nb * P) * esz
-        per_point = grad + nb * nb * (2 * dim + 1)
-    elif kind == "boundary":  # pts, n, w, h_f, ext; out
-        nbytes = (2 * pts + C * q * P + C * P + dim * P + nb * nb * P) * esz
-        per_point = side + 2 + nb * nb * 8
-    else:  # face: pts, n, w, h_f, ext, lo; four blocks out
-        nbytes = (2 * pts + C * q * P + C * P + 2 * dim * P
-                  + 4 * nb * nb * P) * esz
-        per_point = 2 * side + 4 * dim + 2 + 4 * nb * nb * 11
-    return nbytes, per_point * C * q * P
-
-
 def check_sipg_kernels(torch, dev):
     """Phase 3, K3-K5: against their plain versions on seeded tables at
-    SIPG_SHAPES, f32 and f64; returns per-kernel results at the flagship's
-    fine-level shapes in f32 (the main path's tables)."""
+    SIPG_SHAPES (``models/profile_sipg.py``), f32 and f64, each timed by
+    ``profile_sipg.cold_ms`` (device time, L2 evicted); returns per-kernel
+    results at the flagship's fine-level shapes in f32 (the main path's
+    tables).  The reference is the plain version evaluated in f64 on the
+    same inputs, so that an f32 row measures the kernel's rounding alone:
+    the 8-lane rows sum 9,000-65,000 points a lane, where the f32 plain
+    version's own rounding nears the tolerance (printed beside)."""
+    from polydeal_tpu_torch.models import profile_sipg as ps
     from polydeal_tpu_torch.ops import sipg_kernels as sk
+
+    def f64(d):
+        return {k: v.double() for k, v in d.items()}
 
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {}
-    for label, (dim, deg, P, vq, fq, bq, off) in SIPG_SHAPES.items():
+    for label, (dim, deg, P, vq, fq, bq, off) in ps.SIPG_SHAPES.items():
         pc = 10.0 * (deg + dim) * (deg + 1)
         for dname in ("float32", "float64"):
             dt = getattr(torch, dname)
-            (vol, face, bdry), ext, lo = sipg_tables(torch, dev, dt, dim, P,
-                                                     (vq, fq, bq), gen)
+            (vol, face, bdry), ext, lo = ps.sipg_tables(dev, dt, dim, P,
+                                                        (vq, fq, bq), gen)
             vol = dict(pts=vol["pts_in"], w=vol["w"])
             cases = {
                 "volume_blocks": (
                     lambda: sk.volume_blocks(vol, ext, deg, dim),
-                    lambda: sk.volume_blocks_ref(vol, ext, deg, dim),
+                    lambda up=False: (
+                        sk.volume_blocks_ref(f64(vol), ext.double(), deg, dim)
+                        if up else sk.volume_blocks_ref(vol, ext, deg, dim)),
                     ("volume", vq)),
                 "face_group_blocks": (
-                    lambda: torch.stack(sk.face_group_blocks(
-                        face, ext, lo, off, deg, dim, pc)),
-                    lambda: torch.stack(sk.face_group_blocks_ref(
-                        face, ext, lo, off, deg, dim, pc)),
+                    lambda: sk.face_group_blocks(face, ext, lo, off, deg,
+                                                 dim, pc),
+                    lambda up=False: (
+                        sk.face_group_blocks_ref(f64(face), ext.double(),
+                                                 lo.double(), off, deg, dim,
+                                                 pc) if up else
+                        sk.face_group_blocks_ref(face, ext, lo, off, deg,
+                                                 dim, pc)),
                     ("face", fq)),
                 "boundary_blocks": (
                     lambda: sk.boundary_blocks(bdry, ext, deg, dim, pc),
-                    lambda: sk.boundary_blocks_ref(bdry, ext, deg, dim, pc),
+                    lambda up=False: (
+                        sk.boundary_blocks_ref(f64(bdry), ext.double(), deg,
+                                               dim, pc) if up else
+                        sk.boundary_blocks_ref(bdry, ext, deg, dim, pc)),
                     ("boundary", bq)),
             }
             for name, (kf, pf, (kind, (C, q))) in cases.items():
-                got, ref = kf(), pf()
+                got, ref = ps.blocks(kf()).double(), ps.blocks(pf(up=True))
+                own = ps.blocks(pf()).double()
                 torch.cuda.synchronize()
+                scale = float(ref.abs().max())
                 err = float((got - ref).abs().max())
-                rel = err / float(ref.abs().max())
-                ms, pms = time_pair(torch, kf, pf, reps=20)
-                nbytes, flops = sipg_work(kind, dim, deg, C, q, P,
-                                          got.element_size())
+                rel = err / scale
+                rel_own = float((own - ref).abs().max()) / scale
+                ms, pms = ps.cold_ms(kf), ps.cold_ms(pf, reps=3)
+                nbytes, flops = ps.sipg_work(kind, dim, deg, C, q, P,
+                                             dt.itemsize)
                 b_ms, b_by = bound(nbytes, flops, dname)
-                log(f"  {name} {label} {dname} (P={P}, C={C}, q={q}): "
-                    f"max_abs_err={err:.3e} rel={rel:.3e} (tol "
-                    f"{SIPG_TOL[dname]:g}); {ms:.4f} ms (plain {pms:.4f}; "
-                    f"bound {b_ms:.4f}, {b_by}: {nbytes / 1e6:.1f} MB, "
+                pl = sk.sipg_launch_plan(P, C, q,
+                                         sk.sipg_form(kind, dim, deg, dt))
+                log(f"  {name} {label} {dname} (P={P}, C={C}, q={q}; "
+                    f"lanes/block {pl.lanes}, ranks {pl.ranks}, G {pl.G}, "
+                    f"S {pl.S}): max_abs_err={err:.3e} rel={rel:.3e} (tol "
+                    f"{SIPG_TOL[dname]:g}; the {dname} plain version's "
+                    f"{rel_own:.3e}); {ms:.4f} ms (plain {pms:.4f}; bound "
+                    f"{b_ms:.4f}, {b_by}: {nbytes / 1e6:.1f} MB, "
                     f"{flops / 1e9:.3f} GFLOP)")
                 if not rel <= SIPG_TOL[dname]:
                     fail(f"{name} {label} {dname} disagrees with its plain "
@@ -406,60 +359,59 @@ def check_sipg_kernels(torch, dev):
                     out[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                      bound_ms=b_ms, bound_by=b_by,
                                      library_ms=None)
-                del got, ref
+                del got, ref, own
             del vol, face, bdry
             torch.cuda.empty_cache()
     return out
 
 
-def level_sipg_check(torch, fs, dev):
-    """Phase 5, after the main path: K3-K5 against their plain versions on
-    every flagship level's real f32 tables, with each level's C and the
-    kernels' time (CUDA events, 10 calls each)."""
-    from polydeal_tpu_torch.assembly.sipg import (build_banded_groups,
-                                                  default_penalty_constant)
+def level_sipg_check(torch, handlers, dev, label):
+    """After a main path: K3-K5 against their plain versions on every
+    level's real f32 tables of ``handlers``; per level and kind the
+    kernels' device time (``profile_sipg.cold_ms``), bound, share, C, q and
+    the launch plans (lanes a block, G, S); two launches of K3 and of K4
+    bitwise equal on the finest level (S = 1) and on the coarsest (S >
+    1)."""
+    from polydeal_tpu_torch.models import profile_sipg as ps
     from polydeal_tpu_torch.ops import sipg_kernels as sk
 
-    for h in fs.handlers:
-        ft = h.faces
-        interior = ~ft.is_boundary
-        diffs = (ft.poly_out - ft.poly_in)[interior].astype("int64")
-        offs = sorted({0, *diffs.tolist(), *(-diffs).tolist()})
-        t = build_banded_groups(h, offs, torch.float32, device=dev)
-        pc = default_penalty_constant(h.degree, h.dim)
-        ext, lo, deg, dim = t["ext_t"], t["lo_t"], h.degree, h.dim
-        calls = {"volume": [(lambda: sk.volume_blocks(t["vol"], ext, deg,
-                                                      dim),
-                             lambda: sk.volume_blocks_ref(t["vol"], ext, deg,
-                                                          dim))],
-                 "boundary": [(lambda: sk.boundary_blocks(
-                     t["bdry"], ext, deg, dim, pc),
-                     lambda: sk.boundary_blocks_ref(t["bdry"], ext, deg, dim,
-                                                    pc))],
-                 "face": [(lambda g=g, o=o: torch.stack(sk.face_group_blocks(
-                     g, ext, lo, o, deg, dim, pc)),
-                     lambda g=g, o=o: torch.stack(sk.face_group_blocks_ref(
-                         g, ext, lo, o, deg, dim, pc)))
-                     for o, g in t["groups"].items()]}
-        worst, times = 0.0, {}
-        for kind, pairs in calls.items():
-            times[kind] = 0.0
-            for kf, pf in pairs:
-                got, ref = kf(), pf()
+    for li, h in enumerate(handlers):
+        t, pc = ps.level_tables(h, torch.float32, dev)
+        deg, dim = h.degree, h.dim
+        kern = ps.kernel_calls(t, pc, deg, dim)
+        plain = ps.kernel_calls(t, pc, deg, dim, plain=True)
+        worst = 0.0
+        for kind in ps.KINDS:
+            for kf, pf in zip(kern[kind], plain[kind]):
+                got, ref = ps.blocks(kf()), ps.blocks(pf())
                 rel = float((got - ref).abs().max()) / float(
                     ref.abs().max())
                 worst = max(worst, rel)
-                times[kind] += time_one(torch, kf, reps=10)
-        Cs = (t["vol"]["w"].shape[0],
-              max(g["w"].shape[0] for g in t["groups"].values()),
-              t["bdry"]["w"].shape[0])
-        log(f"  level P={h.n_poly}: C volume/face/boundary {Cs}, "
-            f"{len(t['groups'])} face groups; kernel ms volume "
-            f"{times['volume']:.4f}, faces {times['face']:.4f}, boundary "
-            f"{times['boundary']:.4f}; worst rel err {worst:.3e}")
+                if li in (0, len(handlers) - 1) and kind != "boundary":
+                    if not torch.equal(got, ps.blocks(kf())):
+                        fail(f"{label} P={h.n_poly}: two {kind} launches "
+                             "differ")
+                del got, ref
+        rows = ps.level_rows(t, pc, deg, dim)
+        S = {}
+        for kind, r in rows.items():
+            plans = set()
+            for g in ps.table_groups(t)[kind]:
+                C, q, P = g["w"].shape
+                pl = sk.sipg_launch_plan(P, C, q, sk.sipg_form(
+                    kind, dim, deg, g["w"].dtype))
+                plans.add((pl.lanes, pl.G, pl.S))
+            S[kind] = max(s_ for _, _, s_ in plans)
+            log(f"{ps.format_row(label, kind, r)}; plan (lanes a block, G, "
+                f"S) {', '.join(map(str, sorted(plans)))}")
+        same = ""
+        if li in (0, len(handlers) - 1):
+            same = (f"; two launches of K3 (S {S['volume']}) and K4 (S "
+                    f"{S['face']}) bitwise equal")
+        log(f"  {label} P={h.n_poly}: worst rel err {worst:.3e}{same}")
         if not worst <= SIPG_TOL["float32"]:
-            fail(f"K3-K5 disagree with their plain versions at level "
-                 f"P={h.n_poly}: rel {worst:.3e}")
+            fail(f"K3-K5 disagree with their plain versions on {label} "
+                 f"level P={h.n_poly}: rel {worst:.3e}")
         del t
         torch.cuda.empty_cache()
 
@@ -1000,6 +952,9 @@ def phase7(torch, dev, k0, k2):
         check_k2(torch, f"monodomain {e.n_block_rows}-lane", e, k2)
     del ms, u, w
     torch.cuda.empty_cache()
+    from polydeal_tpu_torch.models.profile_sipg import mono_handlers
+    level_sipg_check(torch, mono_handlers(bench_config(6)), dev,
+                     "monodomain")
 
     ref = MonodomainSolver.build(bench_config(6), dtype=torch.float64,
                                  relabel="lex", device=dev)
@@ -1392,8 +1347,10 @@ def main() -> int:
               "polydeal_tpu_torch package is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    global bound
     from polydeal_tpu_torch.models.flagship import (setup_flagship,
                                                     solve_flagship)
+    from polydeal_tpu_torch.models.profile_sipg import bound, ptxas_summary
     from polydeal_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
@@ -1488,7 +1445,7 @@ def main() -> int:
     del res64
     check_halo_cuts(torch, "lex flagship fine", fs.mg.ells[-1])
     check_halo_cuts(torch, "lex flagship fine bf16 copy", fs.mg.lo_ells[-1])
-    level_sipg_check(torch, fs, dev)
+    level_sipg_check(torch, fs.handlers, dev, "lex flagship")
     # K0 and fused K0 serve the 4096-lane level (no i-major copy): its f32
     # band (the FMG residuals) and the bf16 copy the smoother runs on; K2
     # the bf16 copies of the 32768- and 262144-lane levels

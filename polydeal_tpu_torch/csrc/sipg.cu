@@ -12,16 +12,18 @@
 //   pts, n [C, Q, DIM, P]; w [C, Q, P]; h_f [C, P]; ext, lo [DIM, P].
 // Padded slots carry pts = 0.5, w = 0 and h_f = 1, so they add exact zeros;
 // no slot is skipped by testing its weight, and nothing divides by one.
-//   K3  out[i*nb + j, p] = sum_{c,q} w * sum_d dphi_i/dx_d * dphi_j/dx_d
-//   K5  out[i*nb + j, p] = sum_{c,q} w * (-phi_i dnphi_j - dnphi_i phi_j
-//                                         + gamma phi_i phi_j)
-//   K4  out[k, i*nb + j, p] for k = m11, m12, m21, m22, where i lives on
-//       side X = k / 2 and j on side Y = k % 2 (side 0 is polytope p, side 1
-//       its neighbour p + offset):
-//       sum_{c,q} w * (a dnphiX_i phiY_j + b phiX_i dnphiY_j
-//                      + c gamma phiX_i phiY_j),
-//       a = Y ? 1/2 : -1/2, b = X ? 1/2 : -1/2, c = X == Y ? 1 : -1
-//       (reference poly_utils.h:1870-1926).
+// A lane's N = C * Q quadrature points are n = c * Q + q.
+//   K3  out[i*nb + j, p] = sum_n w * sum_d dphi_i/dx_d * dphi_j/dx_d
+//   K5  out[i*nb + j, p] = sum_n w * (-phi_i dnphi_j - dnphi_i phi_j
+//                                     + gamma phi_i phi_j)
+//   K4  out[k, i*nb + j, p] for k = m11, m12, m21, m22 (reference
+//       poly_utils.h:1870-1926): with beta = [phi0; -phi1] the signed
+//       traces of both sides (side 0 is polytope p, side 1 its neighbour
+//       p + offset) and g = [dnphi0; dnphi1], the four blocks are the one
+//       symmetric 2nb x 2nb matrix
+//         M = sum_n w * (-1/2 (g beta^T + beta g^T) + gamma beta beta^T),
+//       m11 = M[0:nb, 0:nb], m12 = M[0:nb, nb:], m21 = m12^T, m22 = M[nb:,
+//       nb:].
 // gamma = penalty / h_f.  K4's side-1 unit points are the side-0 physical
 // points pulled back into the box of lane (p + offset) mod P: the wrap of
 // torch.roll, so wrapped lanes stay finite and vanish against zero weights.
@@ -30,41 +32,66 @@
 // compile-time constant, so every (i, d) loop unrolls, and gradients are
 // scaled by 1/extent.
 //
-// What bounds it on an H100 (3.35 TB/s; 67 TFLOP/s f32, 34 f64): at p = 1
-// memory.  At the flagship fine level (nb = 4, C = 1, P = 262144) K3 moves
-// 204 B a lane (53.5 MB, 16 us) and K4 396 B a lane per offset (104 MB,
-// 31 us, mostly its 4 * 16 f32 outputs), against a few hundred flops a
-// quadrature point.  At p = 2 (nb = 10) K4 does 400 block entries of about
-// ten flops a point, and its arithmetic comes close to its bytes.  The
-// design does what that needs and no more: lanes map to threads, so every
-// table load and every output store coalesces along p; each input is read
-// once; each output is written once, from registers, never accumulated in
-// device memory (the wrapper allocates it with torch.empty).  The whole
-// (c, q) loop of a lane runs inside its thread(s), so no sum crosses a
-// block: this replaces the TPU's accumulating inner grid dimension over C.
+// Symmetric accumulation.  Every form is a symmetric M x M matrix (M = nb
+// for K3 and K5, 2 nb for K4) summed over points, so a lane accumulates only
+// its E = M (M + 1) / 2 upper-triangle entries (a <= b) and writes each to
+// both of its places at the end: 10 of 16 accumulators for K3/K5 and 36 of
+// 64 for K4 at p = 1 (3D), 55 / 210 at p = 2, 210 / 820 at p = 3.  m21 is
+// m12^T and m11, m22 are symmetric bit for bit.  Per point a form stages
+// vectors from which an entry is two FMAs (K4/K5: beta, u = -w g / 2 and
+// u + w gamma beta, entry u_a beta_b + beta_a u_b + w gamma beta_a beta_b)
+// or dim FMAs (K3: w grad phi and grad phi).
 //
-// Registers: a form's entries come in rows of nb (K3, K5: rows i; K4: rows
-// (k, i)), and a thread holds whole rows, at most kMaxAccRegs registers of
-// accumulators (or one row).  Forms with more (K4 at p >= 2: 400 entries at
-// nb = 10, 1600 at nb = 20; K3/K5 at nb >= 10; f64 sooner) split the rows
-// across G threads of a lane group.  Rank 0 of the group evaluates the
-// lane's per-point values (basis, normal derivatives, w, w*gamma) into
-// shared memory and every rank accumulates its rows from there; the column
-// j of an entry is a compile-time constant, so a row reads shared memory at
-// one runtime base plus constant offsets.  With G = 1 everything stays in
-// registers.
-// Occupancy: coarse levels have few lanes and long (c, q) loops (512 lanes,
-// C up to 512 at the flagship's coarsest level); splitting C across threads
-// is left for later.
+// What bounds each form on an H100 (3.35 TB/s; 67 TFLOP/s f32, 34 f64),
+// and what the design does about it:
+// * The fine level (C = 1, 262144 lanes at n = 64) is memory: K3 moves
+//   204 B a lane (16 us), K4 396 B a lane per offset (31 us, mostly its
+//   4 * 16 f32 outputs), against a few hundred flops a point.  One thread
+//   a lane, lanes along threadIdx.x, so every table load and output store
+//   coalesces along p; each input read once, each output written once from
+//   registers.  With 36 accumulators in place of 64, K4 fits 128
+//   registers (__launch_bounds__ minimum 2 blocks of 256 per SM, where 64
+//   accumulators took 198 registers and one block); the next point's
+//   table loads are issued before the current point's arithmetic (register
+//   double-buffering), which covers their latency with few lanes in flight.
+// * Coarse levels are occupancy: few lanes (down to 8) and long point loops
+//   (C up to 32768 cells a lane).  A lane's points are split over G point
+//   ranks, threads of one block in different warps taking interleaved
+//   points, and over S blocks (gridDim.y) taking contiguous ranges; the G
+//   partials are summed through shared memory in rank order at the end
+//   (entry t by point rank t mod G, which also stores it, so the stores
+//   spread over all warps), the S partials are written to a workspace
+//   [S, E, P] that a second
+//   kernel (partials_kernel) sums in block order into the output layout:
+//   the accumulation over the TPU's sequential C grid dimension.  No
+//   atomics, so the output is the same bit for bit from run to run.
+// * p >= 2 is arithmetic as much as memory (K4 210 entries a point at
+//   p = 2).  The E entries are split over RE entry ranks (enough that a
+//   thread holds at most kMaxAccRegs registers of accumulators; each rank's
+//   entries are compile-time constants, by a uniform switch on the rank).
+//   With RE > 1 at p >= 2 the block stages the values of a chunk of points
+//   for its lanes in shared memory, double-buffered, with one barrier per
+//   chunk, and every rank accumulates its entries from there.  Elsewhere
+//   (p = 1, or one entry rank) each thread evaluates the point values it
+//   needs itself: no shared memory, no barrier per point.
+// No tensor cores: the f32 band is sensitive to single ulps (gamma below).
+// The launch plan (lanes a block holds L, point ranks G, blocks a lane S)
+// is chosen in Python (ops/sipg_kernels.py sipg_launch_plan) from what
+// pd_sipg_form_info reports of the form (E, RE, threads a block), and
+// checked here: L and G powers of two, L * RE * G the block.  The staged
+// chunk is sized here, from the bytes of shared memory the plan allows.
 //
 // Types: f32 and f64 tables; accumulation in the table type.  Index
 // arithmetic is 64-bit.  Plain C interface for ctypes (built by
 // polydeal_tpu_torch/ops/_build.py): each entry point launches on the given
-// stream and returns cudaGetLastError() (0 on success), or -1 for a type,
-// dimension or degree it was not built for.
+// stream and returns cudaGetLastError() (0 on success), -1 for a type,
+// dimension or degree it was not built for, or -2 for a plan it cannot
+// run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -72,6 +99,8 @@ enum DType { F32 = 0, F64 = 1 };
 
 constexpr int kThreads = 256;    // threads per block
 constexpr int kMaxAccRegs = 64;  // accumulator registers one thread holds
+constexpr int kRed = 8;          // accumulators summed over ranks per round
+constexpr size_t kSmemBlock = 227 * 1024;  // shared memory a block may use
 
 __host__ __device__ constexpr int binom(int n, int k) {
   int r = 1;
@@ -103,6 +132,23 @@ struct Exponents {
         ++a[d];
       }
     }
+  }
+};
+
+// The upper triangle (a <= b) of an M x M matrix, row by row: entry k of a
+// symmetric form is (a[k], b[k]).
+template <int M>
+struct Triangle {
+  static constexpr int E = M * (M + 1) / 2;
+  int a[E], b[E];
+  __host__ __device__ constexpr Triangle() : a{}, b{} {
+    int k = 0;
+    for (int i = 0; i < M; ++i)
+      for (int j = i; j < M; ++j) {
+        a[k] = i;
+        b[k] = j;
+        ++k;
+      }
   }
 };
 
@@ -158,19 +204,21 @@ struct Basis {
 };
 
 // --- the three forms ------------------------------------------------------
-// Each form gives: kValues per-point values and kRows rows of NB output
-// entries per lane (entry (row, j) is output row row * NB + j); Args (table
-// pointers and scalars); Lane, what a lane reads once; eval(), which
-// computes one (c, q) point's values and hands value k to put(k, value);
-// entry(), the contribution of one point to entry (row, j) from those
-// values (get(k) returns value k).
+// Each form gives: M (its symmetric matrix is M x M; NS sides of NB rows),
+// kValues per-point values; Args (table pointers and scalars); Lane, what a
+// lane reads once; Raw, a point's table entries, and load(), which reads
+// them; values(), which computes a point's values from them and hands
+// value k to put(k, value); entry(), which adds one point's contribution to
+// entry (a, b) from those values (get(k) returns value k).
 
 template <typename T_, int DIM, int DEG>
 struct VolumeForm {  // K3
   using T = T_;
+  static constexpr int kDegree = DEG;
   static constexpr int NB = binom(DEG + DIM, DIM);
-  static constexpr int kValues = NB * DIM + 1;  // real gradients, w
-  static constexpr int kRows = NB;
+  static constexpr int NS = 1;
+  static constexpr int M = NB;
+  static constexpr int kValues = 2 * NB * DIM;  // w grad phi, grad phi
   struct Args {
     const T* pts;
     const T* w;
@@ -178,6 +226,10 @@ struct VolumeForm {  // K3
   };
   struct Lane {
     T inv[DIM];
+  };
+  struct Raw {
+    T x[DIM];
+    T w;
   };
 
   __device__ __forceinline__ static Lane lane(const Args& a, int64_t p,
@@ -188,28 +240,37 @@ struct VolumeForm {  // K3
     return l;
   }
 
-  template <class Put>
-  __device__ __forceinline__ static void eval(const Args& a, const Lane& l,
-                                              int64_t cq, int c, int64_t p,
-                                              int64_t P, const Put& put) {
-    T x[DIM];
+  __device__ __forceinline__ static Raw load(const Args& a, int n, int Q,
+                                             int64_t p, int64_t P) {
+    Raw r;
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) x[d] = a.pts[(cq * DIM + d) * P + p];
+    for (int d = 0; d < DIM; ++d)
+      r.x[d] = a.pts[(static_cast<int64_t>(n) * DIM + d) * P + p];
+    r.w = a.w[static_cast<int64_t>(n) * P + p];
+    return r;
+  }
+
+  template <class Put>
+  __device__ __forceinline__ static void values(const Args&, const Lane& l,
+                                                const Raw& r,
+                                                const Put& put) {
     T B[NB], G[NB][DIM];
-    Basis<T, DIM, DEG>::eval(x, l.inv, B, G);
+    Basis<T, DIM, DEG>::eval(r.x, l.inv, B, G);
 #pragma unroll
     for (int i = 0; i < NB; ++i)
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) put(i * DIM + d, G[i][d]);
-    put(NB * DIM, a.w[cq * P + p]);
+      for (int d = 0; d < DIM; ++d) {
+        put(i * DIM + d, r.w * G[i][d]);
+        put(NB * DIM + i * DIM + d, G[i][d]);
+      }
   }
 
   template <class Get>
-  __device__ __forceinline__ static T entry(const Get& v, int i, int j) {
-    T s = v(i * DIM) * v(j * DIM);
+  __device__ __forceinline__ static void entry(const Get& v, int a, int b,
+                                               T& acc) {
 #pragma unroll
-    for (int d = 1; d < DIM; ++d) s += v(i * DIM + d) * v(j * DIM + d);
-    return s * v(NB * DIM);
+    for (int d = 0; d < DIM; ++d)
+      acc = fma(v(a * DIM + d), v(NB * DIM + b * DIM + d), acc);
   }
 };
 
@@ -229,11 +290,15 @@ __device__ __forceinline__ double penalty_over(double penalty, double h_f) {
   return penalty / h_f;
 }
 
-// phi_i and dnphi_i = grad phi_i . n at one point, for one side
-template <typename T, int DIM, int DEG, class Put>
+// The staged vectors of K4 and K5 for one side at one point: beta_i =
+// sign * phi_i at value base + i, u_i = -w/2 dnphi_i (K4) or -w dnphi_i
+// (K5) at M + base + i, and u_i + w gamma beta_i at 2 M + base + i, where
+// dnphi_i = grad phi_i . n.  Entry (a, b) is then u2_a beta_b + beta_a u_b.
+template <typename T, int DIM, int DEG, int M, class Put>
 __device__ __forceinline__ void side_values(const T (&x)[DIM],
                                             const T (&inv)[DIM],
                                             const T (&nrm)[DIM], int base,
+                                            T sign, T wu, T wg,
                                             const Put& put) {
   constexpr int NB = Basis<T, DIM, DEG>::NB;
   T B[NB], G[NB][DIM];
@@ -243,17 +308,30 @@ __device__ __forceinline__ void side_values(const T (&x)[DIM],
     T gn = G[i][0] * nrm[0];
 #pragma unroll
     for (int d = 1; d < DIM; ++d) gn += G[i][d] * nrm[d];
-    put(base + i, B[i]);
-    put(base + NB + i, gn);
+    const T beta = sign * B[i];
+    const T u = wu * gn;
+    put(base + i, beta);
+    put(M + base + i, u);
+    put(2 * M + base + i, fma(wg, beta, u));
   }
+}
+
+// entry (a, b) of K4 and K5 from side_values' vectors
+template <int M, typename T, class Get>
+__device__ __forceinline__ void trace_entry(const Get& v, int a, int b,
+                                            T& acc) {
+  acc = fma(v(2 * M + a), v(b), acc);
+  acc = fma(v(a), v(M + b), acc);
 }
 
 template <typename T_, int DIM, int DEG>
 struct BoundaryForm {  // K5
   using T = T_;
+  static constexpr int kDegree = DEG;
   static constexpr int NB = binom(DEG + DIM, DIM);
-  static constexpr int kValues = 2 * NB + 2;  // phi, dnphi, w, w*gamma
-  static constexpr int kRows = NB;
+  static constexpr int NS = 1;
+  static constexpr int M = NB;
+  static constexpr int kValues = 3 * M;
   struct Args {
     const T* pts;
     const T* n;
@@ -265,6 +343,10 @@ struct BoundaryForm {  // K5
   struct Lane {
     T inv[DIM];
   };
+  struct Raw {
+    T x[DIM], nrm[DIM];
+    T w, h_f;
+  };
 
   __device__ __forceinline__ static Lane lane(const Args& a, int64_t p,
                                               int64_t P) {
@@ -274,38 +356,42 @@ struct BoundaryForm {  // K5
     return l;
   }
 
-  template <class Put>
-  __device__ __forceinline__ static void eval(const Args& a, const Lane& l,
-                                              int64_t cq, int c, int64_t p,
-                                              int64_t P, const Put& put) {
-    T x[DIM], nrm[DIM];
+  __device__ __forceinline__ static Raw load(const Args& a, int n, int Q,
+                                             int64_t p, int64_t P) {
+    Raw r;
 #pragma unroll
     for (int d = 0; d < DIM; ++d) {
-      x[d] = a.pts[(cq * DIM + d) * P + p];
-      nrm[d] = a.n[(cq * DIM + d) * P + p];
+      r.x[d] = a.pts[(static_cast<int64_t>(n) * DIM + d) * P + p];
+      r.nrm[d] = a.n[(static_cast<int64_t>(n) * DIM + d) * P + p];
     }
-    side_values<T, DIM, DEG>(x, l.inv, nrm, 0, put);
-    const T w = a.w[cq * P + p];
-    const T gamma =
-        penalty_over(a.penalty, a.h_f[static_cast<int64_t>(c) * P + p]);
-    put(2 * NB, w);
-    put(2 * NB + 1, w * gamma);
+    r.w = a.w[static_cast<int64_t>(n) * P + p];
+    r.h_f = a.h_f[static_cast<int64_t>(n / Q) * P + p];
+    return r;
+  }
+
+  template <class Put>
+  __device__ __forceinline__ static void values(const Args& a, const Lane& l,
+                                                const Raw& r,
+                                                const Put& put) {
+    const T wg = r.w * penalty_over(a.penalty, r.h_f);
+    side_values<T, DIM, DEG, M>(r.x, l.inv, r.nrm, 0, T(1), -r.w, wg, put);
   }
 
   template <class Get>
-  __device__ __forceinline__ static T entry(const Get& v, int i, int j) {
-    const T bi = v(i), bj = v(j), gi = v(NB + i), gj = v(NB + j);
-    return v(2 * NB) * (-(bi * gj) - gi * bj) + v(2 * NB + 1) * bi * bj;
+  __device__ __forceinline__ static void entry(const Get& v, int a, int b,
+                                               T& acc) {
+    trace_entry<M>(v, a, b, acc);
   }
 };
 
 template <typename T_, int DIM, int DEG>
 struct FaceForm {  // K4
   using T = T_;
+  static constexpr int kDegree = DEG;
   static constexpr int NB = binom(DEG + DIM, DIM);
-  // phi0, dnphi0, phi1, dnphi1, w, w*gamma
-  static constexpr int kValues = 4 * NB + 2;
-  static constexpr int kRows = 4 * NB;  // (k, i)
+  static constexpr int NS = 2;
+  static constexpr int M = 2 * NB;
+  static constexpr int kValues = 3 * M;
   struct Args {
     const T* pts;
     const T* n;
@@ -319,6 +405,7 @@ struct FaceForm {  // K4
   struct Lane {
     T lo0[DIM], ext0[DIM], inv0[DIM], lo1[DIM], ext1[DIM], inv1[DIM];
   };
+  using Raw = typename BoundaryForm<T, DIM, DEG>::Raw;
 
   __device__ __forceinline__ static Lane lane(const Args& a, int64_t p,
                                               int64_t P) {
@@ -336,178 +423,369 @@ struct FaceForm {  // K4
     return l;
   }
 
+  __device__ __forceinline__ static Raw load(const Args& a, int n, int Q,
+                                             int64_t p, int64_t P) {
+    const typename BoundaryForm<T, DIM, DEG>::Args b{a.pts, a.n,   a.w,
+                                                     a.h_f, a.ext, 0.0};
+    return BoundaryForm<T, DIM, DEG>::load(b, n, Q, p, P);
+  }
+
   template <class Put>
-  __device__ __forceinline__ static void eval(const Args& a, const Lane& l,
-                                              int64_t cq, int c, int64_t p,
-                                              int64_t P, const Put& put) {
-    T x0[DIM], x1[DIM], nrm[DIM];
+  __device__ __forceinline__ static void values(const Args& a, const Lane& l,
+                                                const Raw& r,
+                                                const Put& put) {
+    T x1[DIM];
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      x0[d] = a.pts[(cq * DIM + d) * P + p];
-      nrm[d] = a.n[(cq * DIM + d) * P + p];
-      // the same physical point in the neighbour's unit box
-      x1[d] = (l.lo0[d] + x0[d] * l.ext0[d] - l.lo1[d]) / l.ext1[d];
-    }
-    side_values<T, DIM, DEG>(x0, l.inv0, nrm, 0, put);
-    side_values<T, DIM, DEG>(x1, l.inv1, nrm, 2 * NB, put);
-    const T w = a.w[cq * P + p];
-    const T gamma =
-        penalty_over(a.penalty, a.h_f[static_cast<int64_t>(c) * P + p]);
-    put(4 * NB, w);
-    put(4 * NB + 1, w * gamma);
+    for (int d = 0; d < DIM; ++d)  // the same physical point, neighbour box
+      x1[d] = (l.lo0[d] + r.x[d] * l.ext0[d] - l.lo1[d]) / l.ext1[d];
+    const T wg = r.w * penalty_over(a.penalty, r.h_f);
+    const T wu = T(-0.5) * r.w;
+    side_values<T, DIM, DEG, M>(r.x, l.inv0, r.nrm, 0, T(1), wu, wg, put);
+    side_values<T, DIM, DEG, M>(x1, l.inv1, r.nrm, NB, T(-1), wu, wg, put);
   }
 
   template <class Get>
-  __device__ __forceinline__ static T entry(const Get& v, int row, int j) {
-    const int k = row / NB, i = row % NB;
-    const int X = k >> 1, Y = k & 1;
-    const T bi = v(2 * NB * X + i), gi = v(2 * NB * X + NB + i);
-    const T bj = v(2 * NB * Y + j), gj = v(2 * NB * Y + NB + j);
-    const T a = Y ? T(0.5) : T(-0.5);
-    const T b = X ? T(0.5) : T(-0.5);
-    const T s = (X == Y) ? T(1) : T(-1);
-    return v(4 * NB) * (a * gi * bj + b * bi * gj) +
-           s * v(4 * NB + 1) * bi * bj;
+  __device__ __forceinline__ static void entry(const Get& v, int a, int b,
+                                               T& acc) {
+    trace_entry<M>(v, a, b, acc);
   }
 };
 
 // --- one kernel for the three forms -----------------------------------------
 
-template <class F>
-__host__ __device__ constexpr int ranks_of() {
-  // threads per lane: enough that each holds kMaxAccRegs registers of
-  // accumulators, or one row
-  constexpr int cap =
-      kMaxAccRegs * 4 / static_cast<int>(sizeof(typename F::T));
-  int g = 1;
-  while ((F::kRows + g - 1) / g > 1 && (F::kRows + g - 1) / g * F::NB > cap)
-    g *= 2;
-  return g;
+__host__ __device__ constexpr int entry_ranks(int entries, int cap) {
+  // entry ranks: the least power of two that leaves a thread at most cap
+  // accumulators
+  int r = 1;
+  while ((entries + r - 1) / r > cap) r *= 2;
+  return r;
 }
 
+// How a form's E distinct entries split over RE entry ranks of PER each,
+// and how it runs: staged (point values through shared memory, shared by
+// the entry ranks) at p >= 2 where there is more than one entry rank; else
+// each thread evaluates its own points.  At p = 1 in f32 a thread keeps to
+// 128 registers (two blocks an SM).
 template <class F>
-__global__ void __launch_bounds__(kThreads)
-    blocks_kernel(const typename F::Args a, int C, int Q, int64_t P,
-                  typename F::T* __restrict__ out) {
+struct Split {
   using T = typename F::T;
-  constexpr int NB = F::NB;
-  constexpr int G = ranks_of<F>();
-  constexpr int L = kThreads / G;  // lanes per block
-  constexpr int RT = (F::kRows + G - 1) / G;  // rows per thread
-  static_assert(kThreads % G == 0, "a lane group must divide the block");
-  const int lane = threadIdx.x % L;
-  const int rank = threadIdx.x / L;
+  static constexpr int E = F::M * (F::M + 1) / 2;
+  static constexpr int RE =
+      entry_ranks(E, kMaxAccRegs * 4 / static_cast<int>(sizeof(T)));
+  static constexpr int PER = (E + RE - 1) / RE;
+  static constexpr bool kStaged = F::kDegree >= 2 && RE > 1;
+  static constexpr int kMinBlocks = (F::kDegree == 1 && sizeof(T) == 4) ? 2
+                                                                        : 1;
+  static_assert(kThreads % RE == 0, "entry ranks must divide the block");
+};
+
+// Output row of entry (a, b): block (a / NB, b / NB) of the NS x NS
+// blocks, row (a % NB) * NB + b % NB within it.
+template <class F>
+__host__ __device__ constexpr int out_row(int a, int b) {
+  return ((a / F::NB) * F::NS + b / F::NB) * F::NB * F::NB +
+         (a % F::NB) * F::NB + b % F::NB;
+}
+
+// Calls fn(std::integral_constant<int, R>) for R = e: a uniform switch on
+// the entry rank, so each rank's entries are compile-time constants.
+template <class F, int R = 0, class Fn>
+__device__ __forceinline__ void with_rank(int e, const Fn& fn) {
+  if constexpr (R < Split<F>::RE) {
+    if (e == R)
+      fn(std::integral_constant<int, R>{});
+    else
+      with_rank<F, R + 1>(e, fn);
+  }
+}
+
+template <class F, int R>
+struct Rank {  // entries [E0, E0 + NE) of entry rank R
+  static constexpr int E0 = R * Split<F>::PER;
+  static constexpr int NE = Split<F>::E - E0 < Split<F>::PER
+                                ? Split<F>::E - E0
+                                : Split<F>::PER;
+};
+
+template <class F, int R, class Get>
+__device__ __forceinline__ void accumulate(
+    typename F::T (&acc)[Split<F>::PER], const Get& v) {
+  constexpr Triangle<F::M> tri{};
+  using K = Rank<F, R>;
+#pragma unroll
+  for (int t = 0; t < K::NE; ++t)
+    F::entry(v, tri.a[K::E0 + t], tri.b[K::E0 + t], acc[t]);
+}
+
+// rank R's sums: into the output layout (both places of entry (a, b)), or
+// into this block's rows of the workspace [S, E, P] (ws points at them);
+// point rank g of G stores the entries t = g mod G
+template <class F, int R>
+__device__ __forceinline__ void store(
+    const typename F::T (&acc)[Split<F>::PER], typename F::T* out,
+    typename F::T* ws, int64_t p, int64_t P, int G, int g) {
+  constexpr Triangle<F::M> tri{};
+  using K = Rank<F, R>;
+#pragma unroll
+  for (int t = 0; t < K::NE; ++t) {
+    if (G > 1 && (t & (G - 1)) != g) continue;
+    if (ws != nullptr) {
+      ws[static_cast<int64_t>(K::E0 + t) * P + p] = acc[t];
+    } else {
+      const int a = tri.a[K::E0 + t], b = tri.b[K::E0 + t];
+      out[static_cast<int64_t>(out_row<F>(a, b)) * P + p] = acc[t];
+      if (a != b) out[static_cast<int64_t>(out_row<F>(b, a)) * P + p] = acc[t];
+    }
+  }
+}
+
+// staged values: per lane CH points of kValues, at an odd stride (in
+// elements) so that the lanes of a warp fall in different banks
+__host__ __device__ constexpr int64_t lane_stride(int CH, int values) {
+  return (static_cast<int64_t>(CH) * values) | 1;
+}
+
+// Thread t of a block: lane t % L (lanes p along threadIdx.x), rank
+// r = t / L = e * G + g: entry rank e, point rank g (a warp holds one entry
+// rank, also where L < 32).  Block (x, s) holds
+// lanes [x L, x L + L) and points [s N / S, (s + 1) N / S) of each; point
+// rank g takes every G-th of those from the g-th.  Every thread passes every
+// barrier: lanes past P carry zeros.
+template <class F>
+__global__ void __launch_bounds__(kThreads, Split<F>::kMinBlocks)
+    blocks_kernel(const typename F::Args a, int Q, int N, int64_t P, int L,
+                  int G, int CH, typename F::T* __restrict__ out,
+                  typename F::T* __restrict__ ws) {
+  using T = typename F::T;
+  using S = Split<F>;
+  __shared__ T red[kRed][kThreads];
+  // L and G are powers of two: shifts and masks, not divisions
+  const int lane = threadIdx.x & (L - 1);
+  const int r = threadIdx.x >> (__ffs(L) - 1);
+  const int e = r >> (__ffs(G) - 1);
+  const int g = r & (G - 1);
   const int64_t p = static_cast<int64_t>(blockIdx.x) * L + lane;
   const bool live = p < P;
-  T acc[RT][NB];
+  int n0 = 0, n1 = N;
+  if (gridDim.y > 1) {
+    n0 = static_cast<int>(static_cast<int64_t>(blockIdx.y) * N / gridDim.y);
+    n1 = static_cast<int>(static_cast<int64_t>(blockIdx.y + 1) * N /
+                          gridDim.y);
+  }
+  T acc[S::PER];
 #pragma unroll
-  for (int t = 0; t < RT; ++t)
-#pragma unroll
-    for (int j = 0; j < NB; ++j) acc[t][j] = T(0);
+  for (int t = 0; t < S::PER; ++t) acc[t] = T(0);
 
-  if constexpr (G == 1) {
-    if (!live) return;
-    const typename F::Lane l = F::lane(a, p, P);
-    for (int c = 0; c < C; ++c) {
-      for (int q = 0; q < Q; ++q) {
+  if constexpr (!S::kStaged) {
+    if (live && n0 + g < n1) {
+      const typename F::Lane l = F::lane(a, p, P);
+      typename F::Raw next = F::load(a, n0 + g, Q, p, P);
+      for (int n = n0 + g; n < n1; n += G) {
+        const typename F::Raw cur = next;
+        if (n + G < n1) next = F::load(a, n + G, Q, p, P);  // in flight
         T v[F::kValues];
-        F::eval(a, l, static_cast<int64_t>(c) * Q + q, c, p, P,
-                [&](int k, T x) { v[k] = x; });
+        F::values(a, l, cur, [&](int k, T x) { v[k] = x; });
         const auto get = [&](int k) { return v[k]; };
-#pragma unroll
-        for (int t = 0; t < RT; ++t)
-#pragma unroll
-          for (int j = 0; j < NB; ++j) acc[t][j] += F::entry(get, t, j);
+        with_rank<F>(e, [&](auto R) {
+          accumulate<F, decltype(R)::value>(acc, get);
+        });
       }
     }
-#pragma unroll
-    for (int t = 0; t < RT; ++t)
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-        out[static_cast<int64_t>(t * NB + j) * P + p] = acc[t][j];
   } else {
-    __shared__ T sv[F::kValues][L];
+    extern __shared__ unsigned char smem[];
+    T* sv = reinterpret_cast<T*>(smem);  // [2][L][lane_stride]
+    const int64_t ls = lane_stride(CH, F::kValues);
+    const int ranks = kThreads / L;
     typename F::Lane l;
-    if (rank == 0 && live) l = F::lane(a, p, P);
-    for (int c = 0; c < C; ++c) {
-      for (int q = 0; q < Q; ++q) {
-        __syncthreads();  // every rank is done with the previous point
-        if (rank == 0 && live)
-          F::eval(a, l, static_cast<int64_t>(c) * Q + q, c, p, P,
-                  [&](int k, T x) { sv[k][lane] = x; });
-        __syncthreads();
-        if (live) {
-          const auto get = [&](int k) { return sv[k][lane]; };
-#pragma unroll
-          for (int t = 0; t < RT; ++t) {
-            const int row = rank * RT + t;
-            if (row < F::kRows) {
-#pragma unroll
-              for (int j = 0; j < NB; ++j) acc[t][j] += F::entry(get, row, j);
-            }
-          }
+    if (live) l = F::lane(a, p, P);
+    int buf = 0;
+    for (int c0 = n0; c0 < n1; c0 += CH, buf ^= 1) {
+      const int len = min(CH, n1 - c0);
+      T* mine = sv + (static_cast<int64_t>(buf) * L + lane) * ls;
+      if (live) {
+        for (int j = r; j < len; j += ranks) {
+          const typename F::Raw raw = F::load(a, c0 + j, Q, p, P);
+          T* pv = mine + j * F::kValues;
+          F::values(a, l, raw, [&](int k, T x) { pv[k] = x; });
+        }
+      }
+      // one barrier a chunk: the other buffer's readers passed it before
+      // this chunk's writers could reach the next one
+      __syncthreads();
+      if (live) {
+        for (int j = g; j < len; j += G) {
+          const T* pv = mine + j * F::kValues;
+          const auto get = [&](int k) { return pv[k]; };
+          with_rank<F>(e, [&](auto R) {
+            accumulate<F, decltype(R)::value>(acc, get);
+          });
         }
       }
     }
-    if (live) {
+  }
+
+  // the G point ranks' partials: entry t summed in rank order by point
+  // rank t mod G, which stores it, so every rank shares the stores
+  if (G > 1) {
+    const int first = threadIdx.x - g * L;  // point rank 0 of this lane
 #pragma unroll
-      for (int t = 0; t < RT; ++t) {
-        const int row = rank * RT + t;
-        if (row < F::kRows) {
+    for (int t0 = 0; t0 < S::PER; t0 += kRed) {
+      __syncthreads();
 #pragma unroll
-          for (int j = 0; j < NB; ++j)
-            out[static_cast<int64_t>(row * NB + j) * P + p] = acc[t][j];
+      for (int t = 0; t < kRed && t0 + t < S::PER; ++t)
+        red[t][threadIdx.x] = acc[t0 + t];
+      __syncthreads();
+#pragma unroll
+      for (int t = 0; t < kRed && t0 + t < S::PER; ++t) {
+        if (((t0 + t) & (G - 1)) == g) {
+          T s = red[t][first];
+          for (int h = 1; h < G; ++h) s += red[t][first + h * L];
+          acc[t0 + t] = s;
         }
       }
     }
+  }
+  if (live) {
+    T* part = gridDim.y > 1
+                  ? ws + static_cast<int64_t>(blockIdx.y) * S::E * P
+                  : nullptr;
+    with_rank<F>(e, [&](auto R) {
+      store<F, decltype(R)::value>(acc, out, part, p, P, G, g);
+    });
   }
 }
 
+// The second pass over S > 1: out gets the sum over s, in order, of the
+// workspace [S, E, P], entry k of lane p by thread (p, k), in both places.
 template <class F>
-int launch(const typename F::Args& a, int C, int Q, int64_t P, void* out,
-           cudaStream_t s) {
-  constexpr int L = kThreads / ranks_of<F>();
-  if (P > 0) {
-    const unsigned int blocks = static_cast<unsigned int>((P + L - 1) / L);
-    blocks_kernel<F><<<blocks, kThreads, 0, s>>>(
-        a, C, Q, P, static_cast<typename F::T*>(out));
+__global__ void __launch_bounds__(kThreads)
+    partials_kernel(const typename F::T* __restrict__ ws, int S, int64_t P,
+                    typename F::T* __restrict__ out) {
+  using T = typename F::T;
+  constexpr int E = Split<F>::E;
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int k = blockIdx.y;
+  if (p >= P) return;
+  T s = ws[static_cast<int64_t>(k) * P + p];
+  for (int j = 1; j < S; ++j)
+    s += ws[(static_cast<int64_t>(j) * E + k) * P + p];
+  int a = 0, rest = k;  // entry k of the triangle, row by row
+  while (rest >= F::M - a) rest -= F::M - a++;
+  const int b = a + rest;
+  out[static_cast<int64_t>(out_row<F>(a, b)) * P + p] = s;
+  if (a != b) out[static_cast<int64_t>(out_row<F>(b, a)) * P + p] = s;
+}
+
+template <class F>
+int launch(const typename F::Args& a, int C, int Q, int64_t P, int L, int G,
+           int S, int64_t stage_bytes, void* out, void* ws, cudaStream_t st) {
+  using T = typename F::T;
+  using Sp = Split<F>;
+  const int64_t N = static_cast<int64_t>(C) * Q;
+  if (L <= 0 || G <= 0 || S <= 0 || S > 65535 || N > INT32_MAX ||
+      (L & (L - 1)) != 0 || (G & (G - 1)) != 0 ||
+      static_cast<int64_t>(L) * Sp::RE * G != kThreads ||
+      (S > 1 && ws == nullptr))
+    return -2;
+  if (P <= 0) return static_cast<int>(cudaGetLastError());
+  int CH = 0;
+  size_t smem = 0;
+  if (Sp::kStaged) {
+    // the most whole rounds of G points, no more than a block's points,
+    // whose two buffers fit stage_bytes (one round at least)
+    const auto bytes = [&](int64_t ch) {
+      return 2 * L * lane_stride(static_cast<int>(ch), F::kValues) *
+             static_cast<int64_t>(sizeof(T));
+    };
+    const int64_t per_block = (N + S - 1) / S;
+    int64_t ch = G;
+    while (ch < per_block && bytes(ch + G) <= stage_bytes) ch += G;
+    CH = static_cast<int>(ch);
+    smem = static_cast<size_t>(bytes(ch));
+    if (smem + sizeof(T) * kRed * kThreads > kSmemBlock) return -2;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(blocks_kernel<F>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
   }
+  const dim3 grid(static_cast<unsigned int>((P + L - 1) / L),
+                  static_cast<unsigned int>(S));
+  blocks_kernel<F><<<grid, kThreads, smem, st>>>(
+      a, Q, static_cast<int>(N), P, L, G, CH, static_cast<T*>(out),
+      S > 1 ? static_cast<T*>(ws) : nullptr);
+  if (S > 1)
+    partials_kernel<F><<<dim3(static_cast<unsigned int>(
+                                  (P + kThreads - 1) / kThreads),
+                              Sp::E),
+                         kThreads, 0, st>>>(static_cast<const T*>(ws), S, P,
+                                            static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
+struct Plan {  // the launch plan's runtime arguments
+  int L, G, S;
+  int64_t stage_bytes;
+  void* ws;
+};
+
 template <typename T, int DIM, int DEG>
 int volume(const void* pts, const void* w, const void* ext, int C, int Q,
-           int64_t P, void* out, cudaStream_t s) {
+           int64_t P, Plan pl, void* out, cudaStream_t s) {
   using F = VolumeForm<T, DIM, DEG>;
   const typename F::Args a{static_cast<const T*>(pts),
                            static_cast<const T*>(w),
                            static_cast<const T*>(ext)};
-  return launch<F>(a, C, Q, P, out, s);
+  return launch<F>(a, C, Q, P, pl.L, pl.G, pl.S, pl.stage_bytes, out, pl.ws,
+                   s);
 }
 
 template <typename T, int DIM, int DEG>
 int boundary(const void* pts, const void* n, const void* w, const void* h_f,
              const void* ext, double penalty, int C, int Q, int64_t P,
-             void* out, cudaStream_t s) {
+             Plan pl, void* out, cudaStream_t s) {
   using F = BoundaryForm<T, DIM, DEG>;
   const typename F::Args a{
       static_cast<const T*>(pts), static_cast<const T*>(n),
       static_cast<const T*>(w),   static_cast<const T*>(h_f),
       static_cast<const T*>(ext), penalty};
-  return launch<F>(a, C, Q, P, out, s);
+  return launch<F>(a, C, Q, P, pl.L, pl.G, pl.S, pl.stage_bytes, out, pl.ws,
+                   s);
 }
 
 template <typename T, int DIM, int DEG>
 int face(const void* pts, const void* n, const void* w, const void* h_f,
          const void* ext, const void* lo, int64_t offset, double penalty,
-         int C, int Q, int64_t P, void* out, cudaStream_t s) {
+         int C, int Q, int64_t P, Plan pl, void* out, cudaStream_t s) {
   using F = FaceForm<T, DIM, DEG>;
   const typename F::Args a{
       static_cast<const T*>(pts), static_cast<const T*>(n),
       static_cast<const T*>(w),   static_cast<const T*>(h_f),
       static_cast<const T*>(ext), static_cast<const T*>(lo),
       offset,                     penalty};
-  return launch<F>(a, C, Q, P, out, s);
+  return launch<F>(a, C, Q, P, pl.L, pl.G, pl.S, pl.stage_bytes, out, pl.ws,
+                   s);
+}
+
+// What the launch plan needs of form F: info = {E distinct entries, RE
+// entry ranks, threads a block, bytes of an element}.
+template <class F>
+int form_info(long long* info) {
+  info[0] = Split<F>::E;
+  info[1] = Split<F>::RE;
+  info[2] = kThreads;
+  info[3] = sizeof(typename F::T);
+  return 0;
+}
+
+// kind 0 volume (K3), 1 face (K4), 2 boundary (K5)
+template <typename T, int DIM, int DEG>
+int form_of(int kind, long long* out) {
+  switch (kind) {
+    case 0: return form_info<VolumeForm<T, DIM, DEG>>(out);
+    case 1: return form_info<FaceForm<T, DIM, DEG>>(out);
+    case 2: return form_info<BoundaryForm<T, DIM, DEG>>(out);
+    default: return -1;
+  }
 }
 
 // Calls FN<T, DIM, DEG>(args...) for the built (type, dim, degree) triples.
@@ -527,12 +805,25 @@ int face(const void* pts, const void* n, const void* w, const void* h_f,
 
 }  // namespace
 
+extern "C" int pd_sipg_form_info(int dt, int dim, int degree, int kind,
+                                 long long* info) {
+  if (dim < 2 || dim > 3 || degree < 1 || degree > 3) return -1;
+  PD_SIPG_DISPATCH(form_of, dt, dim, degree, kind, info)
+}
+
+// Each entry takes the launch plan after P: lanes a block holds L, point
+// ranks G, blocks a lane S, the bytes of shared memory its staged point
+// values may take (p >= 2 with several entry ranks) and the workspace
+// [S, E, P] of the table type (may be null when S = 1).
 extern "C" int pd_sipg_volume(int dt, int dim, int degree, const void* pts,
                               const void* w, const void* ext, int C, int Q,
-                              long long P, void* out, void* stream) {
+                              long long P, int L, int G, int S,
+                              long long stage_bytes, void* ws, void* out,
+                              void* stream) {
   if (dim < 2 || dim > 3 || degree < 1 || degree > 3) return -1;
+  const Plan pl{L, G, S, stage_bytes, ws};
   PD_SIPG_DISPATCH(volume, dt, dim, degree, pts, w, ext, C, Q,
-                   static_cast<int64_t>(P), out,
+                   static_cast<int64_t>(P), pl, out,
                    static_cast<cudaStream_t>(stream));
 }
 
@@ -540,21 +831,25 @@ extern "C" int pd_sipg_boundary(int dt, int dim, int degree, const void* pts,
                                 const void* n, const void* w,
                                 const void* h_f, const void* ext,
                                 double penalty, int C, int Q, long long P,
-                                void* out, void* stream) {
+                                int L, int G, int S, long long stage_bytes,
+                                void* ws, void* out, void* stream) {
   if (dim < 2 || dim > 3 || degree < 1 || degree > 3) return -1;
+  const Plan pl{L, G, S, stage_bytes, ws};
   PD_SIPG_DISPATCH(boundary, dt, dim, degree, pts, n, w, h_f, ext, penalty,
-                   C, Q, static_cast<int64_t>(P), out,
+                   C, Q, static_cast<int64_t>(P), pl, out,
                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pd_sipg_face(int dt, int dim, int degree, const void* pts,
                             const void* n, const void* w, const void* h_f,
                             const void* ext, const void* lo, long long offset,
-                            double penalty, int C, int Q, long long P,
+                            double penalty, int C, int Q, long long P, int L,
+                            int G, int S, long long stage_bytes, void* ws,
                             void* out, void* stream) {
   if (dim < 2 || dim > 3 || degree < 1 || degree > 3) return -1;
+  const Plan pl{L, G, S, stage_bytes, ws};
   PD_SIPG_DISPATCH(face, dt, dim, degree, pts, n, w, h_f, ext, lo,
                    static_cast<int64_t>(offset), penalty, C, Q,
-                   static_cast<int64_t>(P), out,
+                   static_cast<int64_t>(P), pl, out,
                    static_cast<cudaStream_t>(stream));
 }

@@ -183,7 +183,7 @@ def run_rank(rank: int, world: int, device: str, store_path: str,
         os.replace(out_path + ".tmp", out_path)
 
 
-def spawn(world: int, cases: list, device: str = "cpu",
+def spawn(world: int, cases: list, *, device: str,
           timeout: float = 300.0) -> list:
     """Run ``cases`` on ``world`` fresh processes (the ``spawn`` start
     method; a gloo or NCCL group through a FileStore in a temporary
@@ -226,7 +226,7 @@ def main(argv=None) -> int:
                 relabel=None if args.relabel == "none" else "lex",
                 dtype="float32", precond_dtype="bfloat16", rtol=1e-8,
                 timed=True)
-    (r,) = spawn(args.nproc, [case], args.device, timeout=3000.0)
+    (r,) = spawn(args.nproc, [case], device=args.device, timeout=3000.0)
     keep = ("n_dofs", "levels", "n_dev", "meta", "comm", "iterations",
             "unsharded_iterations", "residual", "bnorm", "max_abs_diff",
             "unsharded_ms", "sharded_ms", "ratio")

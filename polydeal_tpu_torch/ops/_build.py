@@ -149,21 +149,24 @@ def load_library() -> ctypes.CDLL:
     lib.pd_packed_fused_halo.argtypes = [vp, i32, vp, i32, vp, vp, i32, i32,
                                          i32, i32, i64, i64, i64, vp, vp, vp,
                                          f64, f64, i32, vp, vp, vp]
-    # (dtype, dim, degree, tables..., [offset,] [penalty,] C, Q, P, out,
-    #  stream)
+    # (dtype, dim, degree, tables..., [offset,] [penalty,] C, Q, P, the
+    #  launch plan (L, G, S, bytes of staged values, workspace), out,
+    #  stream); the form's facts (dtype, dim, degree, kind, long long[4])
+    plan = [i32, i32, i32, i64, vp]
+    lib.pd_sipg_form_info.argtypes = [i32, i32, i32, i32, vp]
     lib.pd_sipg_volume.argtypes = [i32, i32, i32, vp, vp, vp, i32, i32, i64,
-                                   vp, vp]
+                                   *plan, vp, vp]
     lib.pd_sipg_boundary.argtypes = [i32, i32, i32, vp, vp, vp, vp, vp, f64,
-                                     i32, i32, i64, vp, vp]
+                                     i32, i32, i64, *plan, vp, vp]
     lib.pd_sipg_face.argtypes = [i32, i32, i32, vp, vp, vp, vp, vp, vp, i64,
-                                 f64, i32, i32, i64, vp, vp]
+                                 f64, i32, i32, i64, *plan, vp, vp]
     for fn in (lib.pd_banded_matvec, lib.pd_banded_fused,
                lib.pd_banded_matvec_omajor, lib.pd_banded_fused_omajor,
                lib.pd_packed_matvec,
                lib.pd_packed_fused, lib.pd_sipg_volume, lib.pd_sipg_boundary,
                lib.pd_sipg_face, lib.pd_banded_matvec_halo,
                lib.pd_banded_fused_halo, lib.pd_packed_matvec_halo,
-               lib.pd_packed_fused_halo):
+               lib.pd_packed_fused_halo, lib.pd_sipg_form_info):
         fn.restype = i32
     _lib = lib
     return lib

@@ -14,10 +14,20 @@ origins ``lo_t`` [dim, P].  Padded slots carry zero weights, so they add
 exact zeros.  Each block comes back as [nb * nb, P] (row i * nb + j), in
 the tables' dtype.  The basis is the Legendre P_p basis of
 ``fem/basis.py`` (the only family ported).
+
+:func:`sipg_launch_plan` decides how a kernel splits a level's work over
+the card (lanes a block holds, point ranks G, blocks a lane S and the
+workspace of the second pass).  It is pure: what it needs of a form (its
+distinct entries, entry ranks, threads a block) it takes from
+:func:`sipg_form`, which reads them from ``csrc/sipg.cu``; the kernel
+checks the plan it is given.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from dataclasses import dataclass
 from math import comb
 
 import torch
@@ -26,12 +36,124 @@ from polydeal_tpu_torch.fem.basis import LegendreDGP
 from polydeal_tpu_torch.ops import _build
 
 __all__ = [
+    "SipgForm", "sipg_form", "LaunchPlan", "sipg_launch_plan",
     "volume_blocks", "volume_blocks_ref",
     "face_group_blocks", "face_group_blocks_ref",
     "boundary_blocks", "boundary_blocks_ref",
 ]
 
 _TABLE_DTYPES = (torch.float32, torch.float64)
+
+# the plan gives this many blocks' threads points to sum (two blocks on
+# each of the H100's 132 SMs) by point ranks; a level with fewer gets twice
+# as many by blocks a lane (S), each rank keeping at least MIN_POINTS points
+# and the second pass's workspace at most WORKSPACE_BYTES (so it stays in
+# the 50 MB L2); these were chosen by timing the plans of the n = 64
+# levels on an H100 (PERF.md).  At most STAGE_BYTES of point values are
+# staged a block (p >= 2; the kernel sizes its chunk to them)
+TARGET_BLOCKS = 2 * 132
+MIN_POINTS = 4
+WORKSPACE_BYTES = 8 << 20
+# point ranks pay a sum through shared memory and the lane's set-up each;
+# measured, that pays for K3 and K5 (10 entries at p = 1) and not for K4 (36),
+# which takes more blocks a lane instead, unless the level has fewer lanes
+# than a warp
+RANKED_ENTRIES = 16
+STAGE_BYTES = 96 * 1024
+MAX_S = 65535  # gridDim.y
+_KIND_CODES = {"volume": 0, "face": 1, "boundary": 2}
+
+
+@dataclass(frozen=True)
+class SipgForm:
+    """What ``csrc/sipg.cu`` says of one form at one (dtype, dim, degree)
+    (``pd_sipg_form_info``): its distinct entries, the entry ranks they
+    split over, the threads of a block and the bytes of an element."""
+
+    entries: int
+    ranks: int
+    threads: int
+    esz: int
+
+
+@functools.lru_cache(maxsize=None)
+def sipg_form(kind: str, dim: int, degree: int, dtype) -> SipgForm:
+    """The form of K3 (``kind`` "volume"), K4 ("face") or K5 ("boundary"),
+    read from the kernel library."""
+    if kind not in _KIND_CODES:
+        raise ValueError(f"unknown SIPG kernel kind {kind!r}")
+    info = (ctypes.c_longlong * 4)()
+    rc = _build.load_library().pd_sipg_form_info(
+        _build.DTYPE_CODES[dtype], dim, degree, _KIND_CODES[kind], info)
+    if rc != 0:
+        raise ValueError(f"no {kind} kernel built for {dtype}, dim={dim}, "
+                         f"degree={degree}")
+    return SipgForm(*info)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How K3-K5 run one table of P lanes and N = C * Q points a lane.
+
+    A block holds ``lanes`` lanes, ``ranks`` entry ranks (each accumulates
+    its share of the ``entries`` distinct entries) and ``G`` point ranks;
+    ``S`` blocks share a lane's points (S > 1 sums their partials in
+    ``workspace`` [S, entries, P] by a second kernel)."""
+
+    lanes: int
+    ranks: int
+    G: int
+    S: int
+    entries: int
+    N: int
+    P: int
+
+    @property
+    def workspace(self):
+        """Shape of the second pass's workspace, or None (S = 1)."""
+        return (self.S, self.entries, self.P) if self.S > 1 else None
+
+    @property
+    def grid(self):
+        return (-(-self.P // self.lanes), self.S)
+
+    def points(self, s: int, g: int) -> range:
+        """The points that point rank ``g`` of block row ``s`` sums, as the
+        kernel walks them."""
+        n0, n1 = s * self.N // self.S, (s + 1) * self.N // self.S
+        return range(n0 + g, n1, self.G)
+
+
+def sipg_launch_plan(P: int, C: int, Q: int, form: SipgForm) -> LaunchPlan:
+    """The launch plan of ``form`` (:func:`sipg_form`) for tables [C, Q, ...,
+    P].
+
+    Lanes run along a block's threads, at most threads / ranks and at least
+    32 of them (fewer where the entry ranks leave less room, or where the
+    level has fewer lanes: then a warp holds several point ranks).  Where
+    the level has too few lanes to give TARGET_BLOCKS blocks' threads work,
+    a lane's points go to more point ranks (fewer lanes a block; forms of
+    at most RANKED_ENTRIES entries), and then to more blocks, while every
+    rank keeps MIN_POINTS points and the workspace WORKSPACE_BYTES."""
+    E, RE, T = form.entries, form.ranks, form.threads
+    N = C * Q
+    target = TARGET_BLOCKS * T
+    lmax = T // RE
+    lmin = min(32, lmax)
+    if RE <= T // 32:  # a warp of L < 32 lanes holds one entry rank
+        lmin = min(lmin, 1 << max(0, P - 1).bit_length())
+    L = lmax
+    while ((E <= RANKED_ENTRIES or P < 32) and L > lmin
+           and P * RE * (lmax // L) < target
+           and N >= MIN_POINTS * 2 * (lmax // L)):
+        L //= 2
+    G = lmax // L
+    S = 1
+    if P * RE * G < target:
+        S = max(1, min(-(-2 * target // (P * RE * G)),
+                       N // (G * MIN_POINTS),
+                       WORKSPACE_BYTES // (E * P * form.esz), MAX_S))
+    return LaunchPlan(lanes=L, ranks=RE, G=G, S=S, entries=E, N=N, P=P)
 
 
 def _real_grad(basis, pts, ext):
@@ -137,6 +259,18 @@ def _launch(kernel: str, fn, dev, *args) -> None:
     _build.launches[kernel] += 1
 
 
+def _plan_args(kind: str, w: torch.Tensor, degree: int, dim: int):
+    """(plan arguments of the C entry: L, G, S, bytes of staged values,
+    workspace pointer; the workspace tensor, kept alive until the launch)
+    for tables whose weights are ``w`` [C, Q, P]."""
+    C, Q, P = w.shape
+    pl = sipg_launch_plan(P, C, Q, sipg_form(kind, dim, degree, w.dtype))
+    ws = (torch.empty(pl.workspace, dtype=w.dtype, device=w.device)
+          if pl.workspace else None)
+    return (pl.lanes, pl.G, pl.S, STAGE_BYTES,
+            ws.data_ptr() if ws is not None else None), ws
+
+
 def volume_blocks(vol: dict, ext_t: torch.Tensor, degree: int,
                   dim: int) -> torch.Tensor:
     """K3: stiffness diagonal blocks [nb * nb, P] over the padded volume
@@ -150,10 +284,11 @@ def volume_blocks(vol: dict, ext_t: torch.Tensor, degree: int,
         "ext_t": (ext_t, (dim, P))})
     nb = comb(degree + dim, dim)
     out = torch.empty((nb * nb, P), dtype=dt, device=w.device)
+    plan, _ws = _plan_args("volume", w, degree, dim)
     lib = _build.load_library()
     _launch("volume_blocks", lib.pd_sipg_volume, w.device,
             _build.DTYPE_CODES[dt], dim, degree, vol["pts"].data_ptr(),
-            w.data_ptr(), ext_t.data_ptr(), C, Q, P, out.data_ptr())
+            w.data_ptr(), ext_t.data_ptr(), C, Q, P, *plan, out.data_ptr())
     return out
 
 
@@ -177,12 +312,13 @@ def face_group_blocks(group: dict, ext_t: torch.Tensor, lo_t: torch.Tensor,
         "ext_t": (ext_t, (dim, P)), "lo_t": (lo_t, (dim, P))})
     nb = comb(degree + dim, dim)
     out = torch.empty((4, nb * nb, P), dtype=dt, device=w.device)
+    plan, _ws = _plan_args("face", w, degree, dim)
     lib = _build.load_library()
     _launch("face_group_blocks", lib.pd_sipg_face, w.device,
             _build.DTYPE_CODES[dt], dim, degree, group["pts_in"].data_ptr(),
             group["n"].data_ptr(), w.data_ptr(), group["h_f"].data_ptr(),
             ext_t.data_ptr(), lo_t.data_ptr(), int(offset),
-            float(penalty_constant), C, Q, P, out.data_ptr())
+            float(penalty_constant), C, Q, P, *plan, out.data_ptr())
     return tuple(out.unbind(0))
 
 
@@ -201,10 +337,11 @@ def boundary_blocks(group: dict, ext_t: torch.Tensor, degree: int, dim: int,
         "ext_t": (ext_t, (dim, P))})
     nb = comb(degree + dim, dim)
     out = torch.empty((nb * nb, P), dtype=dt, device=w.device)
+    plan, _ws = _plan_args("boundary", w, degree, dim)
     lib = _build.load_library()
     _launch("boundary_blocks", lib.pd_sipg_boundary, w.device,
             _build.DTYPE_CODES[dt], dim, degree, group["pts_in"].data_ptr(),
             group["n"].data_ptr(), w.data_ptr(), group["h_f"].data_ptr(),
-            ext_t.data_ptr(), float(penalty_constant), C, Q, P,
+            ext_t.data_ptr(), float(penalty_constant), C, Q, P, *plan,
             out.data_ptr())
     return out

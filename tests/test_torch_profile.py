@@ -74,3 +74,74 @@ def test_setup_phases_report_first_use_apart(monkeypatch):
                                "mg_setup", "tables"})):
         assert set(phases) == clocked | {"kernel_load", "cuda_init"}
         assert phases["kernel_load"] == phases["cuda_init"] == 0.0
+
+
+# --- models/profile_sipg.py: K3-K5 per level -----------------------------
+
+from polydeal_tpu_torch.models import profile_sipg as ps  # noqa: E402
+
+
+def test_sipg_work_counts_bytes_once():
+    """The flagship's fine K3 call (p=1, 3D, C=1, q=8, 262144 lanes, f32):
+    its points, weights, extents read once and its 16 rows written once;
+    K4 writes four blocks."""
+    nbytes, flops = ps.sipg_work("volume", 3, 1, 1, 8, 262144, 4)
+    assert nbytes == (8 * 3 + 8 + 3 + 16) * 262144 * 4
+    # a point: the basis and its gradients (54), w grad phi (12), the 10
+    # distinct entries of the symmetric 4 x 4 block at three FMAs each
+    assert flops == (54 + 12 + 10 * 6) * 8 * 262144
+    fb, ff = ps.sipg_work("face", 3, 1, 1, 4, 262144, 4)
+    assert fb == (2 * 4 * 3 + 4 + 1 + 2 * 3 + 4 * 16) * 262144 * 4
+    # two sides of 82, the pull-back (12), w gamma and -w / 2 (3), both
+    # sides' vectors (32), the 36 distinct entries of the 8 x 8 matrix at
+    # two FMAs each
+    assert ff == (2 * 82 + 12 + 3 + 32 + 36 * 4) * 4 * 262144
+    t_ms, by = ps.bound(nbytes, flops, "float32")
+    assert by == "bytes" and t_ms == pytest.approx(nbytes / ps.HBM_BPS * 1e3)
+
+
+def test_ptxas_summary_names_the_sipg_kernels():
+    log = "\n".join([
+        "ptxas info    : Function properties for _ZN25_GLOBAL__N__x_7_sipg"
+        "_cu_y13blocks_kernelINS_8FaceFormIfLi3ELi1EEEEEvNT_4ArgsEiiliiiPN"
+        "S2_1TES6_",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 124 registers, 8192 bytes smem",
+        "ptxas info    : Function properties for _ZN25_GLOBAL__N__x_7_sipg"
+        "_cu_y15partials_kernelINS_10VolumeFormIdLi2ELi3EEEEEvPKNT_1TEilPS4_",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N__fa194aa6_9"
+        "_banded_cu_7216cc4519banded_fused_kernelIfLi4ELi2EEEvPKT_",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers"])
+    assert ps.ptxas_summary(log) == [
+        "blocks_kernel Face<f, 3, 1>: 124 registers; 0 bytes stack frame, "
+        "0 bytes spill stores, 0 bytes spill loads",
+        "partials_kernel Volume<d, 2, 3>: 32 registers; 0 bytes stack "
+        "frame, 0 bytes spill stores, 0 bytes spill loads",
+        "banded_fused_kernel<fLi4ELi2E>: 40 registers; 0 bytes stack frame, "
+        "0 bytes spill stores, 0 bytes spill loads"]
+
+
+def test_level_calls_on_cpu():
+    """A small monodomain hierarchy rebuilt as the solver builds it; each
+    level's K3-K5 calls (plain versions on the CPU) give their blocks, one
+    K4 call per face group, and the tables of each kind's calls."""
+    from polydeal_tpu_torch.models.monodomain import bench_config
+
+    hs = ps.mono_handlers(bench_config(2))
+    assert [h.n_poly for h in hs] == sorted(h.n_poly for h in hs)
+    h = hs[-1]
+    t, pc = ps.level_tables(h, torch.float64, torch.device("cpu"))
+    calls = ps.kernel_calls(t, pc, h.degree, h.dim)
+    nb = h.n_basis
+    assert len(calls["face"]) == len(t["groups"])
+    assert ps.blocks(calls["volume"][0]()).shape == (nb * nb, h.n_poly)
+    assert ps.blocks(calls["face"][0]()).shape == (4, nb * nb, h.n_poly)
+    plain = ps.kernel_calls(t, pc, h.degree, h.dim, plain=True)
+    assert torch.equal(ps.blocks(plain["boundary"][0]()),
+                       ps.blocks(calls["boundary"][0]()))
+    groups = ps.table_groups(t)
+    assert groups["volume"] == [t["vol"]] and groups["boundary"] == [t["bdry"]]
+    assert len(groups["face"]) == len(calls["face"])

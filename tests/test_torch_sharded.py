@@ -146,7 +146,7 @@ def ranks(request):
     processes per world size."""
     world = request.param
     return world, dict(zip(CASES, spawn(world, list(CASES.values()),
-                                        timeout=240.0)))
+                                        device="cpu", timeout=240.0)))
 
 
 def test_structured_flagship_matches_jax(jax_ref):

@@ -150,6 +150,68 @@ def test_direct_assembly_matches_jax_kernels(mesh, degree):
     _close(A.with_imajor().data_i, Bi.data_i.numpy())
 
 
+# The symmetry K3 and K4 accumulate by (csrc/sipg.cu): the volume block is
+# symmetric, and K4's four blocks are one symmetric 2nb x 2nb matrix (m21 =
+# m12^T, m11 and m22 symmetric), in the plain versions and in the JAX
+# package's Pallas kernels alike, on f64 tables of real levels.
+SYM_CASES = [("rtree3d", 1), ("rtree2d", 2)]
+SYM_TOL = 1e-14
+
+
+@functools.lru_cache(maxsize=None)
+def _level64(mesh: str, degree: int):
+    """(JAX f64 tables, the same as port tensors) of ``_level``'s level."""
+    ha, _, offs, _, _ = _level(mesh, degree)
+    ga = build_banded_groups(ha, offs, jnp.float64)
+    return ga, interop.groups_from_arrays(ga, device=CPU)
+
+
+def _square(m, nb):
+    """[nb * nb, P] block rows -> [nb, nb, P] (row i * nb + j)."""
+    return np.asarray(m, np.float64).reshape(nb, nb, -1)
+
+
+def _assert_transposed(a, b, scale):
+    assert np.abs(a - b.transpose(1, 0, 2)).max() <= SYM_TOL * scale
+
+
+@pytest.mark.parametrize("mesh,degree", SYM_CASES)
+def test_face_blocks_are_one_symmetric_matrix(mesh, degree):
+    ha = _level(mesh, degree)[0]
+    ga, gb = _level64(mesh, degree)
+    nb, P = ha.basis.n_basis, ha.n_poly
+    pc = default_penalty_constant(degree, ha.dim)
+    o = min(ga["groups"])
+    ref = tk.face_group_blocks_ref(gb["groups"][o], gb["ext_t"], gb["lo_t"],
+                                   o, degree, ha.dim, pc)
+    assert ref[0].dtype == torch.float64
+    tab_p, ext_p, lo_p = _padded(ha, ga)
+    jx = face_group_blocks_pallas(tab_p["groups"][o], ext_p, lo_p, o, degree,
+                                  ha.dim, pc, interpret=True)
+    for blocks in (ref, [np.asarray(b)[:, :P] for b in jx]):
+        m11, m12, m21, m22 = (_square(b, nb) for b in blocks)
+        scale = max(np.abs(m).max() for m in (m11, m12, m21, m22))
+        assert scale > 0
+        _assert_transposed(m21, m12, scale)
+        _assert_transposed(m11, m11, scale)
+        _assert_transposed(m22, m22, scale)
+
+
+@pytest.mark.parametrize("mesh,degree", SYM_CASES)
+def test_volume_blocks_are_symmetric(mesh, degree):
+    ha = _level(mesh, degree)[0]
+    ga, gb = _level64(mesh, degree)
+    nb, P = ha.basis.n_basis, ha.n_poly
+    ref = tk.volume_blocks_ref(gb["vol"], gb["ext_t"], degree, ha.dim)
+    assert ref.dtype == torch.float64
+    tab_p, ext_p, _ = _padded(ha, ga)
+    jx = volume_blocks_pallas(tab_p["vol"], ext_p, degree, ha.dim,
+                              interpret=True)[:, :P]
+    for K in (ref, jx):
+        K = _square(K, nb)
+        _assert_transposed(K, K, np.abs(K).max())
+
+
 def _tables(C, Q, dim, P, dtype=torch.float32):
     rng = np.random.default_rng(1)
     t = lambda *s: torch.as_tensor(rng.random(s), dtype=dtype)
@@ -196,14 +258,25 @@ def test_tables_are_contiguous():
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_cuda_kernels_match_plain(dtype):
     """K3-K5 on the card against their plain versions (2e-5 relative in
-    f32, 1e-12 in f64), at C > 1, P not a multiple of the block, p = 1, 2."""
+    f32, 1e-12 in f64), at C > 1, P not a multiple of the block, p = 1-3,
+    and at coarse shapes whose launch plans split a lane's points over
+    blocks; two launches bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K3-K5 have no CPU mode")
     dev = torch.device("cuda")
     dt = getattr(torch, dtype)
     tol = 2e-5 if dtype == "float32" else 1e-12
-    for dim, degree in ((3, 1), (3, 2), (2, 3)):
-        g, ext, lo = _tables(3, 4, dim, 1000, dt)
+    # (C, Q, P): lanes that fill the card (S = 1), and the coarse levels'
+    # shapes, whose points split over blocks (S > 1) and a second pass
+    shapes = {(3, 1): [(3, 4, 1000), (512, 8, 512), (64, 4, 512)],
+              (3, 2): [(3, 4, 1000), (64, 9, 100)], (2, 3): [(3, 4, 1000)]}
+    for (dim, degree), (C, Q, P) in ((k, s) for k, v in shapes.items()
+                                     for s in v):
+        if (C, Q, P) != (3, 4, 1000):
+            assert max(tk.sipg_launch_plan(
+                P, C, Q, tk.sipg_form(kind, dim, degree, dt)).S
+                for kind in ("volume", "face", "boundary")) > 1
+        g, ext, lo = _tables(C, Q, dim, P, dt)
         g = {k: v.to(dev) for k, v in g.items()}
         ext, lo = ext.to(dev), lo.to(dev)
         vol = dict(pts=g["pts_in"], w=g["w"])
@@ -217,3 +290,9 @@ def test_cuda_kernels_match_plain(dtype):
             _close(C(r), C(m), tol)
         _close(C(tk.boundary_blocks_ref(g, ext, degree, dim, 40.0)),
                C(tk.boundary_blocks(g, ext, degree, dim, 40.0)), tol)
+        # no atomics: two launches give the same bits
+        assert torch.equal(tk.volume_blocks(vol, ext, degree, dim),
+                           tk.volume_blocks(vol, ext, degree, dim))
+        assert all(torch.equal(a, b) for a, b in zip(
+            tk.face_group_blocks(g, ext, lo, 7, degree, dim, 40.0),
+            tk.face_group_blocks(g, ext, lo, 7, degree, dim, 40.0)))
