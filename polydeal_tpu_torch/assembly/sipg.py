@@ -1,7 +1,14 @@
-"""SIPG assembly straight into the banded layout, on torch tensors.
+"""SIPG assembly on torch tensors: the table path into a block-COO
+matrix, and straight into the banded layout.
 
-Counterpart of the direct banded path of ``polydeal_tpu/assembly/sipg.py``:
-``build_banded_groups`` pads the face, boundary and cell tables per
+Counterpart of ``polydeal_tpu/assembly/sipg.py``.  The table path
+(``build_volume_tables``, ``build_face_tables``, ``assemble_sipg_matrix``,
+``assemble_rhs``, ``mass_matrix``, ``project``) evaluates the basis at
+every fine cell's and fine face's quadrature points and reduces the
+per-cell and per-face blocks onto polytopes and polytope pairs with
+deterministic segment sums (``utils/segment.py``): plain einsums, as the
+JAX package computes them in XLA outside any kernel.  The direct banded
+path: ``build_banded_groups`` pads the face, boundary and cell tables per
 polytope slot on the host, and ``assemble_sipg_banded_direct`` turns them
 into the band with the volume, face group and boundary block kernels
 (K3-K5, ``ops/sipg_kernels.py``), sums over the padded slots and lane
@@ -18,6 +25,8 @@ the reference (poly_utils.h:2017-2019, 2057).
 
 from __future__ import annotations
 
+from dataclasses import dataclass, replace
+
 import numpy as np
 import torch
 
@@ -27,12 +36,26 @@ from polydeal_tpu_torch.ops.sipg_kernels import (
     face_group_blocks,
     volume_blocks,
 )
-from polydeal_tpu_torch.sparse import BlockBanded, BlockPacked, pack_blocks
+from polydeal_tpu_torch.sparse import (
+    BlockBanded,
+    BlockMatrix,
+    BlockPacked,
+    pack_blocks,
+)
 from polydeal_tpu_torch.utils.grouping import padded_group_lists
+from polydeal_tpu_torch.utils.segment import segment_sum
 
 __all__ = [
     "default_penalty_constant",
     "dirichlet_face_mask",
+    "VolumeTables",
+    "FaceTables",
+    "build_volume_tables",
+    "build_face_tables",
+    "assemble_sipg_matrix",
+    "assemble_rhs",
+    "mass_matrix",
+    "project",
     "build_banded_groups",
     "assemble_rhs_direct",
     "assemble_sipg_banded_direct",
@@ -56,6 +79,266 @@ def dirichlet_face_mask(ah, dirichlet_ids) -> np.ndarray:
     bid = (fb.boundary_id if fb.boundary_id is not None
            else np.zeros(fb.n_faces, dtype=np.int32))
     return np.isin(bid, np.asarray(list(dirichlet_ids)))
+
+
+@dataclass
+class VolumeTables:
+    """Dense per-fine-cell shape tables in the owning polytope's basis."""
+
+    B: torch.Tensor  # [n_c, q, nb] values
+    G: torch.Tensor  # [n_c, q, nb, dim] real-space gradients
+    w: torch.Tensor  # [n_c, q] JxW
+    x: torch.Tensor  # [n_c, q, dim] real points
+    cell2poly: np.ndarray  # [n_c], host
+
+
+@dataclass
+class FaceTables:
+    """Shape tables at interface quadrature points: both sides of an
+    interior face (suffix 0 = poly_in, 1 = poly_out), side 0 only of a
+    boundary face."""
+
+    B0: torch.Tensor  # [n_f, qf, nb]
+    G0: torch.Tensor  # [n_f, qf, nb, dim]
+    B1: torch.Tensor | None
+    G1: torch.Tensor | None
+    w: torch.Tensor  # [n_f, qf]
+    n: torch.Tensor  # [n_f, qf, dim]
+    x: torch.Tensor  # [n_f, qf, dim] real points
+    h_f: torch.Tensor  # [n_f]
+    poly_in: np.ndarray  # host
+    poly_out: np.ndarray | None  # host
+
+    def select(self, rows: np.ndarray) -> "FaceTables":
+        """The one-sided tables of the boundary rows ``rows``."""
+        r = torch.as_tensor(rows, device=self.w.device)
+        return FaceTables(B0=self.B0[r], G0=self.G0[r], B1=None, G1=None,
+                          w=self.w[r], n=self.n[r], x=self.x[r],
+                          h_f=self.h_f[r], poly_in=self.poly_in[rows],
+                          poly_out=None)
+
+
+def build_volume_tables(ah: AgglomerationHandler, dtype=torch.float64,
+                        basis=None, *, device) -> VolumeTables:
+    """Shape tables for ``basis`` (default: the handler's own) at the
+    handler's composite quadrature."""
+    basis = basis or ah.basis
+
+    def put(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    pts = put(ah.cell_qpoints_unit)
+    ext = put(ah.extents[ah.cell2poly])  # [n_c, dim]
+    return VolumeTables(
+        B=basis.eval(pts), G=basis.grad(pts) / ext[:, None, None, :],
+        w=put(ah.cell_qweights), x=put(ah.cell_qpoints_real),
+        cell2poly=ah.cell2poly)
+
+
+def build_face_tables(ah: AgglomerationHandler, dtype=torch.float64,
+                      basis=None, h_scale: str = "diameter", *, device):
+    """Returns (interior: FaceTables, boundary: FaceTables).
+
+    ``h_scale='orthogonal'`` replaces the penalty length h_f (the polytope
+    bbox diameter by default) with the face-orthogonal depth
+    (``metrics.face_h_orthogonal``); ``'orthogonal_exact'`` with its exact
+    ray-shooting variant."""
+    basis = basis or ah.basis
+    faces = ah.faces
+    if h_scale in ("orthogonal", "orthogonal_exact"):
+        from polydeal_tpu_torch.metrics import face_h_orthogonal
+
+        method = "exact" if h_scale == "orthogonal_exact" else "sampled"
+        faces = replace(faces, h_f=face_h_orthogonal(ah, method=method))
+    elif h_scale != "diameter":
+        raise ValueError(f"unknown h_scale: {h_scale}")
+
+    def put(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    def side(poly, unit_pts):
+        pts = put(unit_pts)
+        ext = put(ah.extents[poly])
+        return basis.eval(pts), basis.grad(pts) / ext[:, None, None, :]
+
+    out = []
+    for part, both_sides in ((faces.interior(), True),
+                             (faces.boundary(), False)):
+        B0, G0 = side(part.poly_in, part.points_in)
+        B1 = G1 = p_out = None
+        if both_sides:
+            p_out = part.poly_out
+            B1, G1 = side(p_out, part.points_out)
+        out.append(FaceTables(
+            B0=B0, G0=G0, B1=B1, G1=G1, w=put(part.weights),
+            n=put(part.normals), x=put(part.points_real), h_f=put(part.h_f),
+            poly_in=part.poly_in, poly_out=p_out))
+    return out[0], out[1]
+
+
+def _blk(a, b, wgt):
+    return torch.einsum("fqi,fqj,fq->fij", a, b, wgt)
+
+
+def _interior_blocks(ft: FaceTables, penalty_constant: float):
+    """The four SIPG jump/average blocks per interior fine face; sign
+    conventions of the reference kernel (poly_utils.h:1870-1926), the
+    normal outward from poly_in.  The penalty is penalty_constant / h_f,
+    rounded as the JAX package's table path rounds it."""
+    gamma = (penalty_constant / ft.h_f)[:, None]  # [n_f, 1]
+    gn0 = torch.einsum("fqid,fqd->fqi", ft.G0, ft.n)
+    gn1 = torch.einsum("fqid,fqd->fqi", ft.G1, ft.n)
+    w = ft.w
+    wg = w * gamma
+    M11 = (-0.5 * _blk(gn0, ft.B0, w) - 0.5 * _blk(ft.B0, gn0, w)
+           + _blk(ft.B0, ft.B0, wg))
+    M12 = (0.5 * _blk(gn0, ft.B1, w) - 0.5 * _blk(ft.B0, gn1, w)
+           - _blk(ft.B0, ft.B1, wg))
+    M21 = (-0.5 * _blk(gn1, ft.B0, w) + 0.5 * _blk(ft.B1, gn0, w)
+           - _blk(ft.B1, ft.B0, wg))
+    M22 = (0.5 * _blk(gn1, ft.B1, w) + 0.5 * _blk(ft.B1, gn1, w)
+           + _blk(ft.B1, ft.B1, wg))
+    return M11, M12, M21, M22
+
+
+def _boundary_block(fb: FaceTables, penalty_constant: float):
+    """Weak-Dirichlet boundary block (full-weight terms,
+    poly_utils.h:2065-2082)."""
+    gamma = (penalty_constant / fb.h_f)[:, None]
+    gn = torch.einsum("fqid,fqd->fqi", fb.G0, fb.n)
+    w = fb.w
+    return (-_blk(fb.B0, gn, w) - _blk(gn, fb.B0, w)
+            + _blk(fb.B0, fb.B0, w * gamma))
+
+
+def assemble_sipg_matrix(
+    ah: AgglomerationHandler,
+    penalty_constant: float | None = None,
+    include_boundary: bool = True,
+    dtype=torch.float64,
+    vol: VolumeTables | None = None,
+    faces: tuple | None = None,
+    dirichlet_ids=None,
+    *,
+    device,
+) -> BlockMatrix:
+    """The SIPG Laplace matrix as a BlockMatrix.  ``include_boundary=
+    False`` drops the boundary Nitsche terms (the configuration of the
+    reference's "SIPG annihilates linears" sanity tests)."""
+    if penalty_constant is None:
+        penalty_constant = default_penalty_constant(ah.degree, ah.dim)
+    if vol is None:
+        vol = build_volume_tables(ah, dtype, device=device)
+    if faces is None:
+        faces = build_face_tables(ah, dtype, device=device)
+    fi, fb = faces
+    P = ah.n_poly
+
+    # volume: per-cell stiffness, reduced onto polytopes
+    A_cell = torch.einsum("cqid,cqjd,cq->cij", vol.G, vol.G, vol.w)
+    A_diag = segment_sum(A_cell, vol.cell2poly, P)
+
+    rows, cols, datas = [np.arange(P)], [np.arange(P)], []
+    if fi.poly_in.shape[0] > 0:
+        M11, M12, M21, M22 = _interior_blocks(fi, penalty_constant)
+        A_diag = A_diag + segment_sum(M11, fi.poly_in, P)
+        A_diag = A_diag + segment_sum(M22, fi.poly_out, P)
+        # merge the off-diagonal blocks per polytope pair
+        key = fi.poly_in.astype(np.int64) * P + fi.poly_out
+        pairs, pair_id = np.unique(key, return_inverse=True)
+        pin = (pairs // P).astype(np.int64)
+        pout = (pairs % P).astype(np.int64)
+        pair_id = pair_id.reshape(-1)
+        rows += [pin, pout]
+        cols += [pout, pin]
+        datas += [segment_sum(M12, pair_id, pairs.shape[0]),
+                  segment_sum(M21, pair_id, pairs.shape[0])]
+
+    if include_boundary and fb.poly_in.shape[0] > 0:
+        sel = np.where(dirichlet_face_mask(ah, dirichlet_ids))[0]
+        if sel.shape[0]:
+            fbd = fb.select(sel)
+            A_diag = A_diag + segment_sum(
+                _boundary_block(fbd, penalty_constant), fbd.poly_in, P)
+
+    data = torch.cat([A_diag] + datas, dim=0)
+    return BlockMatrix.from_blocks(np.concatenate(rows), np.concatenate(cols),
+                                   data, P)
+
+
+def assemble_rhs(
+    ah: AgglomerationHandler,
+    f_fn,
+    g_fn=None,
+    penalty_constant: float | None = None,
+    dtype=torch.float64,
+    vol: VolumeTables | None = None,
+    faces: tuple | None = None,
+    dirichlet_ids=None,
+    neumann_fn=None,
+    *,
+    device,
+) -> torch.Tensor:
+    """Flat rhs: int f v plus, for the Dirichlet datum g, the boundary
+    consistency and penalty terms int_GD (-grad v . n + gamma v) g, plus
+    int_GN g_N v on the non-Dirichlet faces.  ``f_fn``/``g_fn`` map real
+    points [..., dim] to values [...]; ``neumann_fn(x, n)`` is the flux
+    datum.  ``g_fn=None`` is homogeneous Dirichlet; ``dirichlet_ids=None``
+    makes every boundary face Dirichlet."""
+    if penalty_constant is None:
+        penalty_constant = default_penalty_constant(ah.degree, ah.dim)
+    if vol is None:
+        vol = build_volume_tables(ah, dtype, device=device)
+    if faces is None:
+        faces = build_face_tables(ah, dtype, device=device)
+    _, fb = faces
+    P = ah.n_poly
+
+    r_cell = torch.einsum("cqi,cq,cq->ci", vol.B, vol.w, f_fn(vol.x))
+    rhs = segment_sum(r_cell, vol.cell2poly, P)
+    if fb.poly_in.shape[0] > 0:
+        dmask = dirichlet_face_mask(ah, dirichlet_ids)
+        sel = np.where(dmask)[0]
+        if g_fn is not None and sel.shape[0]:
+            fs = fb.select(sel)
+            gamma = (penalty_constant / fs.h_f)[:, None]
+            gn = torch.einsum("fqid,fqd->fqi", fs.G0, fs.n)
+            r_face = torch.einsum("fqi,fq,fq->fi",
+                                  fs.B0 * gamma[..., None] - gn, fs.w,
+                                  g_fn(fs.x))
+            rhs = rhs + segment_sum(r_face, fs.poly_in, P)
+        neu = np.where(~dmask)[0]
+        if neumann_fn is not None and neu.shape[0]:
+            fs = fb.select(neu)
+            r_face = torch.einsum("fqi,fq,fq->fi", fs.B0, fs.w,
+                                  neumann_fn(fs.x, fs.n))
+            rhs = rhs + segment_sum(r_face, fs.poly_in, P)
+    return rhs.reshape(-1)
+
+
+def mass_matrix(ah: AgglomerationHandler, coeff_fn=None, dtype=torch.float64,
+                vol: VolumeTables | None = None, *, device) -> BlockMatrix:
+    """Block-diagonal mass matrix int c(x) u v (c = 1 by default)."""
+    if vol is None:
+        vol = build_volume_tables(ah, dtype, device=device)
+    P = ah.n_poly
+    w = vol.w if coeff_fn is None else vol.w * coeff_fn(vol.x)
+    M_cell = torch.einsum("cqi,cqj,cq->cij", vol.B, vol.B, w)
+    M = segment_sum(M_cell, vol.cell2poly, P)
+    return BlockMatrix(M, np.arange(P), np.arange(P), P, P)
+
+
+def project(ah: AgglomerationHandler, fn, dtype=torch.float64,
+            vol: VolumeTables | None = None, *, device) -> torch.Tensor:
+    """L2 projection of ``fn`` onto the polytopal DG space: exact for
+    polynomials of degree <= p."""
+    if vol is None:
+        vol = build_volume_tables(ah, dtype, device=device)
+    P = ah.n_poly
+    M = mass_matrix(ah, dtype=dtype, vol=vol, device=device).data
+    b_cell = torch.einsum("cqi,cq,cq->ci", vol.B, vol.w, fn(vol.x))
+    b = segment_sum(b_cell, vol.cell2poly, P)
+    return torch.linalg.solve(M, b[..., None])[..., 0].reshape(-1)
 
 
 def build_banded_groups(ah: AgglomerationHandler, offsets: np.ndarray,

@@ -1,4 +1,4 @@
-from polydeal_tpu_torch.fem.basis import LegendreDGP, make_basis
+from polydeal_tpu_torch.fem.basis import LegendreDGP, TensorDGQ, make_basis
 from polydeal_tpu_torch.fem.quadrature import (
     face_quadrature,
     gauss_legendre_1d,
@@ -6,4 +6,4 @@ from polydeal_tpu_torch.fem.quadrature import (
 )
 
 __all__ = ["gauss_legendre_1d", "tensor_gauss", "face_quadrature",
-           "LegendreDGP", "make_basis"]
+           "LegendreDGP", "TensorDGQ", "make_basis"]

@@ -4,21 +4,22 @@ on torch tensors.
 Counterpart of ``polydeal_tpu/fem/basis.py``: :class:`LegendreDGP`, the
 complete polynomial space P_p spanned by products of shifted Legendre
 polynomials, L2-orthonormal on [0,1]^dim, first function constant (the
-reference's ``FE_AggloDGP``).  Exponent tables stay numpy; evaluation
-runs on whatever device and dtype the points tensor has.  ``TensorDGQ``
-is not ported yet.
+reference's ``FE_AggloDGP``), and :class:`TensorDGQ`, the tensor space
+Q_p with a nodal Lagrange basis on Gauss-Lobatto points (the reference's
+``FE_DGQ``).  Exponent and coefficient tables stay numpy; evaluation runs
+on whatever device and dtype the points tensor has.
 """
 
 from __future__ import annotations
 
 import itertools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from math import comb
 
 import numpy as np
 import torch
 
-__all__ = ["LegendreDGP", "make_basis"]
+__all__ = ["LegendreDGP", "TensorDGQ", "make_basis"]
 
 
 def _legendre_1d_all(x: torch.Tensor, degree: int):
@@ -54,6 +55,12 @@ def _complete_exponents(dim: int, degree: int) -> np.ndarray:
         for alpha in itertools.product(range(total + 1), repeat=dim):
             if sum(alpha) == total:
                 exps.append(alpha)
+    return np.asarray(exps, dtype=np.int32)
+
+
+def _tensor_exponents(dim: int, degree: int) -> np.ndarray:
+    """All multi-indices with max entry <= degree (Q_p space)."""
+    exps = list(itertools.product(range(degree + 1), repeat=dim))
     return np.asarray(exps, dtype=np.int32)
 
 
@@ -150,9 +157,93 @@ class LegendreDGP:
         return torch.stack(rows, dim=-3)  # [..., nb, dim, P]
 
 
-def make_basis(family: str, dim: int, degree: int) -> LegendreDGP:
+def _gauss_lobatto_01(n: int) -> np.ndarray:
+    """n Gauss-Lobatto points on [0,1] (n >= 2), or midpoint for n == 1."""
+    if n == 1:
+        return np.array([0.5])
+    if n == 2:
+        return np.array([0.0, 1.0])
+    # interior points are roots of P'_{n-1}
+    c = np.zeros(n)
+    c[-1] = 1.0
+    dleg = np.polynomial.legendre.Legendre(c).deriv()
+    interior = np.sort(dleg.roots())
+    pts = np.concatenate([[-1.0], interior, [1.0]])
+    return 0.5 * (pts + 1.0)
+
+
+@dataclass(frozen=True)
+class TensorDGQ:
+    """Tensor space Q_p, nodal Lagrange basis on Gauss-Lobatto points."""
+
+    dim: int
+    degree: int
+    _coeffs: np.ndarray = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        nodes = _gauss_lobatto_01(self.degree + 1)
+        # monomial coefficients of each 1D Lagrange polynomial: the
+        # columns of inv(Vandermonde), [power, node]
+        V = np.vander(nodes, N=self.degree + 1, increasing=True)
+        object.__setattr__(self, "_coeffs", np.linalg.inv(V))
+
+    @property
+    def exponents(self) -> np.ndarray:
+        return _tensor_exponents(self.dim, self.degree)
+
+    @property
+    def n_basis(self) -> int:
+        return (self.degree + 1) ** self.dim
+
+    def _lagrange_1d_all(self, x: torch.Tensor):
+        """1D Lagrange values/derivatives at x: x.shape + (deg+1,)."""
+        n = self.degree + 1
+        powers = torch.stack([x**k for k in range(n)], dim=-1)
+        dpowers = torch.stack(
+            [k * x ** max(k - 1, 0) if k > 0 else torch.zeros_like(x)
+             for k in range(n)], dim=-1)
+        C = torch.as_tensor(self._coeffs, dtype=x.dtype, device=x.device)
+        return powers @ C, dpowers @ C
+
+    def _index(self, d: int, device) -> torch.Tensor:
+        return torch.as_tensor(self.exponents[:, d], dtype=torch.long,
+                               device=device)
+
+    def eval(self, points: torch.Tensor) -> torch.Tensor:
+        """points [..., dim] -> values [..., n_basis]."""
+        V, _ = self._lagrange_1d_all(points)  # [..., dim, n1d]
+        out = torch.ones(V.shape[:-2] + (self.n_basis,), dtype=V.dtype,
+                         device=V.device)
+        for d in range(self.dim):
+            out = out * V[..., d, :][..., self._index(d, V.device)]
+        return out
+
+    def grad(self, points: torch.Tensor) -> torch.Tensor:
+        """points [..., dim] -> gradients [..., n_basis, dim]."""
+        V, D = self._lagrange_1d_all(points)
+        comps = []
+        for e in range(self.dim):
+            g = torch.ones(V.shape[:-2] + (self.n_basis,), dtype=V.dtype,
+                           device=V.device)
+            for d in range(self.dim):
+                tab = D if d == e else V
+                g = g * tab[..., d, :][..., self._index(d, V.device)]
+            comps.append(g)
+        return torch.stack(comps, dim=-1)
+
+    def eval_t(self, points: torch.Tensor) -> torch.Tensor:
+        """points [..., dim, P] -> [..., nb, P]."""
+        return self.eval(points.movedim(-2, -1)).movedim(-2, -1)
+
+    def grad_t(self, points: torch.Tensor) -> torch.Tensor:
+        """points [..., dim, P] -> [..., nb, dim, P]."""
+        return self.grad(points.movedim(-2, -1)).movedim(-3, -1)
+
+
+def make_basis(family: str, dim: int, degree: int):
     family = family.lower()
     if family in ("dgp", "agglodgp", "legendre", "fe_agglodgp"):
         return LegendreDGP(dim, degree)
-    raise NotImplementedError(
-        f"basis family {family!r} is not ported yet (only 'dgp')")
+    if family in ("dgq", "fe_dgq"):
+        return TensorDGQ(dim, degree)
+    raise ValueError(f"unknown basis family: {family}")

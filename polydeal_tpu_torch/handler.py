@@ -42,7 +42,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from polydeal_tpu_torch.fem.basis import LegendreDGP, make_basis
+from polydeal_tpu_torch.fem.basis import make_basis
 from polydeal_tpu_torch.mesh.fine_mesh import FineMesh
 
 __all__ = ["FaceTable", "PolytopalFaces", "AgglomerationHandler"]
@@ -149,7 +149,7 @@ class AgglomerationHandler:
             raise ValueError("cell2poly must have one entry per fine cell")
         self.degree = degree
         self.family = family
-        self.basis: LegendreDGP = make_basis(family, mesh.dim, degree)
+        self.basis = make_basis(family, mesh.dim, degree)
         self.n_quad = n_quad if n_quad is not None else degree + 1
 
         self.n_poly = int(self.cell2poly.max()) + 1

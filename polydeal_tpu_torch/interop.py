@@ -1,7 +1,7 @@
 """Carry the JAX package's objects, given as numpy arrays, into the port.
 
-The two packages share layouts on purpose: a band, its i-major copy, a
-pack, the slot-padded assembly tables, the transfer embeddings and the
+The two packages share layouts on purpose: a block-COO matrix, its
+block-ELL form, a band, its i-major copy, a pack, the slot-padded assembly tables, the transfer embeddings and the
 monodomain state are the same arrays in both.  These helpers build the
 port's objects from those arrays, so tests can run both packages on the
 same band and tables.
@@ -15,15 +15,40 @@ import torch
 
 from polydeal_tpu_torch.ops.packed import PackPlan
 from polydeal_tpu_torch.solvers.multigrid import Transfer
-from polydeal_tpu_torch.sparse import BlockBanded, BlockPacked
+from polydeal_tpu_torch.sparse import (
+    BlockBanded,
+    BlockELL,
+    BlockMatrix,
+    BlockPacked,
+)
 
-__all__ = ["banded_from_arrays", "packed_from_arrays", "groups_from_arrays",
+__all__ = ["block_matrix_from_arrays", "ell_from_arrays",
+           "banded_from_arrays", "packed_from_arrays", "groups_from_arrays",
            "transfer_from_arrays", "monodomain_state_from_arrays"]
 
 
 def _t(a, device):
     # a copy: arrays from jax are read-only views
     return torch.as_tensor(np.array(a), device=device)
+
+
+def block_matrix_from_arrays(data, rows, cols, n_block_rows: int,
+                             n_block_cols: int, *, device) -> BlockMatrix:
+    """BlockMatrix from a JAX ``BlockMatrix``'s ``data`` [nnz, nb, nb] and
+    its sorted ``rows``/``cols``."""
+    return BlockMatrix(data=_t(data, device),
+                       rows=np.asarray(rows, dtype=np.int64),
+                       cols=np.asarray(cols, dtype=np.int64),
+                       n_block_rows=int(n_block_rows),
+                       n_block_cols=int(n_block_cols))
+
+
+def ell_from_arrays(data, cols, n_block_cols: int, *, device) -> BlockELL:
+    """BlockELL from a JAX ``BlockELL``'s ``data`` [P, K, nb, nb] and
+    ``cols`` [P, K]."""
+    return BlockELL(data=_t(data, device),
+                    cols=np.asarray(cols, dtype=np.int32),
+                    n_block_cols=int(n_block_cols))
 
 
 def banded_from_arrays(data, offsets, n_block_cols: int, data_i=None, *,

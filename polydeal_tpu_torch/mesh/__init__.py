@@ -4,5 +4,10 @@ from polydeal_tpu_torch.mesh.fine_mesh import (
     hyper_cube,
     hyper_rectangle,
 )
+from polydeal_tpu_torch.mesh.simplex import (
+    SimplexMesh,
+    triangulated_hyper_cube,
+)
 
-__all__ = ["FineMesh", "hyper_cube", "hyper_rectangle", "distort_random"]
+__all__ = ["FineMesh", "hyper_cube", "hyper_rectangle", "distort_random",
+           "SimplexMesh", "triangulated_hyper_cube"]

@@ -176,7 +176,7 @@ def setup_flagship(
         handlers, parents, A0, chebyshev_degree=CHEBYSHEV_DEGREE,
         n_smooth=N_SMOOTH, smoothing_range=SMOOTHING_RANGE,
         grid_shapes=grid_shapes, precond_dtype=precond_dtype, dtype=dtype,
-        coarse_solver=coarse_solver, device=device)
+        coarse_solver=coarse_solver, level_assembly="banded", device=device)
     sync()
     t_mg = time.perf_counter() - t3
     if packed and not isinstance(mg.ells[-1], BlockPacked):

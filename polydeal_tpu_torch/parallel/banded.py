@@ -186,6 +186,12 @@ class ShardedBandedSystem:
         hold their halo, and coarsen inside a slab."""
         n_dev = 1 if group is None else dist.get_world_size(group)
         rank = 0 if group is None else dist.get_rank(group)
+        if mg.lo_dinvs is not None and any(
+                lo.dtype != d.dtype for lo, d in zip(mg.lo_dinvs[1:],
+                                                    mg.dinvs_t[1:])):
+            raise NotImplementedError(
+                "sharded smoothing vectors in another dtype (vector_dtype) "
+                "are not ported yet")
         if min_sharded_lanes is None:
             min_sharded_lanes = 4 * n_dev
 
@@ -232,8 +238,8 @@ class ShardedBandedSystem:
                 kind="packed" if isinstance(ell, BlockPacked) else "banded",
                 per=per, T=_tile_for(ell, per),
                 lo=float(mg.los[l]), hi=float(mg.his[l]), nb=ell.n_basis,
-                uniform_C=t._uniform_C, deg=mg.chebyshev_degree,
-                ns=mg.n_smooth)
+                uniform_C=t._uniform_C, deg=mg.level_degree(l),
+                ns=mg.level_smooth(l))
             pl_ = {"offsets_t": ell.offsets_t}
             if isinstance(ell, BlockPacked):
                 lv.plan = ell.plan
@@ -271,16 +277,21 @@ class ShardedBandedSystem:
 
         # replicated bottom: a Multigrid over levels [0, k0), with the
         # smoother copies, so that it smooths as the unsharded cycle does
+        def bottom(v):  # a per-level list or schedule, replicated levels
+            return v[:k0] if isinstance(v, (list, tuple)) else v
+
         rep = Multigrid(
             ells=mg.ells[:k0],
             transfers=mg.transfers[:max(k0 - 1, 0)],
-            n_smooth=mg.n_smooth,
-            chebyshev_degree=mg.chebyshev_degree,
+            n_smooth=bottom(mg.n_smooth),
+            chebyshev_degree=bottom(mg.chebyshev_degree),
             coarse_lu=mg.coarse_lu,
             dinvs_t=mg.dinvs_t[:k0],
             los=mg.los[:k0],
             his=mg.his[:k0],
             lo_ells=(mg.lo_ells[:k0] if mg.lo_ells is not None else None),
+            lo_dinvs=(mg.lo_dinvs[:k0] if mg.lo_dinvs is not None
+                      else None),
         )
         fine = mg.ells[-1]
         return cls(group, levels, params, rep, nb=fine.n_basis,

@@ -16,6 +16,7 @@ from polydeal_tpu_torch.solvers.multigrid import (
     build_rtree_hierarchy,
     build_structured_hierarchy,
     detect_grid_shapes,
+    galerkin_coarsen,
     relabel_band_minimizing,
 )
 
@@ -33,5 +34,6 @@ __all__ = [
     "build_rtree_hierarchy",
     "build_structured_hierarchy",
     "detect_grid_shapes",
+    "galerkin_coarsen",
     "relabel_band_minimizing",
 ]

@@ -1,11 +1,17 @@
 """Polytopal (agglomerated) multigrid, the R3MG method, on torch tensors.
 
-Counterpart of ``polydeal_tpu/solvers/multigrid.py`` on the flagship's
-path: every level is a ``BlockBanded`` re-assembled directly on its own
-polytopes (``mode='direct'``, ``level_assembly='banded'``), transfers are
-one dense n_b x n_b embedding block per fine polytope, smoothing is
-degree-k Chebyshev with point Jacobi, and the coarsest level is solved
-directly.  The whole V-cycle runs in the transposed [nb, P] layout.
+Counterpart of ``polydeal_tpu/solvers/multigrid.py``.  Levels are
+re-assembled directly on their own polytopes (``mode='direct'``: into the
+band with ``level_assembly='banded'``, or by the table path into a
+block-COO ``BlockMatrix`` with ``'tables'``) or Galerkin-coarsened from the
+fine matrix (``mode='galerkin'``); transfers are one dense n_b x n_b
+embedding block per fine polytope, smoothing is degree-k Chebyshev with
+point Jacobi (per-level schedules allowed), and the coarsest level is
+solved directly.  ``Multigrid.setup`` turns a ``BlockMatrix`` level into a
+band (at most 96 offsets) or a block-ELL matrix.  The V-cycle runs in the
+transposed [nb, P] layout on every level that has it (banded and packed
+levels whose transfer has a lane path) and flat elsewhere (block-ELL
+levels), switching layouts at the boundaries.
 
 Levels with at least :data:`IMAJOR_MIN_P` polytopes carry the i-major
 band copy, so their SpMVs run K1 and their smoothing steps and residuals
@@ -32,13 +38,20 @@ from polydeal_tpu_torch.solvers.chebyshev import (
     estimate_lambda_max,
 )
 from polydeal_tpu_torch.ops.packed import build_pack_plan
-from polydeal_tpu_torch.sparse import BlockBanded, BlockPacked
+from polydeal_tpu_torch.sparse import (
+    BlockBanded,
+    BlockELL,
+    BlockMatrix,
+    BlockPacked,
+)
 from polydeal_tpu_torch.utils.grouping import padded_group_lists
 
 __all__ = [
     "IMAJOR_MIN_P",
     "PACK_MIN_P",
+    "MAX_BAND_OFFSETS",
     "build_embedding",
+    "galerkin_coarsen",
     "Transfer",
     "relabel_band_minimizing",
     "detect_grid_shapes",
@@ -61,6 +74,10 @@ IMAJOR_MIN_P = 32768
 # (multigrid.py:944-988) without its TPU tiling rules, on every device,
 # so the CPU lays a hierarchy out as the card does.
 PACK_MIN_P = 4096
+
+# A BlockMatrix level with at most this many band offsets is banded, a
+# wider one goes to block-ELL (the JAX package's Multigrid.setup rule).
+MAX_BAND_OFFSETS = 96
 
 
 def build_embedding(
@@ -101,10 +118,24 @@ def build_embedding(
     return torch.einsum("ik,pkj->pij", Minv, R)
 
 
+def galerkin_coarsen(A_fine: BlockMatrix, E: torch.Tensor, parent: np.ndarray,
+                     n_coarse: int) -> BlockMatrix:
+    """A_c = P^T A_f P through the one-parent-per-row structure of P: one
+    triple product per fine block, merged by parent pair (a deterministic
+    segment sum)."""
+    parent = np.asarray(parent)
+    dev = A_fine.data.device
+    r = torch.as_tensor(A_fine.rows, device=dev)
+    c = torch.as_tensor(A_fine.cols, device=dev)
+    data_c = torch.einsum("kia,kij,kjb->kab", E[r], A_fine.data, E[c])
+    return BlockMatrix.from_blocks(parent[A_fine.rows], parent[A_fine.cols],
+                                   data_c, n_coarse)
+
+
 @dataclass
 class Transfer:
     """Two-level transfer: fine polytopes -> coarse parents, in the
-    transposed [nb, P] layout, on one of three paths:
+    transposed [nb, P] layout, on one of three lane paths:
 
     * ``grid_shape`` (fine-level block grid, lex order): prolongation
       repeats each coarse block to its 2^dim children, restriction is a
@@ -112,7 +143,10 @@ class Transfer:
     * uniform contiguous children (parent == arange // C): broadcast and
       reshape-sum;
     * otherwise a lane gather of the parent, and a masked gather-sum of
-      the padded children."""
+      the padded children.
+
+    :meth:`prolong`/:meth:`restrict` are the flat [P * nb] forms, which the
+    V-cycle runs on a level without the transposed layout (block-ELL)."""
 
     E: torch.Tensor  # [P_f, nb, nb]
     parent: np.ndarray  # [P_f]
@@ -169,6 +203,27 @@ class Transfer:
             return t.reshape(nb, self.n_coarse, self._uniform_C).sum(dim=2)
         g = t[:, self._children_t].reshape(nb, *self.children.shape)
         return (g * self._cmask_t[None]).sum(dim=2)
+
+    def prolong(self, u_c: torch.Tensor) -> torch.Tensor:
+        """Flat [P_c * nb] -> [P_f * nb]."""
+        nb = self.E.shape[-1]
+        if self._uniform_C or self.grid_shape is not None:
+            uct = u_c.reshape(self.n_coarse, nb).T
+            return self.prolong_t(uct).T.reshape(-1)
+        uc = u_c.reshape(self.n_coarse, nb)
+        return torch.einsum("pij,pj->pi", self.E,
+                            uc[self._parent_t]).reshape(-1)
+
+    def restrict(self, r_f: torch.Tensor) -> torch.Tensor:
+        """Flat [P_f * nb] -> [P_c * nb]: the transpose of
+        :meth:`prolong`."""
+        nb = self.E.shape[-1]
+        if self._uniform_C or self.grid_shape is not None:
+            return self.restrict_t(r_f.reshape(-1, nb).T).T.reshape(-1)
+        contrib = torch.einsum("pij,pi->pj", self.E, r_f.reshape(-1, nb))
+        g = contrib[self._children_t].reshape(*self.children.shape, nb)
+        return torch.einsum("pc,pcj->pj", self._cmask_t.to(g.dtype),
+                            g).reshape(-1)
 
 
 def relabel_band_minimizing(c2p: np.ndarray, centers: np.ndarray) -> np.ndarray:
@@ -338,148 +393,270 @@ def _with_imajor_if_big(e: BlockBanded,
     return e
 
 
+def _level_operator(A):
+    """The solver layout of a level: a BlockMatrix becomes a band when it
+    has at most :data:`MAX_BAND_OFFSETS` offsets (the o-major copy dropped
+    where the i-major one is attached: only the kernels read it), else a
+    block-ELL matrix; a band or pack passes through."""
+    if not isinstance(A, BlockMatrix):
+        return _with_imajor_if_big(A)
+    e = A.to_banded_device(max_offsets=MAX_BAND_OFFSETS)
+    if e is None:
+        return A.to_ell()
+    return _with_imajor_if_big(e, drop_omajor=True)
+
+
+def _schedule(v, n_levels: int, name: str):
+    """An int, or a per-level tuple (coarsest first, one entry a level;
+    entry 0 is unused: the coarsest level is solved directly)."""
+    if isinstance(v, int):
+        return v
+    v = tuple(int(x) for x in v)
+    if len(v) != n_levels:
+        raise ValueError(
+            f"{name} schedule has {len(v)} entries for {n_levels} levels")
+    return v
+
+
+_VECTOR_DTYPES = (torch.float32, torch.float64)
+
+
 @dataclass
 class Multigrid:
-    """V-cycle over directly re-assembled banded or packed levels;
-    ``ells[0]`` is the coarsest (always banded).  Chebyshev(degree) +
-    point-Jacobi smoothing on every level, a direct solve at the bottom,
-    wrapped as a CG preconditioner (the reference's flagship composition,
-    agglo_amg.cc:1278-1414)."""
+    """V-cycle over banded, packed or block-ELL levels; ``ells[0]`` is the
+    coarsest.  Chebyshev(degree) + point-Jacobi smoothing on every level,
+    a direct solve at the bottom, wrapped as a CG preconditioner (the
+    reference's flagship composition, agglo_amg.cc:1278-1414)."""
 
-    ells: list  # BlockBanded or BlockPacked, coarse -> fine
+    ells: list  # BlockBanded, BlockPacked or BlockELL, coarse -> fine
     transfers: list  # transfers[l]: level l <- l+1
-    n_smooth: int = 5
-    chebyshev_degree: int = 3
+    # an int for every level, or a per-level tuple (coarsest first; entry
+    # 0 unused)
+    n_smooth: int | tuple = 5
+    chebyshev_degree: int | tuple = 3
     # (Ainv,): explicit dense inverse, one matmul; (LU, pivots): LU solve
     coarse_lu: tuple = ()
-    dinvs_t: list = field(default_factory=list)  # [nb, P] per level
+    dinvs_t: list = field(default_factory=list)  # [nb, P] (flat: [n])
     los: list = field(default_factory=list)  # smoothing interval, floats
     his: list = field(default_factory=list)
     # low-precision band copies for the smoother's SpMVs only
-    # (precond_dtype); vectors stay in the operator dtype.  A packed level
-    # keeps its operator object there: no low-precision copy
+    # (precond_dtype); a packed level keeps its operator object there: no
+    # low-precision copy.  lo_dinvs carries the smoothing vectors' dtype
+    # (vector_dtype; the operator's by default): the cycle casts a level's
+    # rhs to it
     lo_ells: list | None = None
+    lo_dinvs: list | None = None
 
     @classmethod
     def setup(
         cls,
         matrices: list,
         transfers: list,
-        chebyshev_degree: int = 3,
-        n_smooth: int = 5,
+        chebyshev_degree: int | tuple = 3,
+        n_smooth: int | tuple = 5,
         smoothing_range: float = 15.0,
         precond_dtype=None,
+        vector_dtype=None,
         coarse_solver: str = "lu",
     ) -> "Multigrid":
-        """Eigenvalue estimates, Jacobi diagonals and the coarse solve.
-        The smoothing intervals become Python floats here, once, so the
-        V-cycle never waits on the device for them."""
-        ells = [_with_imajor_if_big(A) for A in matrices]
+        """Solver layouts, eigenvalue estimates, Jacobi diagonals and the
+        coarse solve.  ``matrices`` (coarse to fine) are bands, packs or
+        BlockMatrix levels (see :func:`_level_operator`).  The smoothing
+        intervals become Python floats here, once, so the V-cycle never
+        waits on the device for them.
+
+        ``precond_dtype`` makes low-precision band copies for the
+        smoother's products; ``vector_dtype`` (f32 or f64) runs the
+        smoothing vectors in that type, and needs every smoothing band to
+        be no wider (the kernels multiply an f64 band by f64 vectors
+        only): with an f64 operator, pass ``precond_dtype`` as well."""
+        n_lv = len(matrices)
+        chebyshev_degree = _schedule(chebyshev_degree, n_lv,
+                                     "chebyshev_degree")
+        n_smooth = _schedule(n_smooth, n_lv, "n_smooth")
+        ells = [_level_operator(A) for A in matrices]
         lams = []
         for Ae in ells[1:]:
             inv = 1.0 / Ae.diagonal()
             lams.append(estimate_lambda_max(
                 Ae.matvec, lambda r, inv=inv: inv * r, Ae.shape[0], iters=25,
                 dtype=Ae.dtype, device=inv.device))
-        A0 = ells[0].to_dense()
+        A0 = (matrices[0] if isinstance(matrices[0], BlockMatrix)
+              else ells[0]).to_dense()
         if coarse_solver == "inv":
             coarse_lu = (torch.linalg.inv(A0),)
         elif coarse_solver == "lu":
             coarse_lu = tuple(torch.linalg.lu_factor(A0))
         else:
             raise ValueError(f"unknown coarse solver: {coarse_solver!r}")
-        lo_ells = None
+        dinvs = [None] + [1.0 / (Ae.diagonal_t() if hasattr(Ae, "diagonal_t")
+                                 else Ae.diagonal()) for Ae in ells[1:]]
+        lo_ells = lo_dinvs = None
         if precond_dtype is not None:
-            lo_ells = [e if isinstance(e, BlockPacked)
+            lo_ells = [BlockELL(e.data.to(precond_dtype), e.cols,
+                                e.n_block_cols) if isinstance(e, BlockELL)
+                       else e if isinstance(e, BlockPacked)
                        else _with_imajor_if_big(BlockBanded(
                            e.data.to(precond_dtype), e.offsets,
                            e.n_block_cols,
                            None if e.data_i is None
                            else e.data_i.to(precond_dtype)))
                        for e in ells]
+        elif vector_dtype is not None:
+            lo_ells = list(ells)
+        if lo_ells is not None:
+            vdt = vector_dtype
+            if vdt is not None and (vdt not in _VECTOR_DTYPES or any(
+                    torch.finfo(e.dtype).bits > torch.finfo(vdt).bits
+                    for e in lo_ells[1:])):
+                raise ValueError(
+                    f"vector_dtype {vdt} needs f32 or f64 vectors and "
+                    "smoothing bands no wider (pass precond_dtype)")
+            lo_dinvs = [None] + [d if vdt is None else d.to(vdt)
+                                 for d in dinvs[1:]]
         return cls(
             ells=ells,
             transfers=transfers,
             n_smooth=n_smooth,
             chebyshev_degree=chebyshev_degree,
             coarse_lu=coarse_lu,
-            dinvs_t=[None] + [1.0 / Ae.diagonal_t() for Ae in ells[1:]],
+            dinvs_t=dinvs,
             los=[None] + [lam / smoothing_range for lam in lams],
             his=[None] + [1.2 * lam for lam in lams],
             lo_ells=lo_ells,
+            lo_dinvs=lo_dinvs,
         )
 
     @property
     def n_levels(self) -> int:
         return len(self.ells)
 
+    def level_degree(self, level: int) -> int:
+        d = self.chebyshev_degree
+        return d[level] if isinstance(d, tuple) else d
+
+    def level_smooth(self, level: int) -> int:
+        n = self.n_smooth
+        return n[level] if isinstance(n, tuple) else n
+
+    def _is_t(self, level: int) -> bool:
+        """Whether the level runs in the transposed [nb, P] layout (its
+        operator has it; a block-ELL level runs flat)."""
+        return hasattr(self.ells[level], "matvec_t")
+
     def _to_t(self, level: int, b_flat: torch.Tensor) -> torch.Tensor:
         return b_flat.reshape(-1, self.ells[level].n_basis).T.contiguous()
 
     @staticmethod
     def _fused_ok(A, b: torch.Tensor) -> bool:
-        """Fused smoothing and residuals for f32 and f64 vectors: K2 on
-        every level that carries the i-major copy, fused K0 on every other
-        banded level, K7 on every packed level without a far tail."""
-        return A.fused_cheb_ok() and b.dtype in (torch.float32,
-                                                 torch.float64)
+        """Fused smoothing and residuals (in the transposed layout) for f32
+        and f64 vectors: K2 on every level that carries the i-major copy,
+        fused K0 on every other banded level, K7 on every packed level
+        without a far tail; no block-ELL level."""
+        return (hasattr(A, "fused_cheb_ok") and A.fused_cheb_ok()
+                and b.dtype in _VECTOR_DTYPES)
 
     def _residual(self, A, x, b):
         """r = b - A x, through K2, fused K0 or K7 where the level allows
         it."""
-        if self._fused_ok(A, b):
+        if b.dim() == 2 and self._fused_ok(A, b):
             return A.residual_t(x, b)
-        return b - A.matvec_t(x)
+        mv = A.matvec_t if b.dim() == 2 else A.matvec
+        return b - mv(x)
+
+    @staticmethod
+    def _promote(v: torch.Tensor, t: Transfer) -> torch.Tensor:
+        """``v`` in the transfer's type where the smoothing vectors run
+        narrower (vector_dtype), as the JAX package's einsums promote."""
+        if v.dtype == t.E.dtype:
+            return v
+        return v.to(torch.promote_types(v.dtype, t.E.dtype))
+
+    def _restrict(self, level: int, r: torch.Tensor) -> torch.Tensor:
+        """Level ``level``'s residual to level - 1, in that level's
+        layout."""
+        t = self.transfers[level - 1]
+        r = self._promote(r, t)
+        down_t = self._is_t(level - 1)
+        if r.dim() == 2:
+            return t.restrict_t(r) if down_t else t.restrict(
+                r.T.reshape(-1))
+        rc = t.restrict(r)
+        return self._to_t(level - 1, rc) if down_t else rc
+
+    def _prolong(self, level: int, xc: torch.Tensor,
+                 to_t: bool) -> torch.Tensor:
+        """Level ``level - 1``'s ``xc`` up to ``level``, transposed when
+        ``to_t``."""
+        t = self.transfers[level - 1]
+        xc = self._promote(xc, t)
+        if to_t:
+            return (t.prolong_t(xc) if xc.dim() == 2
+                    else self._to_t(level, t.prolong(xc.reshape(-1))))
+        return t.prolong(xc.T.reshape(-1) if xc.dim() == 2 else xc)
 
     def _cycle(self, level: int, b: torch.Tensor) -> torch.Tensor:
-        """One V-cycle from ``level`` down; b and the result are [nb, P]."""
+        """One V-cycle from ``level`` down; b and the result are [nb, P]
+        where the level runs transposed, flat otherwise."""
         if level == 0:
             M = self.coarse_lu
-            bl = b.to(M[0].dtype).T.reshape(-1)
+            bl = b.to(M[0].dtype)
+            if b.dim() == 2:
+                bl = bl.T.reshape(-1)
             if len(M) == 1:  # explicit inverse: one matmul
                 x = M[0] @ bl
             else:
                 x = torch.linalg.lu_solve(M[0], M[1], bl[:, None])[:, 0]
-            return x.reshape(-1, b.shape[0]).T.to(b.dtype)
-        A = (self.lo_ells if self.lo_ells is not None else self.ells)[level]
-        b = b.contiguous()
-        dinv = self.dinvs_t[level]
+            if b.dim() == 2:
+                x = x.reshape(-1, b.shape[0]).T
+            return x.to(b.dtype)
+        use_lo = self.lo_ells is not None
+        A = (self.lo_ells if use_lo else self.ells)[level]
+        dinv = (self.lo_dinvs if use_lo else self.dinvs_t)[level]
+        # the smoothing vectors run in lo_dinvs' dtype (vector_dtype)
+        b = (b.to(dinv.dtype) if use_lo else b).contiguous()
+        is_t = b.dim() == 2
+        if not is_t and dinv.dim() == 2:
+            dinv = dinv.T.reshape(-1)
         step_fn = None
-        if self._fused_ok(A, b):
+        if is_t and self._fused_ok(A, b):
             # b is bound by closure: every sm(b, ...) call below passes the
             # same level rhs
             step_fn = (lambda xx, dd, c1, c2: A.cheb_step_t(
                 xx, dd, b, dinv, c1, c2))
-        sm = ChebyshevSmoother(A=A.matvec_t, Minv=lambda r: dinv * r,
+        sm = ChebyshevSmoother(A=A.matvec_t if is_t else A.matvec,
+                               Minv=lambda r: dinv * r,
                                lo=self.los[level], hi=self.his[level],
-                               degree=self.chebyshev_degree,
+                               degree=self.level_degree(level),
                                step_fn=step_fn)
+        ns = self.level_smooth(level)
         x = torch.zeros_like(b)
         first = True
-        for _ in range(self.n_smooth):
+        for _ in range(ns):
             x = sm(b, x, x_is_zero=first)  # pre-smooth starts from zero
             first = False
         r = self._residual(A, x, b)
-        t = self.transfers[level - 1]
-        xc = self._cycle(level - 1, t.restrict_t(r))
-        x = (x + t.prolong_t(xc)).to(b.dtype)
-        for _ in range(self.n_smooth):
+        xc = self._cycle(level - 1, self._restrict(level, r))
+        # the transfer may upcast the correction: back to the smoothing
+        # dtype, so the post-smoothing runs in it too
+        x = (x + self._prolong(level, xc, is_t)).to(b.dtype)
+        for _ in range(ns):
             x = sm(b, x)
         return x
 
     def fmg_guess(self, b: torch.Tensor) -> torch.Tensor:
         """Full-multigrid initial guess: restrict b to every level, solve
         the coarsest directly, then prolong upward with one V-cycle defect
-        correction per level.  ``b`` is the fine level's [nb, P] rhs."""
+        correction per level.  ``b`` is in the fine level's layout."""
         top = self.n_levels - 1
         bs = [None] * self.n_levels
         bs[top] = b
         for level in range(top, 0, -1):
-            bs[level - 1] = self.transfers[level - 1].restrict_t(bs[level])
+            bs[level - 1] = self._restrict(level, bs[level])
         x = self._cycle(0, bs[0])
         for level in range(1, self.n_levels):
             bl = bs[level]
-            x = self.transfers[level - 1].prolong_t(x).to(bl.dtype)
+            x = self._prolong(level, x, bl.dim() == 2).to(bl.dtype)
             # the residual uses the TRUE (full-precision) level operator
             r = self._residual(self.ells[level], x, bl)
             x = x + self._cycle(level, r).to(x.dtype)
@@ -489,20 +666,29 @@ class Multigrid:
         """One V-cycle on the flat fine-level vector (a CG
         preconditioner); the result has ``b``'s dtype."""
         top = self.n_levels - 1
-        return self._cycle(top, self._to_t(top, b)).to(b.dtype).T.reshape(-1)
+        if self._is_t(top):
+            return self._cycle(top, self._to_t(top, b)).to(
+                b.dtype).T.reshape(-1)
+        return self._cycle(top, b).to(b.dtype)
 
     def solve_cg(self, b: torch.Tensor, rtol: float = 1e-9,
                  maxiter: int = 200, fmg: bool = False) -> CGResult:
-        """MG-preconditioned CG on the flat rhs ``b``, run in the [nb, P]
-        layout; ``fmg=True`` starts from :meth:`fmg_guess`."""
+        """MG-preconditioned CG on the flat rhs ``b``, in the [nb, P]
+        layout where the fine level has it; ``fmg=True`` starts from
+        :meth:`fmg_guess`."""
         top = self.n_levels - 1
-        bt = self._to_t(top, b)
-        x0 = self.fmg_guess(bt) if fmg else None
-        res = cg_solve(self.ells[top].matvec_t, bt, x0=x0,
-                       M=lambda r: self._cycle(top, r).to(r.dtype),
-                       rtol=rtol, maxiter=maxiter)
-        return CGResult(x=res.x.T.reshape(-1), iterations=res.iterations,
-                        residual=res.residual)
+        A = self.ells[top]
+        if self._is_t(top):
+            bt = self._to_t(top, b)
+            x0 = self.fmg_guess(bt) if fmg else None
+            res = cg_solve(A.matvec_t, bt, x0=x0,
+                           M=lambda r: self._cycle(top, r).to(r.dtype),
+                           rtol=rtol, maxiter=maxiter)
+            return CGResult(x=res.x.T.reshape(-1), iterations=res.iterations,
+                            residual=res.residual)
+        x0 = self.fmg_guess(b) if fmg else None
+        return cg_solve(A.matvec, b, x0=x0, M=self.v_cycle, rtol=rtol,
+                        maxiter=maxiter)
 
 
 def level_pack_plan(h: AgglomerationHandler, offsets):
@@ -544,47 +730,73 @@ def build_multigrid(
     handlers: list,
     parents: list,
     A_fine,
-    chebyshev_degree: int = 3,
-    n_smooth: int = 5,
+    chebyshev_degree: int | tuple = 3,
+    n_smooth: int | tuple = 5,
     smoothing_range: float = 20.0,
+    mode: str = "direct",
     grid_shapes: list | None = None,
     precond_dtype=None,
+    vector_dtype=None,
     dtype=torch.float64,
+    level_assembly: str = "tables",
     coarse_solver: str = "lu",
     *,
     device,
 ) -> Multigrid:
     """The R3MG preconditioner from a handler chain (coarse to fine) and
-    the finest-level band (or pack): SIPG re-assembled directly on every
-    coarser level (the JAX package's ``mode='direct'``, ``level_assembly=
-    'banded'``), so the penalty scales with each level's h.  Every level
-    but the coarsest goes through :func:`maybe_pack_level`; a fine level
-    that arrives packed passes through."""
+    the finest-level matrix.
+
+    ``mode='direct'`` re-assembles SIPG on every coarser level, so the
+    penalty scales with each level's h: by the table path into a
+    BlockMatrix (``level_assembly='tables'``; ``A_fine`` a BlockMatrix,
+    every level banded or block-ELL by ``Multigrid.setup``), or straight
+    into the band through K3-K5 (``'banded'``; ``A_fine`` a band or pack,
+    every level but the coarsest through :func:`maybe_pack_level`, the
+    fine level's o-major copy dropped where it runs the kernels).
+    ``mode='galerkin'`` coarsens the BlockMatrix ``A_fine`` algebraically,
+    A_l = P^T A_{l+1} P (the reference's AmgProjector scheme)."""
     from polydeal_tpu_torch.assembly.sipg import (
         assemble_sipg_banded_direct,
+        assemble_sipg_matrix,
         build_banded_groups,
     )
 
-    matrices = []
-    for li, h in enumerate(handlers[:-1]):
-        ft = h.faces
-        interior = ~ft.is_boundary
-        diffs = (ft.poly_out - ft.poly_in)[interior].astype(np.int64)
-        offs = np.unique(np.concatenate(
-            [diffs, -diffs, np.zeros(1, dtype=np.int64)]))
-        groups = build_banded_groups(h, offs, dtype, device=device)
-        A_l = assemble_sipg_banded_direct(h, groups, offsets=offs)
-        del groups
-        # the coarsest level stays banded: its direct solve needs to_dense
-        matrices.append(A_l if li == 0 else maybe_pack_level(h, A_l))
-    # the fine level is read only through the kernels' layout when it has
-    # one, so its o-major copy goes
-    matrices.append(_with_imajor_if_big(
-        maybe_pack_level(handlers[-1], A_fine), drop_omajor=True))
+    Es = [build_embedding(handlers[l], handlers[l + 1], parents[l],
+                          dtype=dtype, device=device)
+          for l in range(len(handlers) - 1)]
+    if mode == "direct" and level_assembly == "banded":
+        matrices = []
+        for li, h in enumerate(handlers[:-1]):
+            ft = h.faces
+            interior = ~ft.is_boundary
+            diffs = (ft.poly_out - ft.poly_in)[interior].astype(np.int64)
+            offs = np.unique(np.concatenate(
+                [diffs, -diffs, np.zeros(1, dtype=np.int64)]))
+            groups = build_banded_groups(h, offs, dtype, device=device)
+            A_l = assemble_sipg_banded_direct(h, groups, offsets=offs)
+            del groups
+            # the coarsest level stays banded: its direct solve needs
+            # to_dense
+            matrices.append(A_l if li == 0 else maybe_pack_level(h, A_l))
+        # the fine level is read only through the kernels' layout when it
+        # has one, so its o-major copy goes
+        matrices.append(_with_imajor_if_big(
+            maybe_pack_level(handlers[-1], A_fine), drop_omajor=True))
+    elif mode == "direct" and level_assembly == "tables":
+        matrices = [assemble_sipg_matrix(h, dtype=dtype, device=device)
+                    for h in handlers[:-1]] + [A_fine]
+    elif mode == "direct":
+        raise ValueError(f"unknown level assembly: {level_assembly!r}")
+    elif mode == "galerkin":
+        matrices = [A_fine]
+        for l in range(len(handlers) - 2, -1, -1):
+            matrices.insert(0, galerkin_coarsen(matrices[0], Es[l],
+                                                parents[l],
+                                                handlers[l].n_poly))
+    else:
+        raise ValueError(f"unknown multigrid mode: {mode}")
     transfers = [
-        Transfer(E=build_embedding(handlers[l], handlers[l + 1], parents[l],
-                                   dtype=dtype, device=device),
-                 parent=parents[l], n_coarse=handlers[l].n_poly,
+        Transfer(E=Es[l], parent=parents[l], n_coarse=handlers[l].n_poly,
                  grid_shape=None if grid_shapes is None else grid_shapes[l])
         for l in range(len(handlers) - 1)
     ]
@@ -592,4 +804,5 @@ def build_multigrid(
                            chebyshev_degree=chebyshev_degree,
                            n_smooth=n_smooth, smoothing_range=smoothing_range,
                            precond_dtype=precond_dtype,
+                           vector_dtype=vector_dtype,
                            coarse_solver=coarse_solver)

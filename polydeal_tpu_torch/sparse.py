@@ -1,8 +1,14 @@
-"""Banded and packed block matrices with dense n_b x n_b blocks, on torch
-tensors.
+"""Block-sparse matrices with dense n_b x n_b blocks, on torch tensors.
 
-Counterpart of ``polydeal_tpu/sparse.py`` ``BlockBanded`` and
-``BlockPacked``.  The polytope
+Counterpart of ``polydeal_tpu/sparse.py``: the general block-COO
+``BlockMatrix`` (what the table assembly builds) and its block-ELL form
+``BlockELL``, and the solver layouts ``BlockBanded`` and ``BlockPacked``.
+Block indices stay host numpy arrays (they shape the program); the blocks
+are a tensor on the device.  ``BlockMatrix``'s reductions (merging
+duplicate blocks, the SpMV's sum by row) go through
+``utils/segment.SegmentSum``: one fixed order on a device, no atomics.
+
+In the banded layouts the polytope
 axis P is last, every column access is a shift by a band offset, and the
 zero blocks stored at rows lacking an offset annihilate what falls outside
 the matrix.  Offsets stay a host numpy array (they shape the program), with
@@ -47,7 +53,228 @@ from polydeal_tpu_torch.ops.packed import (
     packed_matvec_t,
 )
 
-__all__ = ["BlockBanded", "BlockPacked", "far_blocks", "pack_blocks"]
+from polydeal_tpu_torch.utils.segment import SegmentSum
+
+__all__ = ["BlockMatrix", "BlockELL", "BlockBanded", "BlockPacked",
+           "far_blocks", "pack_blocks"]
+
+
+@dataclass
+class BlockMatrix:
+    """Sorted block-COO matrix: data[k] sits at block (rows[k], cols[k])."""
+
+    data: torch.Tensor  # [nnz, nb_r, nb_c]
+    rows: np.ndarray  # [nnz] int64, host
+    cols: np.ndarray  # [nnz] int64, host
+    n_block_rows: int
+    n_block_cols: int
+    _row_sum: SegmentSum | None = field(init=False, repr=False,
+                                        default=None, compare=False)
+
+    @property
+    def n_basis(self) -> int:
+        return self.data.shape[-1]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.n_block_rows * self.data.shape[1],
+                self.n_block_cols * self.data.shape[2])
+
+    @classmethod
+    def from_blocks(cls, rows, cols, data, n_block_rows, n_block_cols=None):
+        """Build from possibly duplicated block entries: duplicates are
+        merged (a deterministic segment sum) and the blocks sorted by
+        (row, col) on the host."""
+        if n_block_cols is None:
+            n_block_cols = n_block_rows
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        key = rows * n_block_cols + cols
+        uniq, inv = np.unique(key, return_inverse=True)
+        merged = SegmentSum(inv.reshape(-1), uniq.shape[0], data.device)(data)
+        return cls(data=merged, rows=(uniq // n_block_cols).astype(np.int64),
+                   cols=(uniq % n_block_cols).astype(np.int64),
+                   n_block_rows=n_block_rows, n_block_cols=n_block_cols)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A @ x with x flat [n_cols] or blocked [n_block_cols, nb]:
+        gather, block products, a deterministic sum by row."""
+        nb_c = self.data.shape[2]
+        xb = x.reshape(self.n_block_cols, nb_c)
+        if self._row_sum is None:
+            self._row_sum = SegmentSum(self.rows, self.n_block_rows,
+                                       self.data.device)
+            self._cols_t = torch.as_tensor(self.cols, device=self.data.device)
+        prod = torch.einsum("kij,kj->ki", self.data, xb[self._cols_t])
+        yb = self._row_sum(prod)
+        return yb.reshape(-1) if x.dim() == 1 else yb
+
+    def __matmul__(self, x):
+        return self.matvec(x)
+
+    def diag_blocks(self) -> torch.Tensor:
+        """[n_block_rows, nb, nb] diagonal blocks (zero if absent)."""
+        idx = np.where(self.rows == self.cols)[0]
+        out = self.data.new_zeros((self.n_block_rows,)
+                                  + tuple(self.data.shape[1:]))
+        dev = self.data.device
+        out[torch.as_tensor(self.rows[idx], device=dev)] = self.data[
+            torch.as_tensor(idx, device=dev)]
+        return out
+
+    def diagonal(self) -> torch.Tensor:
+        """Flat main diagonal [n_rows]."""
+        return torch.diagonal(self.diag_blocks(), dim1=1, dim2=2).reshape(-1)
+
+    def to_dense(self) -> torch.Tensor:
+        nb_r, nb_c = self.data.shape[1], self.data.shape[2]
+        out = self.data.new_zeros((self.n_block_rows, self.n_block_cols,
+                                   nb_r, nb_c))
+        dev = self.data.device
+        out.index_put_((torch.as_tensor(self.rows, device=dev),
+                        torch.as_tensor(self.cols, device=dev)), self.data,
+                       accumulate=True)
+        return out.permute(0, 2, 1, 3).reshape(self.n_block_rows * nb_r,
+                                               self.n_block_cols * nb_c)
+
+    def transpose(self) -> "BlockMatrix":
+        order = np.lexsort((self.rows, self.cols))
+        return BlockMatrix(
+            data=self.data[torch.as_tensor(order, device=self.data.device)]
+            .transpose(1, 2).contiguous(),
+            rows=self.cols[order], cols=self.rows[order],
+            n_block_rows=self.n_block_cols, n_block_cols=self.n_block_rows)
+
+    @property
+    def T(self) -> "BlockMatrix":
+        return self.transpose()
+
+    def scale(self, alpha) -> "BlockMatrix":
+        return BlockMatrix(self.data * alpha, self.rows, self.cols,
+                           self.n_block_rows, self.n_block_cols)
+
+    def add(self, other: "BlockMatrix") -> "BlockMatrix":
+        """Structural sum (merges the sparsity patterns)."""
+        if (self.n_block_rows, self.n_block_cols) != (other.n_block_rows,
+                                                      other.n_block_cols):
+            raise ValueError("block shapes differ")
+        return BlockMatrix.from_blocks(
+            np.concatenate([self.rows, other.rows]),
+            np.concatenate([self.cols, other.cols]),
+            torch.cat([self.data, other.data], dim=0),
+            self.n_block_rows, self.n_block_cols)
+
+    def banded_offsets(self) -> np.ndarray:
+        return np.unique(self.cols - self.rows)
+
+    def to_banded(self, max_offsets: int = 96) -> "BlockBanded | None":
+        """The banded layout, scattered on the host; None when the matrix
+        has more than ``max_offsets`` distinct column offsets (the caller
+        falls back to :meth:`to_ell`)."""
+        off = self.cols - self.rows
+        uniq = np.unique(off)
+        if uniq.shape[0] > max_offsets:
+            return None
+        nb = self.data.shape[-1]
+        P = self.n_block_rows
+        oidx = np.searchsorted(uniq, off)
+        host = self.data.cpu().numpy()
+        data = np.zeros((uniq.shape[0], nb, nb, P), dtype=host.dtype)
+        data[oidx, :, :, self.rows] = host
+        return BlockBanded(data=torch.as_tensor(data, device=self.data.device),
+                           offsets=uniq.astype(np.int64),
+                           n_block_cols=self.n_block_cols)
+
+    def to_banded_device(self, max_offsets: int = 96) -> "BlockBanded | None":
+        """The banded layout by one gather on the device through a static
+        map (no host round trip, no scatter): banded[o, :, :, p] =
+        data[src[o, p]] where offset o has a block at row p, else zero.
+        None beyond ``max_offsets`` offsets, as :meth:`to_banded`."""
+        off = self.cols - self.rows
+        uniq = np.unique(off)
+        if uniq.shape[0] > max_offsets:
+            return None
+        nb_r, nb_c = self.data.shape[1], self.data.shape[2]
+        P = self.n_block_rows
+        n_off = uniq.shape[0]
+        oidx = np.searchsorted(uniq, off)
+        src = np.zeros((n_off, P), dtype=np.int64)
+        live = np.zeros((n_off, P), dtype=bool)
+        src[oidx, self.rows] = np.arange(self.rows.shape[0])
+        live[oidx, self.rows] = True
+        dev = self.data.device
+        g = self.data[torch.as_tensor(src.reshape(-1), device=dev)]
+        g = g.masked_fill(~torch.as_tensor(live.reshape(-1, 1, 1),
+                                           device=dev), 0)
+        data = g.reshape(n_off, P, nb_r, nb_c).permute(0, 2, 3, 1).contiguous()
+        return BlockBanded(data=data, offsets=uniq.astype(np.int64),
+                           n_block_cols=self.n_block_cols)
+
+    def to_ell(self) -> "BlockELL":
+        """Block-ELL: K = the most blocks a row holds; padding blocks are
+        zero and point at column 0."""
+        counts = np.bincount(self.rows, minlength=self.n_block_rows)
+        K = int(counts.max()) if counts.size else 1
+        starts = np.concatenate([[0], np.cumsum(counts)])
+        pos = np.arange(self.rows.shape[0]) - starts[self.rows]
+        cols = np.zeros((self.n_block_rows, K), dtype=np.int32)
+        cols[self.rows, pos] = self.cols
+        dev = self.data.device
+        data = self.data.new_zeros((self.n_block_rows, K)
+                                   + tuple(self.data.shape[1:]))
+        data[torch.as_tensor(self.rows, device=dev),
+             torch.as_tensor(pos, device=dev)] = self.data
+        return BlockELL(data=data, cols=cols, n_block_cols=self.n_block_cols)
+
+
+@dataclass
+class BlockELL:
+    """Block-ELL matrix: every row holds exactly K n_b x n_b blocks;
+    padding blocks are zero and point at column 0.  The SpMV is a gather
+    of a [P, K, nb] window of x and one einsum: no sum by row."""
+
+    data: torch.Tensor  # [P, K, nb, nb]
+    cols: np.ndarray  # [P, K] int32, host
+    n_block_cols: int
+    cols_t: torch.Tensor = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        self.cols_t = torch.as_tensor(np.asarray(self.cols, dtype=np.int64),
+                                      device=self.data.device)
+
+    @property
+    def n_block_rows(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def n_basis(self) -> int:
+        return self.data.shape[-1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def shape(self):
+        return (self.data.shape[0] * self.data.shape[2],
+                self.n_block_cols * self.data.shape[3])
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        nb_c = self.data.shape[3]
+        xb = x.reshape(self.n_block_cols, nb_c)
+        yb = torch.einsum("pkij,pkj->pi", self.data, xb[self.cols_t])
+        return yb.reshape(-1) if x.dim() == 1 else yb
+
+    def __matmul__(self, x):
+        return self.matvec(x)
+
+    def diagonal(self) -> torch.Tensor:
+        P = self.cols.shape[0]
+        is_diag = torch.as_tensor(self.cols == np.arange(P)[:, None],
+                                  dtype=self.data.dtype,
+                                  device=self.data.device)
+        d = torch.diagonal(self.data, dim1=2, dim2=3)  # [P, K, nb]
+        return (is_diag[:, :, None] * d).sum(dim=1).reshape(-1)
 
 
 def _vec(v, dtype):

@@ -42,8 +42,11 @@ def test_basis_matches_jax(dim, degree):
 
 
 def test_unported_family_raises():
-    from polydeal_tpu_torch.fem.basis import make_basis
+    """Both families are ported (TensorDGQ since the COO slice); a family
+    the JAX package does not know raises as there."""
+    from polydeal_tpu_torch.fem.basis import TensorDGQ, make_basis
 
     assert isinstance(make_basis("dgp", 2, 1), TLegendreDGP)
-    with pytest.raises(NotImplementedError):
-        make_basis("dgq", 2, 1)
+    assert isinstance(make_basis("dgq", 2, 1), TensorDGQ)
+    with pytest.raises(ValueError):
+        make_basis("fe_nothing", 2, 1)

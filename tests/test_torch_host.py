@@ -2,8 +2,9 @@
 
 Mesh, R-tree, handler arrays, the lex-relabelled and the structured
 hierarchies, grid-shape detection, the slot-padded banded tables, the
-sharded solve's halo send lists and the monodomain configuration must be
-EXACTLY equal: the port's host modules are copies that differ only
+sharded solve's halo send lists, the monodomain configuration, the
+partitioners and graph repair, the simplex meshes and the quality metrics
+must be EXACTLY equal: the port's host modules are copies that differ only
 in their imports.  Also checks that the port imports neither jax nor the
 JAX package.
 """
@@ -24,9 +25,14 @@ import jax.numpy as jnp  # noqa: E402
 
 import polydeal_tpu as pd  # noqa: E402
 import polydeal_tpu.config as jcfg  # noqa: E402
+import polydeal_tpu.metrics as jmetrics  # noqa: E402
 import polydeal_tpu_torch as tpd  # noqa: E402
 import polydeal_tpu_torch.config as tcfg  # noqa: E402
+import polydeal_tpu_torch.metrics as tmetrics  # noqa: E402
 from polydeal_tpu.agglomeration import RTreeAgglomerator  # noqa: E402
+from polydeal_tpu.agglomeration import graph as jgraph  # noqa: E402
+from polydeal_tpu.agglomeration import partition as jpart  # noqa: E402
+from polydeal_tpu.mesh import simplex as jsimplex  # noqa: E402
 from polydeal_tpu.assembly.sipg import build_banded_groups  # noqa: E402
 from polydeal_tpu.parallel.sharding import (  # noqa: E402
     build_halo_exchange,
@@ -39,6 +45,9 @@ from polydeal_tpu.solvers import (  # noqa: E402
 from polydeal_tpu_torch.agglomeration import (  # noqa: E402
     RTreeAgglomerator as TRTreeAgglomerator,
 )
+from polydeal_tpu_torch.agglomeration import graph as tgraph  # noqa: E402
+from polydeal_tpu_torch.agglomeration import partition as tpart  # noqa: E402
+from polydeal_tpu_torch.mesh import simplex as tsimplex  # noqa: E402
 from polydeal_tpu_torch.assembly.sipg import (  # noqa: E402
     build_banded_groups as t_build_banded_groups,
 )
@@ -184,6 +193,80 @@ def test_banded_groups_equal(name):
                 assert _eq(np.asarray(da[k]), db[k].numpy()), k
 
 
+@pytest.mark.parametrize("strategy", ["rcb", "greedy", "multilevel"])
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_partition_equal(name, strategy):
+    """Partition labels, with and without the connectivity repair, and the
+    graph helpers on them."""
+    m, t = _meshes(name)
+    n_parts = max(m.n_cells // 7, 2)
+    for repair in (False, True):
+        a = jpart.agglomerate_by_partition(m.cell_centers(), m.neighbors,
+                                           n_parts, strategy, repair)
+        b = tpart.agglomerate_by_partition(t.cell_centers(), t.neighbors,
+                                           n_parts, strategy, repair)
+        assert _eq(a, b)
+    # a deliberately disconnected labelling, repaired
+    lab = (np.arange(m.n_cells) % 3).astype(np.int32)
+    assert _eq(jgraph.split_disconnected(lab, m.neighbors),
+               tgraph.split_disconnected(lab, t.neighbors))
+    assert _eq(jgraph.compact_labels(lab[::-1] * 5),
+               tgraph.compact_labels(lab[::-1] * 5))
+    cells = np.flatnonzero(lab == 1)
+    ca = jgraph.connected_components(cells, m.neighbors)
+    cb = tgraph.connected_components(cells, t.neighbors)
+    assert len(ca) == len(cb) and all(_eq(x, y) for x, y in zip(ca, cb))
+    assert (jgraph.adjacency_matrix(m.n_cells, m.neighbors)
+            != tgraph.adjacency_matrix(t.n_cells, t.neighbors)).nnz == 0
+
+
+@pytest.mark.parametrize("dim,n", [(2, 4), (3, 2)])
+def test_simplex_equal(dim, n):
+    """Simplex connectivity and quadrature, and the handler taking a
+    SimplexMesh as the JAX one does."""
+    a = jsimplex.triangulated_hyper_cube(dim, n)
+    b = tsimplex.triangulated_hyper_cube(dim, n)
+    assert _eq(a.vertices, b.vertices) and _eq(a.cells, b.cells)
+    assert _eq(a.neighbors, b.neighbors)
+    assert _eq(a.face_vertex_ids(), b.face_vertex_ids())
+    assert _eq(a.boundary_vertex_mask(), b.boundary_vertex_mask())
+    assert _eq(a.cell_measures(), b.cell_measures())
+    for x, y in zip(a.volume_quadrature(2), b.volume_quadrature(2)):
+        assert _eq(x, y)
+    for x, y in zip(a.face_quadrature(2), b.face_quadrature(2)):
+        assert _eq(x, y)
+    c2p = jpart.agglomerate_by_partition(a.cell_centers(), a.neighbors, 4)
+    ha = pd.AgglomerationHandler(a, c2p, degree=1)
+    hb = tpd.AgglomerationHandler(b, c2p, degree=1)
+    for attr in ("bbox_lo", "extents", "cell_qpoints_unit",
+                 "cell_qweights"):
+        assert _eq(getattr(ha, attr), getattr(hb, attr)), attr
+    for attr in ("poly_in", "poly_out", "points_in", "weights", "normals"):
+        assert _eq(getattr(ha.faces, attr), getattr(hb.faces, attr)), attr
+
+
+@pytest.mark.parametrize("name", ["square2d_16", "distorted2d_8",
+                                  "cube3d_8"])
+def test_metrics_equal(name):
+    """The quality metrics (sampled; exact in 2D) and the face-orthogonal
+    penalty lengths."""
+    m, t = _meshes(name)
+    c2p = RTreeAgglomerator.build(m.cell_centers()).extract_agglomerates(2)
+    ha = pd.AgglomerationHandler(m, c2p, degree=1)
+    hb = tpd.AgglomerationHandler(t, c2p, degree=1)
+    methods = ("sampled", "exact") if m.dim == 2 else ("sampled",)
+    for method in methods:
+        qa = jmetrics.compute_quality_metrics(ha, method)
+        qb = tmetrics.compute_quality_metrics(hb, method)
+        assert sorted(qa) == sorted(qb)
+        for k in qa:
+            assert _eq(qa[k], qb[k]), (method, k)
+        assert _eq(jmetrics.face_h_orthogonal(ha, method),
+                   tmetrics.face_h_orthogonal(hb, method))
+    assert (jmetrics.compute_h_orthogonal(ha)
+            == tmetrics.compute_h_orthogonal(hb))
+
+
 def test_config_copy_equal():
     """Every config class has the same fields and defaults, and both
     packages read each other's text."""
@@ -199,9 +282,10 @@ def test_config_copy_equal():
 
 def test_port_never_imports_jax():
     """``import polydeal_tpu_torch`` plus a full small flagship solve, a
-    packed one without the relabel, two monodomain steps and a sharded
-    solve (one shard, structured hierarchy) leave jax and the JAX package
-    out of sys.modules."""
+    packed one without the relabel, two monodomain steps, a sharded solve
+    (one shard, structured hierarchy), the COO path's Poisson solves (R3MG
+    and block-Jacobi CG) and a diffusion-reaction convergence study leave
+    jax and the JAX package out of sys.modules."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -235,6 +319,21 @@ def test_port_never_imports_jax():
         "sh = setup_sharded(n=4, device=torch.device('cpu'),\n"
         "                   dtype=torch.float64, precond_dtype=None)\n"
         "assert sh.ss.solve_cg(sh.b)[1] > 0\n"
+        "import polydeal_tpu_torch.agglomeration, polydeal_tpu_torch.metrics\n"
+        "import polydeal_tpu_torch.mesh, polydeal_tpu_torch.postprocess\n"
+        "import polydeal_tpu_torch.models.benchmarks\n"
+        "import polydeal_tpu_torch.models.metrics_study\n"
+        "import polydeal_tpu_torch.utils.timer\n"
+        "from polydeal_tpu_torch.models.poisson import solve_poisson\n"
+        "from polydeal_tpu_torch.models.diffusion_reaction import (\n"
+        "    convergence_study)\n"
+        "cpu = torch.device('cpu')\n"
+        "assert solve_poisson(dim=2, n=8, verbose=False,\n"
+        "                     device=cpu)['iterations'] > 0\n"
+        "assert solve_poisson(dim=2, n=8, strategy='metis', solver='cg',\n"
+        "                     verbose=False, device=cpu)['iterations'] > 0\n"
+        "assert len(convergence_study(sizes=(4, 8), verbose=False,\n"
+        "                             device=cpu)[1]) == 1\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'polydeal_tpu')]\n"
         "print('BAD', bad)\n"
