@@ -93,6 +93,10 @@ same way on the real i-major bands it serves: the lex flagship's 32768-
 and 262144-lane bf16 smoother copies and the monodomain's f32 32768- and
 262144-lane levels.  Phases 5 and 7 fail unless fused K0 was launched,
 and phase 7 if K0's plain product ran beyond the eigenvalue estimates.
+Every K1 and K1 halo row prints K1's launch plan (W lanes a thread, S
+offset groups a block: ``ops/banded.k1_plan``), and the K1 checks of
+phases 3 and 9 (f) hold two launches bitwise equal; phase 8's 4-way cuts
+time slab 1 beside its CSR product.
 Prints the card, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}.
 """
@@ -217,6 +221,7 @@ def check_kernels(torch, dev):
     from polydeal_tpu_torch.ops import (
         banded_cheb_step_t, banded_cheb_step_t_ref, banded_matvec_t_imajor,
         banded_matvec_t_imajor_ref, banded_residual_t, banded_residual_t_ref)
+    from polydeal_tpu_torch.ops.banded import imajor_band, k1_plan
 
     n_off = len(OFFSETS_FINE)
     R_pad = -(-n_off * NB // 8) * 8
@@ -253,9 +258,16 @@ def check_kernels(torch, dev):
         x, b, d = (rnd(NB, P_FINE, dtype=vdt) for _ in range(3))
         dinv = 1.0 + rnd(NB, P_FINE, dtype=vdt).abs()
         c1, c2 = 0.37, 1.21
-        k1 = lambda: banded_matvec_t_imajor(data_i, offs, NB, x)
+        kb = imajor_band(data_i, offs, NB)
+        k1 = lambda: banded_matvec_t_imajor(data_i, offs, NB, x, band=kb)
         p1 = lambda: banded_matvec_t_imajor_ref(data_i, offs, NB, x)
         record("K1", f"{dname} band", k1(), p1(), tol)
+        plan = k1_plan(kb, x)
+        if not torch.equal(k1(), k1()):
+            fail(f"two K1 launches on the {dname} band differ")
+        log(f"  K1 {dname} band plan: W={plan.W}, S={plan.S}, "
+            f"{plan.blocks} blocks of {plan.threads}; two launches bitwise "
+            f"equal")
         cases = {
             "step0": (lambda: banded_cheb_step_t(data_i, offs, NB, x, None, b,
                                                  dinv, c1, c2),
@@ -292,7 +304,8 @@ def check_kernels(torch, dev):
             del A, xf
             b_ms, b_by = bound(band * esz + 2 * vec * vsz, 2 * band, dname)
             out["K1"].update(ms=ms1, plain_ms=pms1, library_ms=lms,
-                             bound_ms=b_ms, bound_by=b_by)
+                             bound_ms=b_ms, bound_by=b_by,
+                             plan=dict(W=plan.W, S=plan.S))
         if dname == "bfloat16":
             # reads the band and x, b, d, dinv; writes x', d'
             b_ms, b_by = bound(band * esz + 6 * vec * vsz,
@@ -1109,7 +1122,10 @@ def check_halo_slab(torch, label, slab, gen, library=False):
     (device time per launch, ``cold_traced_us``) and beside their bound;
     with ``library``, a
     CSR product of the slab with its halo columns too (the product's
-    library yardstick).  Returns each kernel's row (name -> row)."""
+    library yardstick); K1 halo's launch plan (W, S).  Returns each
+    kernel's row (name -> row)."""
+    from polydeal_tpu_torch.ops.banded import k1_plan
+
     dname = str(slab.data_i.dtype).split(".")[-1]
     vdt = torch.float64 if dname == "float64" else torch.float32
     pdt = "float64" if dname == "float64" else "float32"
@@ -1147,6 +1163,10 @@ def check_halo_slab(torch, label, slab, gen, library=False):
         rows[name] = dict(max_abs_err=err, ms=dus / 1e3, plain_ms=pms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=lms,
                           events_ms=ms)
+        if name == "K1 halo":
+            plan = k1_plan(slab.kb, x_ext, T)
+            rows[name]["plan"] = dict(W=plan.W, S=plan.S)
+            line.append(f"K1 halo plan W={plan.W}, S={plan.S}")
         line.append(f"{name} {mode} traced {dus:.2f} us/launch, "
                     f"{b_ms * 1e3 / dus:.1%} of its bound {b_ms:.4f} ms "
                     f"({b_by}: {nbytes / 1e6:.1f} MB), events {ms:.4f} ms, "
@@ -1165,9 +1185,10 @@ def check_halo_cuts(torch, label, e, n_cut=4):
     its plan reaches beyond a slab, as the sharded solve does), with x_ext
     taken from one seeded global x ring-wrapped at the ends: every mode of
     every slab against its plain version (``check_halo_slab``, timed on
-    slab 1), and the slabs' products side by side (plus a far tail's
-    product) against the unsharded K1 or K6 product of the whole level.
-    In the level's type and as f64."""
+    slab 1 beside the slab's CSR product, but for a bf16 band), and the
+    slabs' products side by side (plus a far tail's product) against the
+    unsharded K1 or K6 product of the whole level.  In the level's type
+    and as f64."""
     from polydeal_tpu_torch.parallel.banded import _shard_ready, _tile_for
 
     P, nb = e.n_block_rows, e.n_basis
@@ -1194,9 +1215,9 @@ def check_halo_cuts(torch, label, e, n_cut=4):
                 hold(f"{label} slab {r} {mode} {dname}", kf(), pf(),
                      TOL[dname])
             ys.append(calls["product"][0]())
-            if r == 1:
+            if r == 1:  # cuSPARSE takes no bf16 matrix with f32 vectors
                 check_halo_slab(torch, f"{label} slab 1 of {n_cut}", slab,
-                                gen)
+                                gen, library=data.dtype != torch.bfloat16)
             del slab, x_ext, b, d, dinv, calls
         y = torch.cat(ys, dim=1)
         if packed:
@@ -1414,11 +1435,12 @@ def check_k1(torch, label, band, out):
     the largest entry, through the band's kept launch arguments; traced
     (device time per launch, L2 evicted where the band exceeds it, held to
     its bound by ``cold_traced_us``), by CUDA events beside the plain
-    version, and a torch.sparse CSR product of the same band.  Adds each
-    case to ``out`` (label -> row)."""
+    version, and a torch.sparse CSR product of the same band; its launch
+    plan (W, S) printed, two launches bitwise equal.  Adds each case to
+    ``out`` (label -> row)."""
     from polydeal_tpu_torch.ops.banded import (banded_matvec_t_imajor,
                                                banded_matvec_t_imajor_ref,
-                                               imajor_band)
+                                               imajor_band, k1_plan)
 
     di0 = band.data_i
     nb, P, offs = band.n_basis, di0.shape[1], band.offsets_t
@@ -1434,6 +1456,9 @@ def check_k1(torch, label, band, out):
         pf = lambda: banded_matvec_t_imajor_ref(di, offs, nb, x)
         got = kf()
         err, rel = hold(f"K1 on {label} {dname}", got, pf(), tol)
+        if not torch.equal(got, kf()):
+            fail(f"two K1 launches on {label} {dname} differ")
+        plan = k1_plan(kb, x)
         ms, pms = time_pair(torch, kf, pf)
         ent = n_off * nb * nb * P
         nbytes = ent * di.element_size() + 2 * nb * P * x.element_size()
@@ -1452,8 +1477,10 @@ def check_k1(torch, label, band, out):
         del A, xf, yl
         out[f"{label} {dname}"] = dict(
             max_abs_err=err, ms=dus / 1e3, plain_ms=pms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lms, events_ms=ms)
-        log(f"  K1 {label} {dname} (P={P}, {n_off} offsets): "
+            bound_by=b_by, library_ms=lms, events_ms=ms,
+            plan=dict(W=plan.W, S=plan.S))
+        log(f"  K1 {label} {dname} (P={P}, {n_off} offsets; plan W={plan.W},"
+            f" S={plan.S}; two launches bitwise equal): "
             f"max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:g}); traced "
             f"{dus:.2f} us/launch, {b_ms * 1e3 / dus:.1%} of its bound "
             f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB); {ms:.4f} ms by "
@@ -1866,10 +1893,11 @@ def main() -> int:
         kres[key] = dict(rows[main_row], max_abs_err=max(
             worst, kres.get(key, {}).get("max_abs_err", 0.0)))
 
-    banded, sipg, packed = ("polydeal_tpu_torch/csrc/banded.cu",
-                            "polydeal_tpu_torch/csrc/sipg.cu",
-                            "polydeal_tpu_torch/csrc/packed.cu")
-    rows = [("banded_matvec_imajor", "K1", banded,
+    banded, sipg, packed, k1 = ("polydeal_tpu_torch/csrc/banded.cu",
+                                "polydeal_tpu_torch/csrc/sipg.cu",
+                                "polydeal_tpu_torch/csrc/packed.cu",
+                                "polydeal_tpu_torch/csrc/banded_matvec.cu")
+    rows = [("banded_matvec_imajor", "K1", k1,
              "polydeal_tpu/ops/banded.py:65"),
             ("banded_matvec_omajor", "K0", banded,
              "polydeal_tpu/ops/banded.py:176"),
@@ -1887,7 +1915,7 @@ def main() -> int:
              "polydeal_tpu/ops/packed.py:185"),
             ("packed_fused_cheb", "K7", packed,
              "polydeal_tpu/ops/fused_cheb.py:122"),
-            ("banded_matvec_halo", "K1 halo", banded,
+            ("banded_matvec_halo", "K1 halo", k1,
              "polydeal_tpu/ops/banded.py:267"),
             ("banded_fused_halo", "K2 halo", banded,
              "polydeal_tpu/ops/fused_cheb.py:417"),
@@ -1905,14 +1933,16 @@ def main() -> int:
             "library_ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rpl,
                     launches=path.get(key, counts)[name],
-                    **{k: kres[key][k] for k in keys})
+                    **{k: kres[key][k] for k in keys + ("plan",)
+                       if k in kres[key]})
                for name, key, src, rpl in rows]
     # phase 9's path (the COO Poisson solve at n=64) runs K1, K2, K0 and
     # fused K0 on its own bands: a row each, its launches that path's
     kernels += [dict(name=f"{name}_coo", route="cuda", source=src,
                      replaces=rpl, launches=counts9[name],
                      case=rows9[key]["case"],
-                     **{k: rows9[key][k] for k in keys})
+                     **{k: rows9[key][k] for k in keys + ("plan",)
+                        if k in rows9[key]})
                 for name, key, src, rpl in rows if key in rows9]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@
 ``nvcc`` compiles every ``polydeal_tpu_torch/csrc/*.cu`` for ``sm_90a``, one
 process per source, all started together, and links the objects into
 ``polydeal_tpu_torch/_build/libpd_kernels_<hash>.so`` at first use; the
-hash covers every source and the flags, so an edited source rebuilds and
-an unchanged tree is loaded as it is.  The library has a plain C interface
+hash covers every source, every shared header (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged tree is
+loaded as it is.  The library has a plain C interface
 bound with ctypes: it builds in seconds, where a source that includes
 PyTorch's headers takes minutes.
 
@@ -38,9 +39,10 @@ _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # dtype codes of the C interface (enum DType in csrc/*.cu)
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
-# launches per kernel since the last reset: K1, K2, K0 and fused K0
-# (csrc/banded.cu), K3, K4, K5 (csrc/sipg.cu) and K6, K7 (csrc/packed.cu);
-# the halo launches of K1, K2, K6 and K7 (on a shard's slab) count apart
+# launches per kernel since the last reset: K1 (csrc/banded_matvec.cu), K2,
+# K0 and fused K0 (csrc/banded.cu), K3, K4, K5 (csrc/sipg.cu) and K6, K7
+# (csrc/packed.cu); the halo launches of K1, K2, K6 and K7 (on a shard's
+# slab) count apart
 launches = {"banded_matvec_imajor": 0, "banded_fused_cheb": 0,
             "banded_matvec_omajor": 0, "banded_fused_omajor": 0,
             "volume_blocks": 0, "face_group_blocks": 0,
@@ -74,6 +76,10 @@ def _nvcc() -> str:
 
 def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
 
 
 def _build(srcs: list[str], so: str) -> str:
@@ -110,7 +116,7 @@ def load_library() -> ctypes.CDLL:
         return _lib
     srcs = _sources()
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + _headers():
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + b"\0" + f.read())
     so = os.path.join(_BUILD_DIR, f"libpd_kernels_{h.hexdigest()[:16]}.so")
@@ -123,6 +129,10 @@ def load_library() -> ctypes.CDLL:
                                      i64, vp, vp]
     lib.pd_banded_fused.argtypes = [vp, i32, vp, i32, vp, i32, i32, i32, i64,
                                     vp, vp, vp, f64, f64, i32, vp, vp, vp]
+    # K1's launch plan: (data, dtype, x, dtype, n_off, nb, P, ldx, halo, y,
+    # long long[5] out)
+    lib.pd_banded_matvec_plan.argtypes = [vp, i32, vp, i32, i32, i32, i64,
+                                          i64, i64, vp, vp]
     # K0: as K1 without R_pad
     lib.pd_banded_matvec_omajor.argtypes = [vp, i32, vp, i32, vp, i32, i32,
                                             i64, vp, vp]
@@ -166,7 +176,8 @@ def load_library() -> ctypes.CDLL:
                lib.pd_packed_fused, lib.pd_sipg_volume, lib.pd_sipg_boundary,
                lib.pd_sipg_face, lib.pd_banded_matvec_halo,
                lib.pd_banded_fused_halo, lib.pd_packed_matvec_halo,
-               lib.pd_packed_fused_halo, lib.pd_sipg_form_info):
+               lib.pd_packed_fused_halo, lib.pd_sipg_form_info,
+               lib.pd_banded_matvec_plan):
         fn.restype = i32
     _lib = lib
     return lib

@@ -7,14 +7,18 @@ K0 of ``banded_matvec_t_pallas`` (Pallas kernel ``_banded_matvec_impl``),
 and K1 halo (:func:`banded_matvec_t_halo`) of ``banded_matvec_t_halo``:
 K1 on one shard's lane slab, x read from ``x_ext`` [nb, per + 2T], whose T
 lanes on each side are the neighbouring shards' (``parallel/banded.py``).
-On a CUDA tensor each wrapper launches its hand-written kernel of
-``csrc/banded.cu`` (and raises if it cannot); on a CPU tensor it runs its
-plain PyTorch version (``*_ref``), which computes the same function.
+On a CUDA tensor each wrapper launches its hand-written kernel
+(K1 and K1 halo ``csrc/banded_matvec.cu``, K0 ``csrc/banded.cu``; it
+raises if it cannot); on a CPU tensor it runs its plain PyTorch version
+(``*_ref``), which computes the same function.  K1 runs by a launch plan
+(lanes a thread W, offset groups a block S) that the library chooses;
+:func:`k1_plan` reports it.
 
 Layout contracts (shared with the JAX package): K1 takes ``data_i``
 [nb * R_pad, P] with rows ordered (i, k, j) and R_pad >= n_off * nb
-(padding rows are never read); K0 takes ``data`` [n_off, nb, nb, P]; both
-take ``xt`` [nb, P], and x reads zero outside [0, P).
+(padding rows are never read) and nb in :data:`KERNEL_NB`; K0 takes
+``data`` [n_off, nb, nb, P]; both take ``xt`` [nb, P], and x reads zero
+outside [0, P).
 
 The launch path: a band's unchanging arguments are validated once into a
 :class:`KernelBand`, which ``BlockBanded`` and ``BlockPacked`` keep and pass
@@ -25,6 +29,9 @@ device switch).
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -34,12 +41,16 @@ from polydeal_tpu_torch.ops import _build
 __all__ = ["banded_matvec_t_imajor", "banded_matvec_t_imajor_ref",
            "banded_matvec_t_omajor", "banded_matvec_t_omajor_ref",
            "banded_matvec_t_halo", "banded_matvec_t_halo_ref",
-           "KernelBand", "imajor_band", "omajor_band", "launch_band",
-           "launch_product", "halo_check"]
+           "KernelBand", "imajor_band", "omajor_band", "band_layout",
+           "launch_band", "launch_product", "halo_check", "KERNEL_NB",
+           "K1Plan", "k1_plan"]
 
 _VEC_DTYPES = (torch.float32, torch.float64)
 # K0 stages its offset table in 48 KB of shared memory
 _MAX_OFFSETS = 48 * 1024 // 4
+# the block sizes K1 and K2 are built for (PD_NB_DISPATCH,
+# csrc/banded_common.cuh): (p + dim choose dim) for dim 2-3, p 1-3
+KERNEL_NB = (3, 4, 6, 10, 20)
 
 
 def _host_offsets(offsets) -> list[int]:
@@ -132,10 +143,11 @@ _HALO_ENTRIES = {
 }
 
 
-def imajor_band(data_i, offsets, nb, n_slots=None) -> KernelBand:
-    """Validate an i-major band [nb * R_pad, P] for K1/K2, each i-slab
-    holding ``n_slots`` row blocks (default: one per offset; the packed
-    format's K)."""
+def band_layout(data_i, offsets, nb, n_slots=None) -> tuple[int, int, int]:
+    """Validate a band [nb * R_pad, P] of ``n_slots`` row blocks per i-slab
+    (default: one per offset; the packed format's K) and its int32 offset
+    table: a supported dtype, on one device, contiguous.  Returns (n_off,
+    R_pad, P)."""
     dev = data_i.device
     if data_i.dim() != 2 or nb <= 0 or data_i.shape[0] % nb:
         raise ValueError(f"data_i {tuple(data_i.shape)} is not [nb*R_pad, P]"
@@ -155,14 +167,24 @@ def imajor_band(data_i, offsets, nb, n_slots=None) -> KernelBand:
             raise ValueError(f"tensor on {t.device}, band on {dev}")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
+    return n_off, R_pad, P
+
+
+def imajor_band(data_i, offsets, nb) -> KernelBand:
+    """Validate an i-major band [nb * R_pad, P] for K1/K2
+    (:func:`band_layout`, nb in :data:`KERNEL_NB`)."""
+    if nb not in KERNEL_NB:
+        raise ValueError(f"no K1/K2 build for nb={nb} (built for "
+                         f"{KERNEL_NB})")
+    n_off, R_pad, P = band_layout(data_i, offsets, nb)
     return KernelBand("imajor", data_i, nb, P, n_off, R_pad,
                       (offsets.data_ptr(), n_off, nb, R_pad, P), offsets)
 
 
-def check_kernel_args(data_i, offsets, nb, vecs, n_slots=None):
-    """Validate what the CUDA kernels take (:func:`imajor_band`, then the
-    vectors); returns (n_off, R_pad, P)."""
-    band = imajor_band(data_i, offsets, nb, n_slots)
+def check_kernel_args(data_i, offsets, nb, vecs):
+    """Validate what K1/K2 take (:func:`imajor_band`, then the vectors);
+    returns (n_off, R_pad, P)."""
+    band = imajor_band(data_i, offsets, nb)
     band.vec_code(vecs)
     return band.n_off, band.R_pad, band.P
 
@@ -185,6 +207,35 @@ def halo_check(offsets, P: int, x_ext: torch.Tensor, tile: int,
     if m > tile:
         raise ValueError(f"offset {m} beyond the halo width T={tile} (a far "
                          f"offset on a shard)")
+
+
+class K1Plan(NamedTuple):
+    """How K1 runs one launch (``k1_plan``): W lanes a thread, S offset
+    groups a block (S > 1: the groups' partial sums meet in ``smem`` bytes
+    of shared memory), ``threads`` a block, ``blocks`` blocks."""
+
+    W: int
+    S: int
+    threads: int
+    blocks: int
+    smem: int
+
+
+def k1_plan(band: KernelBand, x: torch.Tensor,
+            halo: int | None = None) -> K1Plan:
+    """The plan K1 (``halo=T``: K1 halo, ``x`` the slab's x_ext) takes for
+    ``band`` and ``x``, as the library's plan function chooses it for the
+    launch (``pd_banded_matvec_plan``; a fresh output, aligned).  Needs
+    the kernel library, so a card."""
+    ldx = band.P if halo is None else band.P + 2 * halo
+    out = (ctypes.c_longlong * 5)()
+    rc = _build.load_library().pd_banded_matvec_plan(
+        band.head[0], band.head[1], x.data_ptr(), _build.DTYPE_CODES[x.dtype],
+        band.n_off, band.nb, band.P, ldx, halo or 0, None, out)
+    if rc != 0:
+        raise ValueError(f"no K1 plan for nb={band.nb}, {band.dtype} band, "
+                         f"{x.dtype} vectors: {rc}")
+    return K1Plan(*out)
 
 
 def launch_band(band: KernelBand, fused: bool, vecs, tail,
@@ -260,7 +311,7 @@ def omajor_band(data, offsets) -> KernelBand:
         raise ValueError("kernel operands must be contiguous")
     n_off, nb, _, P = data.shape
     # the o-major band viewed as n_off * nb rows per i-slab
-    imajor_band(data.view(nb * n_off * nb, P), offsets, nb)
+    band_layout(data.view(nb * n_off * nb, P), offsets, nb)
     if offsets.numel() != n_off:
         raise ValueError(f"{offsets.numel()} offsets for {n_off} band rows")
     if n_off > _MAX_OFFSETS:

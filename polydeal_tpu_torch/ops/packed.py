@@ -39,8 +39,8 @@ import torch
 
 from polydeal_tpu_torch.ops.banded import (
     KernelBand,
+    band_layout,
     halo_check,
-    imajor_band,
     launch_product,
 )
 
@@ -185,8 +185,8 @@ def packed_matvec_t_ref(data_i: torch.Tensor, oid: torch.Tensor, offsets,
 
 
 def packed_band(data_i, oid, offsets, nb) -> KernelBand:
-    """Validate a packed band for K6/K7, as ``imajor_band`` does for
-    K1/K2."""
+    """Validate a packed band for K6/K7 (``band_layout`` with K slots a
+    lane, and its oid)."""
     if data_i.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"packed band dtype {data_i.dtype} not supported "
                         f"(f32 or f64)")
@@ -195,8 +195,7 @@ def packed_band(data_i, oid, offsets, nb) -> KernelBand:
         raise ValueError("oid must be a contiguous [K, P] int32 tensor on "
                          "the band's device")
     K = oid.shape[0]
-    band = imajor_band(data_i, offsets, nb, n_slots=K)
-    n_off, R_pad, P = band.n_off, band.R_pad, band.P
+    n_off, R_pad, P = band_layout(data_i, offsets, nb, n_slots=K)
     if oid.shape[1] != P:
         raise ValueError(f"oid {tuple(oid.shape)} is not [K, {P}]")
     return KernelBand("packed", data_i, nb, P, n_off, R_pad,

@@ -1,0 +1,225 @@
+"""K1 (the i-major banded SpMV) and K1 halo: the block sizes the kernels
+are built for, the plain versions at each of them, and the CUDA kernel
+against its plain version.
+
+K1 runs by a launch plan that the kernel library chooses
+(``csrc/banded_matvec.cu`` ``k1_plan``, reported by ``ops/banded.k1_plan``):
+W lanes a thread (K2's rule: wide where P, x's row stride and the halo are
+multiples of W and the operands 16-byte aligned, else 1) and S offset
+groups a block (S > 1 where P / W threads leave the card short: the groups
+sum contiguous offset ranges and meet in shared memory in group order).
+
+On the CPU: ``imajor_band`` refuses an nb with no K1/K2 build (K0 and the
+packed layout take any nb); every nb the P_k bases give at dim 2-3, p 1-3
+is built; K1's plain version equals K1 halo's on a zero-padded x_ext at
+each built nb (f64, 1e-12 relative to the largest entry: two gathers of
+the same sum); on CPU tensors the wrapper runs the plain version and
+launches nothing.  The JAX parity of the plain versions is
+``tests/test_torch_ops.py`` and ``tests/test_torch_halo.py``.
+
+On a card (``-m cuda``; the file imports no JAX, so it runs there with
+``--noconftest``): K1 against its plain version at every built nb and
+every (band, vector) dtype pair of the C interface, with an S > 1 plan;
+P not a multiple of W and a misaligned x (W = 1); halo slabs with S > 1
+and S = 1; the plans at the main path's shapes; two launches bitwise
+equal.  Tolerances: 1e-5 relative for f32 vectors (f32 sums in another
+order), 1e-12 for f64.
+"""
+
+import ctypes
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from polydeal_tpu_torch.fem.basis import make_basis  # noqa: E402
+from polydeal_tpu_torch.ops import _build  # noqa: E402
+from polydeal_tpu_torch.ops import banded as bd  # noqa: E402
+
+# aligned (multiples of 4 and 8) and unaligned offsets, both signs
+OFFSETS = (-70, -64, -9, -1, 0, 1, 8, 13, 64, 67)
+# (band dtype, vector dtype): the pairs of the C interface (PD_DISPATCH)
+PAIRS = [("float32", "float32"), ("bfloat16", "float32"),
+         ("float64", "float64"), ("float32", "float64"),
+         ("bfloat16", "float64")]
+TOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def _band(nb, P, offsets=OFFSETS, seed=0, dtype=torch.float64,
+          vdtype=torch.float64, device="cpu"):
+    """A seeded band [nb * R_pad, P] (R_pad = n_off * nb rounded up to 8;
+    padding rows hold junk that must never be read), its int32 offsets and
+    x [nb, P]."""
+    rng = np.random.default_rng(seed)
+    R_pad = -(-len(offsets) * nb // 8) * 8
+    data_i = torch.from_numpy(rng.standard_normal((nb * R_pad, P)))
+    x = torch.from_numpy(rng.standard_normal((nb, P)))
+    offs = torch.tensor(offsets, dtype=torch.int32, device=device)
+    return data_i.to(device, dtype), offs, x.to(device, vdtype)
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+@pytest.mark.parametrize("nb", [1, 2, 5, 8, 9, 27])
+def test_unbuilt_nb_is_refused(nb):
+    """K1/K2 have no build for these nb (TensorDGQ's 8, 9, 27 among them):
+    ``imajor_band`` raises before any launch; the layout itself is valid
+    and K0's o-major band takes it."""
+    data_i, offs, _ = _band(nb, 64, dtype=torch.float32)
+    with pytest.raises(ValueError, match="no K1/K2 build"):
+        bd.imajor_band(data_i, offs, nb)
+    assert bd.band_layout(data_i, offs, nb)[2] == 64
+    data = torch.zeros(len(OFFSETS), nb, nb, 64)
+    assert bd.omajor_band(data, offs).nb == nb
+
+
+def test_built_nb_covers_the_bases():
+    """Every nb a P_k basis gives at dim 2-3, p 1-3 has a K1/K2 build."""
+    want = {math.comb(p + dim, dim) for dim in (2, 3) for p in (1, 2, 3)}
+    got = {make_basis("dgp", dim, p).n_basis for dim in (2, 3)
+           for p in (1, 2, 3)}
+    assert got == want == set(bd.KERNEL_NB)
+
+
+@pytest.mark.parametrize("nb", bd.KERNEL_NB)
+def test_plain_product_equals_halo_plain(nb):
+    """K1's plain version equals K1 halo's on x_ext = x zero-padded by T =
+    max |offset| lanes; on CPU tensors the wrapper returns the plain
+    version's bits and launches nothing."""
+    P = 200
+    data_i, offs, x = _band(nb, P, seed=nb)
+    T = max(abs(o) for o in OFFSETS)
+    x_ext = torch.nn.functional.pad(x, (T, T))
+    y = bd.banded_matvec_t_imajor_ref(data_i, offs, nb, x)
+    assert _rel(bd.banded_matvec_t_halo_ref(data_i, offs, nb, x_ext,
+                                            tile=T), y) <= 1e-12
+    before = dict(_build.launches)
+    assert torch.equal(bd.banded_matvec_t_imajor(data_i, offs, nb, x), y)
+    assert torch.equal(bd.banded_matvec_t_halo(data_i, offs, nb, x_ext,
+                                               tile=T),
+                       bd.banded_matvec_t_halo_ref(data_i, offs, nb, x_ext,
+                                                   tile=T))
+    assert _build.launches == before
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1 has no CPU mode")
+    return torch.device("cuda")
+
+
+def _check(data_i, offs, nb, x, vdt, halo=None):
+    """K1 (K1 halo with ``halo``) against its plain version, and a second
+    launch bitwise equal to the first; returns the plan."""
+    kb = bd.imajor_band(data_i, offs, nb)
+    if halo is None:
+        got = bd.banded_matvec_t_imajor(data_i, offs, nb, x, band=kb)
+        again = bd.banded_matvec_t_imajor(data_i, offs, nb, x, band=kb)
+        want = bd.banded_matvec_t_imajor_ref(data_i, offs, nb, x)
+    else:
+        got = bd.banded_matvec_t_halo(data_i, offs, nb, x, tile=halo,
+                                      band=kb)
+        again = bd.banded_matvec_t_halo(data_i, offs, nb, x, tile=halo,
+                                        band=kb)
+        want = bd.banded_matvec_t_halo_ref(data_i, offs, nb, x, tile=halo)
+    assert got.dtype == x.dtype
+    assert _rel(got, want) <= TOL[vdt]
+    assert torch.equal(got, again)
+    return bd.k1_plan(kb, x, halo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ddt,vdt", PAIRS)
+@pytest.mark.parametrize("nb", bd.KERNEL_NB)
+def test_cuda_k1_every_nb_and_dtype(cuda, nb, ddt, vdt):
+    """Every built nb and dtype pair at 8192 lanes: W lanes a thread and
+    the offsets split over S > 1 groups."""
+    data_i, offs, x = _band(nb, 8192, seed=nb, dtype=getattr(torch, ddt),
+                            vdtype=getattr(torch, vdt), device=cuda)
+    plan = _check(data_i, offs, nb, x, vdt)
+    assert plan.W > 1 and plan.S > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ddt,vdt", PAIRS)
+def test_cuda_k1_one_lane_a_thread(cuda, ddt, vdt):
+    """P not a multiple of W, and an x view 4 bytes off 16-byte alignment:
+    one lane a thread (W = 1)."""
+    nb = 4
+    data_i, offs, x = _band(nb, 4099, dtype=getattr(torch, ddt),
+                            vdtype=getattr(torch, vdt), device=cuda)
+    assert _check(data_i, offs, nb, x, vdt).W == 1
+    data_i, offs, x = _band(nb, 4096, dtype=getattr(torch, ddt),
+                            vdtype=getattr(torch, vdt), device=cuda)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xv = buf[1:].view(nb, 4096)
+    xv.copy_(x)
+    assert xv.data_ptr() % 16 != 0
+    assert _check(data_i, offs, nb, xv, vdt).W == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per,S", [(8192, 4), (262144, 1)])
+@pytest.mark.parametrize("vdt", ["float32", "float64"])
+def test_cuda_k1_halo(cuda, per, S, vdt):
+    """K1 halo on a slab of ``per`` lanes with the lex flagship's 7
+    offsets of the 64^3 grid and a halo of T = 4096 lanes whose values
+    differ from the interior's: S = 4 at 8192 lanes (the 32768-lane level
+    cut four ways), S = 1 at 262144."""
+    nb, T = 4, 4096
+    offsets = (-4096, -64, -1, 0, 1, 64, 4096)
+    t = getattr(torch, vdt)
+    data_i, offs, _ = _band(nb, per, offsets, dtype=t, vdtype=t,
+                            device=cuda)
+    x_ext = torch.randn(nb, per + 2 * T, dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(3)).to(cuda,
+                                                                       t)
+    plan = _check(data_i, offs, nb, x_ext, vdt, halo=T)
+    assert (plan.W, plan.S) == (16 // t.itemsize, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,n_off,ddt,vdt,W,S", [
+    (262144, 7, "float32", "float32", 4, 1),  # lex flagship fine
+    (262144, 7, "bfloat16", "float32", 8, 2),
+    (32768, 7, "float32", "float32", 4, 4),  # lex 32768-lane level
+    (32768, 31, "float32", "float32", 4, 8),  # COO 32768-lane level
+    (32768, 31, "float64", "float64", 2, 4),
+    (262144, 37, "float64", "float64", 2, 1),  # COO fine level
+])
+def test_cuda_k1_plan(cuda, P, n_off, ddt, vdt, W, S):
+    """The library's plan at the main path's shapes (nb = 4): S doubles
+    (to 8 at most, while 2 S <= n_off) until P / W * S threads reach
+    65536."""
+    data_i = torch.empty(4 * (-(-n_off * 4 // 8) * 8), P,
+                         dtype=getattr(torch, ddt), device=cuda)
+    offs = torch.arange(n_off, dtype=torch.int32, device=cuda)
+    x = torch.zeros(4, P, dtype=getattr(torch, vdt), device=cuda)
+    plan = bd.k1_plan(bd.imajor_band(data_i, offs, 4), x)
+    assert (plan.W, plan.S, plan.threads) == (W, S, 256)
+    assert plan.blocks == -(-P // W // (256 // S))
+
+
+@pytest.mark.cuda
+def test_cuda_library_refuses_unbuilt_nb(cuda):
+    """The C entries return -2 for an nb with no build (the wrapper's
+    ``imajor_band`` refuses it before)."""
+    lib = _build.load_library()
+    data_i, offs, x = _band(5, 256, dtype=torch.float32,
+                            vdtype=torch.float32, device=cuda)
+    y = torch.empty_like(x)
+    out = (ctypes.c_longlong * 5)()
+    assert lib.pd_banded_matvec_plan(data_i.data_ptr(), 0, x.data_ptr(), 0,
+                                     len(OFFSETS), 5, 256, 256, 0, None,
+                                     out) == -2
+    assert lib.pd_banded_matvec(data_i.data_ptr(), 0, x.data_ptr(), 0,
+                                offs.data_ptr(), len(OFFSETS), 5,
+                                data_i.shape[0] // 5, 256, y.data_ptr(),
+                                _build.stream_handle(y.device)) == -2
