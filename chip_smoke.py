@@ -82,6 +82,24 @@ Phases (each must pass; nothing falls back to the CPU):
      Galerkin-coarsened R3MG (3D n=32) against the JAX package; (h) 2D
      n=16 Poisson and diffusion-reaction, f64, card against CPU (same
      iterations, solutions within 1e-12).
+ 10. SA-AMG, GMRES and the coupled models (constants JAX_COUPLED from
+     tools/jax_coupled_constants.py): (a) solve_poisson(solver="amg") 3D
+     p=1 at n=16/32, the JAX package's iterations (+-1) and L2/H1 (1e-8),
+     then at n=64 (1,048,576 DoF) R3MG's 19 +- 1 iterations against AMG's
+     (more), the solutions within 1e-7, AMG's host setup and solve seconds
+     and the peak RSS printed; the diffusion-reaction partition arm at
+     n=16/32 (2D); (b) darcy_stokes run(n, 2) at n = 8/16/32/64 (errors
+     within 1e-8 of JAX's) and MG-GMRES (rtol 1e-11) at the recorded
+     49/92/103/109 (+-2), within 1e-6 of the dense solve, then n=128
+     (36,864 DoF, a 10.9 GB dense solve) printed; its n=64 solve is the
+     path the counters read (K0 and fused K0 launched); (c) oseen run(16,
+     2) and run_curved(16, 2) errors (1e-8), MG-GMRES at n = 16/32/64
+     within 1e-6 of dense, JAX's count at 16 (+-2); (d) Stokes' exact
+     linear flow (1e-10), the piston at n=16 (iterations +-1, extrema
+     1e-8), an hp dense solve (1e-10); (e) K0 and fused K0 against their
+     plain versions on the coupled fine bands (darcy u nb=12, darcy pD
+     nb=3, the oseen proxy nb=6; f64 and f32), two launches bitwise equal,
+     timed beside a CSR torch.mv.
 K0 (o-major banded SpMV) and fused K0 (its Chebyshev step/residual, all
 three modes) are held against their plain versions on the real bands of
 phases 5-7 once each exists (phase 3's check, on real bands): the
@@ -1685,6 +1703,319 @@ def phase9(torch, dev):
     return counts, out
 
 
+# Phase 10's reference numbers: the JAX package on the CPU in float64,
+# printed by `JAX_PLATFORMS=cpu python tools/jax_coupled_constants.py`
+JAX_COUPLED = {
+    "amg_poisson_3d_p1_n16": dict(n_dofs=16384, iterations=29,
+                                  l2=0.0750274046553536,
+                                  h1=0.4539264909294495),
+    "amg_poisson_3d_p1_n32": dict(n_dofs=131072, iterations=42,
+                                  l2=0.023332376567958526,
+                                  h1=0.15964059153215437),
+    "dr_partition_2d_n16": dict(n_dofs=192, iterations=1,
+                                l2=0.1513360635470188),
+    "dr_partition_2d_n32": dict(n_dofs=768, iterations=1,
+                                l2=0.053608865950191126),
+    "darcy_n8": dict(n_dofs=144, u_l2=0.056707246115525196,
+                     u_h1=0.46507805250321155, pS_l2=0.04990136301719278,
+                     pD_l2=0.057186480451021156, mg_iterations=49),
+    "darcy_n16": dict(n_dofs=576, u_l2=0.03612397695063006,
+                      u_h1=0.2443558545859147, pS_l2=0.025910691094422313,
+                      pD_l2=0.03694115686779079, mg_iterations=92),
+    "darcy_n32": dict(n_dofs=2304, u_l2=0.01626329666616923,
+                      u_h1=0.11375371784957954, pS_l2=0.011265714061982176,
+                      pD_l2=0.017845789714896695, mg_iterations=103),
+    "darcy_n64": dict(n_dofs=9216, u_l2=0.005574937094664417,
+                      u_h1=0.04076617802081959, pS_l2=0.0039109979295395055,
+                      pD_l2=0.006260585360370239, mg_iterations=109),
+    "oseen_n16": dict(n_dofs=960, u_l2=0.24924683252891833,
+                      u_h1=4.238398051898277, p_l2=0.5742698286533473,
+                      mg_iterations=130),
+    "oseen_curved_n16": dict(n_dofs=1080, u_l2=0.27273422516763973,
+                             u_h1=4.660005189225814, p_l2=0.5888595542051563),
+    "piston_n16": dict(n_poly=3556, n_dofs=14224, iterations=16,
+                       u_min=0.01320954669275505, u_max=0.988985889445128),
+    "hp": dict(n_dofs=72, l2=0.005362539284798911, x_norm=3.729248102781793),
+}
+# darcy_stokes MG-GMRES iterations over n = 8/16/32/64, the JAX package's
+# recorded trajectory (docs/MIGRATION.md:143) at its tests' tolerance
+# (tests/test_darcy_stokes.py:158); the card is held to each +-2
+DARCY_ITS = {8: 49, 16: 92, 32: 103, 64: 109}
+COUPLED_RTOL = 1e-11
+
+
+def hold_rel(label, got, ref, tol):
+    """``got`` within ``tol`` relative of ``ref`` (each a dict of the same
+    keys), printed."""
+    errs = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in ref}
+    log(f"  {label}: " + ", ".join(f"{k} {got[k]!r} (rel diff {e:.2e})"
+                                   for k, e in errs.items()))
+    for k, e in errs.items():
+        if not e <= tol:
+            fail(f"{label}: {k} differs from the JAX package's by {e:.3e} "
+                 f"> {tol:g}")
+
+
+def bitwise_k0(torch, label, band):
+    """Two launches of K0 and of fused K0's step on ``band`` (its own
+    type) bitwise equal."""
+    from polydeal_tpu_torch.ops import fused_cheb as fc
+    from polydeal_tpu_torch.ops.banded import (banded_matvec_t_omajor,
+                                               omajor_band)
+
+    data = band.data
+    vdt = torch.float64 if data.dtype == torch.float64 else torch.float32
+    gen = torch.Generator(device=data.device).manual_seed(7)
+    x, b, d, dinv = cheb_vectors(torch, gen, band.n_basis, band.n_block_rows,
+                                 vdt)
+    kb = omajor_band(data, band.offsets_t)
+    runs = [(banded_matvec_t_omajor(data, band.offsets_t, x, band=kb),
+             fc.banded_cheb_step_t_omajor(data, band.offsets_t, x, d, b,
+                                          dinv, 0.37, 1.21, band=kb))
+            for _ in range(2)]
+    same = torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(p, q) for p, q in zip(runs[0][1], runs[1][1]))
+    if not same:
+        fail(f"two K0 / fused K0 launches on {label} differ")
+
+
+def phase10(torch, dev):
+    """Phase 10: SA-AMG, GMRES and the coupled models on the card (see the
+    module docstring).  Returns (the launch counts of darcy_stokes'
+    MG-GMRES solve at n=64, the K0 and fused K0 rows of the coupled
+    bands)."""
+    import resource
+
+    import numpy as np
+
+    from polydeal_tpu_torch.mesh import hyper_cube
+    from polydeal_tpu_torch.models import darcy_stokes as ds
+    from polydeal_tpu_torch.models import oseen as os_
+    from polydeal_tpu_torch.models.diffusion_reaction import (
+        solve_diffusion_reaction)
+    from polydeal_tpu_torch.models.piston import solve_piston
+    from polydeal_tpu_torch.models.poisson import solve_poisson
+    from polydeal_tpu_torch.ops import _build
+    from polydeal_tpu_torch.solvers import block_nullspace, build_amg
+
+    t_phase = time.perf_counter()
+    log("phase 10: AMG, GMRES and the coupled models")
+    # (a) SA-AMG: solve_poisson(solver="amg") against the JAX package at
+    # n=16/32, then R3MG against AMG at n=64 (1,048,576 DoF)
+    for n in (16, 32):
+        r = solve_poisson(dim=3, n=n, degree=1, solver="amg", device=dev,
+                          verbose=False)
+        ref = JAX_COUPLED[f"amg_poisson_3d_p1_n{n}"]
+        log(f"  (a) poisson 3D p=1 n={n} amg: {r['iterations']} iterations "
+            f"(JAX {ref['iterations']}); host seconds MG setup + solve "
+            f"{r['t_solve']:.3f}")
+        if abs(r["iterations"] - ref["iterations"]) > 1:
+            fail(f"AMG n={n}: {r['iterations']} iterations, JAX "
+                 f"{ref['iterations']}")
+        hold_rel(f"(a) poisson amg n={n}", r, {k: ref[k] for k in ("l2",
+                                                                   "h1")},
+                 COO_TOL)
+    rm = solve_poisson(dim=3, n=64, degree=1, device=dev, verbose=False)
+    A, b, ah = rm["A"], rm["b"], rm["handlers"][-1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    amg = build_amg(A, nullspace=block_nullspace(ah))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ra = amg.solve_cg(b, rtol=1e-9)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    dx = float((ra.x - rm["x"]).abs().max())
+    log(f"  (a) n=64 ({rm['n_dofs']} DoF): R3MG {rm['iterations']} "
+        f"iterations, AMG {ra.iterations} ({amg.n_levels} levels, sizes "
+        f"{[m.shape[0] for m in amg.As]}); AMG host setup {t_setup:.3f} s, "
+        f"solve {t_solve:.3f} s (R3MG setup + solve {rm['t_solve']:.3f} s); "
+        f"peak RSS {rss:.2f} GiB; max |x_amg - x_r3mg| = {dx:.3e}")
+    if not abs(rm["iterations"] - 19) <= 1:
+        fail(f"R3MG n=64 took {rm['iterations']} iterations")
+    if not ra.iterations > rm["iterations"]:
+        fail("AMG took no more iterations than R3MG at n=64")
+    if not float(ra.residual) <= 1e-9 * float(b.norm()) * 1.01 or \
+            not dx <= 1e-7:
+        fail(f"AMG n=64 disagrees with R3MG: {dx:.3e}")
+    del rm, A, b, ah, amg, ra
+    torch.cuda.empty_cache()
+    for n in (16, 32):
+        r = solve_diffusion_reaction(dim=2, n=n, strategy="metis",
+                                     device=dev, verbose=False)
+        ref = JAX_COUPLED[f"dr_partition_2d_n{n}"]
+        log(f"  (a) diffusion-reaction partition n={n}: {r['iterations']} "
+            f"iterations (JAX {ref['iterations']})")
+        if abs(r["iterations"] - ref["iterations"]) > 1:
+            fail(f"diffusion-reaction partition n={n} iterations")
+        hold_rel(f"(a) diffusion-reaction partition n={n}", r,
+                 {"l2": ref["l2"]}, COO_TOL)
+
+    # (b) darcy_stokes: the dense solve against JAX's errors, MG-GMRES at
+    # the recorded trajectory and within 1e-6 of the dense solve
+    counts = None
+    bands = {}
+    for n in (8, 16, 32, 64, 128):
+        t0 = time.perf_counter()
+        s, xd = ds.run(n, 2, device=dev)
+        torch.cuda.synchronize()
+        t_dense = time.perf_counter() - t0
+        e = ds.errors(s, xd)
+        key = f"darcy_n{n}"
+        if key in JAX_COUPLED:
+            ref = JAX_COUPLED[key]
+            hold_rel(f"(b) darcy n={n} dense", dict(
+                u_l2=e[0], u_h1=e[1], pS_l2=e[2], pD_l2=e[3]),
+                {k: ref[k] for k in ("u_l2", "u_h1", "pS_l2", "pD_l2")},
+                COO_TOL)
+        mesh = hyper_cube(2, n)
+        if n == 64:
+            _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = ds.solve_darcy_stokes_mg(s, mesh, n, 2, rtol=COUPLED_RTOL)
+        torch.cuda.synchronize()
+        t_mg = time.perf_counter() - t0
+        if n == 64:
+            counts = dict(_build.launches)
+        dx = float((r.x - xd).abs().max()) / float(xd.abs().max())
+        log(f"  (b) darcy n={n} ({s.space.n_dofs} DoF): MG-GMRES "
+            f"{r.iterations} iterations (recorded "
+            f"{DARCY_ITS.get(n, '-')}), {t_mg:.3f} s setup + solve; dense "
+            f"build + solve {t_dense:.3f} s; max |x_mg - x_dense| / max "
+            f"|x_dense| = {dx:.3e}; errors {e}")
+        if n in DARCY_ITS and abs(r.iterations - DARCY_ITS[n]) > 2:
+            fail(f"darcy n={n}: {r.iterations} MG-GMRES iterations, "
+                 f"recorded {DARCY_ITS[n]}")
+        if not dx <= 1e-6:
+            fail(f"darcy n={n}: MG-GMRES differs from the dense solve by "
+                 f"{dx:.3e}")
+        if n == 64:
+            M = ds.mg_block_preconditioner(s, mesh, n, 2,
+                                           ps_mode="mass+stab",
+                                           structure="tri")
+            bands["darcy u"] = M.mgs["u"].ells[-1]
+            bands["darcy pD"] = M.mgs["pD"].ells[-1]
+            log(f"  (b) darcy n=64 launches over MG setup + solve: {counts}")
+            del M
+        del s, xd, r
+        torch.cuda.empty_cache()
+    for name in ("banded_matvec_omajor", "banded_fused_omajor"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was never launched by darcy's MG-GMRES")
+
+    # (c) oseen: dense errors against JAX (straight and curved split), the
+    # MG-GMRES trajectory within 1e-6 of the dense solve
+    for n in (16, 32, 64):
+        space, xd, meta = os_.run(n, 2, device=dev)
+        e = os_.oseen_errors(space, xd, meta)
+        if n == 16:
+            ref = JAX_COUPLED["oseen_n16"]
+            hold_rel("(c) oseen n=16 dense", dict(u_l2=e[0], u_h1=e[1],
+                                                  p_l2=e[2]),
+                     {k: ref[k] for k in ("u_l2", "u_h1", "p_l2")}, COO_TOL)
+        op, rhs = meta["system"]
+        mesh = os_._rectangle(n)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        r = os_.solve_oseen_mg(space, op, rhs, meta, mesh, n, 2,
+                               rtol=COUPLED_RTOL)
+        torch.cuda.synchronize()
+        t_mg = time.perf_counter() - t0
+        oseen_counts = {k: v for k, v in _build.launches.items() if v}
+        dx = float((r.x - xd).abs().max()) / float(xd.abs().max())
+        jits = JAX_COUPLED.get(f"oseen_n{n}", {}).get("mg_iterations", "-")
+        log(f"  (c) oseen n={n} ({space.n_dofs} DoF): MG-GMRES "
+            f"{r.iterations} iterations (JAX {jits}), {t_mg:.3f} s; max "
+            f"|x_mg - x_dense| / max |x_dense| = {dx:.3e}; errors {e}")
+        if not dx <= 1e-6:
+            fail(f"oseen n={n}: MG-GMRES differs from the dense solve by "
+                 f"{dx:.3e}")
+        if jits != "-" and abs(r.iterations - jits) > 2:
+            fail(f"oseen n={n}: {r.iterations} iterations, JAX {jits}")
+        if n == 64:
+            log(f"  (c) oseen n=64 launches over MG setup + solve: "
+                f"{oseen_counts}")
+            M = os_.oseen_mg_preconditioner(space, op, meta, mesh, n, 2)
+            bands["oseen proxy"] = M.mgs[2].ells[-1]
+            del M
+        del space, xd, meta, op, rhs, r
+        torch.cuda.empty_cache()
+    space, xc, meta = os_.run_curved(16, 2, device=dev)
+    e = os_.oseen_errors(space, xc, meta)
+    ref = JAX_COUPLED["oseen_curved_n16"]
+    hold_rel("(c) oseen curved n=16 dense", dict(u_l2=e[0], u_h1=e[1],
+                                                 p_l2=e[2]),
+             {k: ref[k] for k in ("u_l2", "u_h1", "p_l2")}, COO_TOL)
+    del space, xc, meta
+
+    # (d) Stokes' exact linear flow, the piston, hp
+    from polydeal_tpu_torch.agglomeration import agglomerate_by_partition
+    from polydeal_tpu_torch.fem import hp
+    from polydeal_tpu_torch.handler import AgglomerationHandler
+    from polydeal_tpu_torch.models import stokes
+
+    m = hyper_cube(2, 4)
+    h = AgglomerationHandler(
+        m, agglomerate_by_partition(m.cell_centers(), m.neighbors, 4),
+        degree=1)
+    u_ex = lambda x: torch.stack([x[..., 1], x[..., 0]], dim=-1)
+    U, _, meta = stokes.solve_stokes_dense(h, lambda x: torch.zeros_like(x),
+                                           u_ex, device=dev)
+    ev = stokes.velocity_errors(h, meta, U, u_ex)
+    ed = stokes.divergence_norm(h, meta, U)
+    log(f"  (d) Stokes exact flow: velocity L2 {ev:.3e}, div {ed:.3e}")
+    if not (ev <= 1e-10 and ed <= 1e-10):
+        fail("Stokes misses its exact linear flow")
+    out, _ = solve_piston(n=16, device=dev, verbose=False)
+    ref = JAX_COUPLED["piston_n16"]
+    log(f"  (d) piston n=16: {out['n_dofs']} DoF, {out['iterations']} "
+        f"iterations (JAX {ref['iterations']}), u in [{out['u_min']!r}, "
+        f"{out['u_max']!r}] (JAX [{ref['u_min']!r}, {ref['u_max']!r}])")
+    if abs(out["iterations"] - ref["iterations"]) > 1 or max(
+            abs(out[k] - ref[k]) for k in ("u_min", "u_max")) > 1e-8:
+        fail("the piston disagrees with the JAX package")
+    from polydeal_tpu_torch.agglomeration import RTreeAgglomerator
+
+    m = hyper_cube(2, 8)
+    c2p = RTreeAgglomerator.build(m.cell_centers()).extract_agglomerates(2)
+    h = AgglomerationHandler(m, c2p, degree=1, n_quad=3)
+    cx = np.bincount(c2p, weights=m.cell_centers()[:, 0]) / np.bincount(c2p)
+    degrees = np.where(cx < 0.5, 1, 2)
+    u = lambda x: x[..., 0] ** 2 + x[..., 1]
+    sp_, op, rhs = hp.build_hp_poisson(
+        h, degrees, f_fn=lambda x: torch.full_like(x[..., 0], -2.0), g_fn=u,
+        device=dev)
+    x = hp.solve_hp_dense(sp_, op, rhs)
+    hold_rel("(d) hp dense", dict(
+        l2=hp.hp_l2_error(h, sp_, degrees, x, u),
+        x_norm=float(torch.linalg.vector_norm(x))),
+        {k: JAX_COUPLED["hp"][k] for k in ("l2", "x_norm")}, 1e-10)
+
+    # (e) K0 and fused K0 on the coupled real bands (nb = 12, 3, 6), f64
+    # and f32, two launches bitwise equal
+    rows = {}
+    for label, band in bands.items():
+        log(f"  (e) {label} fine band: nb={band.n_basis}, "
+            f"P={band.n_block_rows}, offsets {band.offsets.tolist()}")
+        for data in band_types(torch, band.data):
+            bitwise_k0(torch, f"{label} {data.dtype}",
+                       type(band)(data, band.offsets, band.n_block_cols))
+        check_k0(torch, f"{label} nb={band.n_basis}", band, rows)
+    log(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    out = {}
+    for key, cases in (("K0", {k: v for k, v in rows.items()
+                               if not k.endswith("fused")}),
+                       ("K0 fused", {k: v for k, v in rows.items()
+                                     if k.endswith("fused")})):
+        main = [k for k in cases if "darcy u" in k and "float64" in k][0]
+        out[key] = dict(cases[main], case=main, max_abs_err=max(
+            r["max_abs_err"] for r in cases.values()))
+    return counts, out
+
+
 def main() -> int:
     import torch
 
@@ -1882,6 +2213,7 @@ def main() -> int:
     torch.distributed.destroy_process_group()
     shutil.rmtree(store_dir, ignore_errors=True)
     counts9, rows9 = phase9(torch, dev)
+    counts10, rows10 = phase10(torch, dev)
     kres.update(halo_rows)
     for key, rows, main_row in (
             ("K0", {k: r for k, r in k0.items() if not k.endswith("fused")},
@@ -1944,6 +2276,14 @@ def main() -> int:
                      **{k: rows9[key][k] for k in keys + ("plan",)
                         if k in rows9[key]})
                 for name, key, src, rpl in rows if key in rows9]
+    # phase 10's path (darcy_stokes' MG-GMRES at n=64: the field-block
+    # V-cycles on nb = 12 and nb = 3 bands) runs K0 and fused K0: a row
+    # each, on the velocity block's fine band
+    kernels += [dict(name=f"{name}_coupled", route="cuda", source=src,
+                     replaces=rpl, launches=counts10[name],
+                     case=rows10[key]["case"],
+                     **{k: rows10[key][k] for k in keys if k in rows10[key]})
+                for name, key, src, rpl in rows if key in rows10]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Carry the JAX package's objects, given as numpy arrays, into the port.
 
 The two packages share layouts on purpose: a block-COO matrix, its
-block-ELL form, a band, its i-major copy, a pack, the slot-padded assembly tables, the transfer embeddings and the
-monodomain state are the same arrays in both.  These helpers build the
+block-ELL form, a band, its i-major copy, a pack, the slot-padded assembly tables, the transfer embeddings, the
+monodomain state, a mixed operator's merged blocks and an SA-AMG
+hierarchy are the same arrays in both.  These helpers build the
 port's objects from those arrays, so tests can run both packages on the
 same band and tables.
 Nothing here imports jax: the caller converts with ``np.asarray``.
@@ -24,7 +25,8 @@ from polydeal_tpu_torch.sparse import (
 
 __all__ = ["block_matrix_from_arrays", "ell_from_arrays",
            "banded_from_arrays", "packed_from_arrays", "groups_from_arrays",
-           "transfer_from_arrays", "monodomain_state_from_arrays"]
+           "transfer_from_arrays", "monodomain_state_from_arrays",
+           "mixed_operator_from_arrays", "amg_from_arrays"]
 
 
 def _t(a, device):
@@ -107,3 +109,37 @@ def monodomain_state_from_arrays(u, u_prev, w, *, device) -> tuple:
     """(u, u_prev, w) tensors from a JAX monodomain state in its layouts:
     ``u`` and ``u_prev`` [n_dofs], the gating state ``w`` [3, C, q, P]."""
     return _t(u, device), _t(u_prev, device), _t(w, device)
+
+
+def mixed_operator_from_arrays(space, merged: dict, *, device):
+    """MixedOperator on the port's ``space`` from a JAX
+    ``MixedOperator.finalize()``: {(test, trial): (rows, cols, data)} with
+    field-local block rows/cols and data [n, block_test, block_trial]."""
+    from polydeal_tpu_torch.assembly.mixed import MixedOperator
+
+    op = MixedOperator(space)
+    for (test, trial), (rows, cols, data) in merged.items():
+        op.add(test, trial, np.asarray(rows), np.asarray(cols),
+               _t(data, device))
+    return op
+
+
+def amg_from_arrays(As, Ps, Pts, dinvs, los, his, coarse_inv,
+                    chebyshev_degree: int, n_smooth: int, *, device):
+    """AMG from a JAX ``AMG``'s levels (coarse to fine): ``As``, ``Ps``
+    and ``Pts`` as (data, rows, cols, n_block_rows, n_block_cols) block-COO
+    tuples (None at the coarsest level of ``Ps``/``Pts``), ``dinvs``,
+    the Chebyshev intervals ``los``/``his`` and the dense ``coarse_inv``."""
+    from polydeal_tpu_torch.solvers.amg import AMG
+
+    def bm(m):
+        return None if m is None else block_matrix_from_arrays(
+            *m, device=device)
+
+    return AMG(As=[bm(m) for m in As], Ps=[bm(m) for m in Ps],
+               Pts=[bm(m) for m in Pts],
+               dinvs=[_t(d, device) for d in dinvs],
+               los=[float(v) for v in los], his=[float(v) for v in his],
+               coarse_inv=_t(coarse_inv, device),
+               chebyshev_degree=int(chebyshev_degree),
+               n_smooth=int(n_smooth))

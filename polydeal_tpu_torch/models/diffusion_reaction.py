@@ -4,8 +4,8 @@ Counterpart of ``polydeal_tpu/models/diffusion_reaction.py`` (the
 reference's examples/diffusion_reaction.cc): -Laplace u + c u = f with SIPG
 on an R-tree hierarchy, CG preconditioned by R3MG whose every level is
 re-assembled as K + c M, and the convergence-rate study across
-refinements.  The METIS-like partition arm solves with SA-AMG in the JAX
-package, which is not ported yet.
+refinements; the METIS-like partition arm (and a tree too small for a
+hierarchy) solves with CG and SA-AMG (``solvers/amg.py``).
 
     python -m polydeal_tpu_torch.models.diffusion_reaction --device cpu \\
         --dim 2 --n 16 [--convergence]
@@ -37,7 +37,10 @@ def solve_diffusion_reaction(
     """Solve -Laplace u + c u = f, u = prod sin(pi x), on ``device``;
     returns n_dofs, iterations and l2 (the JAX package's keys) and the
     solution ``x``."""
-    from polydeal_tpu_torch.agglomeration import RTreeAgglomerator
+    from polydeal_tpu_torch.agglomeration import (
+        RTreeAgglomerator,
+        agglomerate_by_partition,
+    )
     from polydeal_tpu_torch.assembly.sipg import (
         assemble_rhs,
         assemble_sipg_matrix,
@@ -46,7 +49,12 @@ def solve_diffusion_reaction(
     from polydeal_tpu_torch.mesh import hyper_cube
     from polydeal_tpu_torch.ops import _build
     from polydeal_tpu_torch.postprocess import compute_global_error
-    from polydeal_tpu_torch.solvers import build_rtree_hierarchy
+    from polydeal_tpu_torch.handler import AgglomerationHandler
+    from polydeal_tpu_torch.solvers import (
+        block_nullspace,
+        build_amg,
+        build_rtree_hierarchy,
+    )
     from polydeal_tpu_torch.solvers.multigrid import (
         Multigrid,
         Transfer,
@@ -73,13 +81,13 @@ def solve_diffusion_reaction(
         agg = RTreeAgglomerator.build(mesh.cell_centers())
         handlers, parents = build_rtree_hierarchy(
             mesh, agg, list(range(1, agg.n_levels - 1)), degree=degree)
-    if len(handlers) < 2:
-        # the JAX package solves without a geometric hierarchy (the
-        # METIS-like partition, or a one-level tree) by SA-AMG
-        raise NotImplementedError(
-            "this arm solves with SA-AMG, not ported yet (ROADMAP Queue 1 "
-            "item 6)")
-    ah = handlers[-1]
+    else:
+        c2p = agglomerate_by_partition(
+            mesh.cell_centers(), mesh.neighbors,
+            max(mesh.n_cells // (2**dim), 1))
+        ah = AgglomerationHandler(mesh, c2p, degree=degree)
+    if handlers:
+        ah = handlers[-1]
 
     def operator(h):
         K = assemble_sipg_matrix(h, dtype=dtype, device=device)
@@ -88,16 +96,25 @@ def solve_diffusion_reaction(
 
     A = operator(ah)
     b = assemble_rhs(ah, f, u_ex, dtype=dtype, device=device)
-    # every level is the diffusion + reaction operator, re-assembled
-    transfers = [
-        Transfer(E=build_embedding(handlers[l], handlers[l + 1], parents[l],
-                                   dtype=dtype, device=device),
-                 parent=parents[l], n_coarse=handlers[l].n_poly)
-        for l in range(len(handlers) - 1)
-    ]
-    mg = Multigrid.setup([operator(h) for h in handlers[:-1]] + [A],
-                         transfers)
-    res = mg.solve_cg(b, rtol=rtol)
+    if len(handlers) > 1:
+        # every level is the diffusion + reaction operator, re-assembled
+        transfers = [
+            Transfer(E=build_embedding(handlers[l], handlers[l + 1],
+                                       parents[l], dtype=dtype,
+                                       device=device),
+                     parent=parents[l], n_coarse=handlers[l].n_poly)
+            for l in range(len(handlers) - 1)
+        ]
+        mg = Multigrid.setup([operator(h) for h in handlers[:-1]] + [A],
+                             transfers)
+        res = mg.solve_cg(b, rtol=rtol)
+    else:
+        # no geometric hierarchy (the METIS-like partition, or a one-level
+        # tree): CG + smoothed-aggregation AMG, the reference's
+        # configuration (METIS agglomerates, Trilinos AMG;
+        # diffusion_reaction.cc:710-724)
+        res = build_amg(A, nullspace=block_nullspace(ah)).solve_cg(
+            b, rtol=rtol)
 
     l2, _ = compute_global_error(ah, res.x, u_ex)
     if verbose:

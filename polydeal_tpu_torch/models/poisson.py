@@ -65,13 +65,15 @@ def solve_poisson(
     partition into ``n_agglomerates`` parts, default n_cells / 2^dim) or
     'trivial' (one cell a polytope).  ``solver``: 'mg' (R3MG-preconditioned
     CG, on an R-tree hierarchy), 'cg' (block-Jacobi CG; also what 'mg'
-    runs without a hierarchy) or 'amg' (not ported yet).
+    runs without a hierarchy) or 'amg' (CG preconditioned by SA-AMG on the
+    assembled matrix, ``solvers/amg.py``; its setup runs on the host).
 
     Returns the JAX package's keys (n_cells, n_poly, n_dofs, iterations,
     residual, l2, h1, t_setup, t_assembly, t_solve: host seconds, read
     after a device synchronise on CUDA) plus ``x`` (the solution),
     ``handlers`` (the fine handler last), ``A`` (the fine BlockMatrix),
-    ``b``, ``mg`` (None without multigrid) and ``levels``
+    ``b``, ``mg`` (None without multigrid), ``amg`` (the SA-AMG
+    hierarchy of the 'amg' arm, else None) and ``levels``
     (:func:`level_summary`)."""
     from polydeal_tpu_torch.agglomeration import (
         RTreeAgglomerator,
@@ -87,16 +89,14 @@ def solve_poisson(
     from polydeal_tpu_torch.postprocess import compute_global_error
     from polydeal_tpu_torch.solvers import (
         block_jacobi_preconditioner,
+        block_nullspace,
+        build_amg,
         build_multigrid,
         build_rtree_hierarchy,
         cg_solve,
     )
 
-    if solver == "amg":
-        raise NotImplementedError(
-            "solver='amg' needs the SA-AMG solver, not ported yet (ROADMAP "
-            "Queue 1 item 6)")
-    if solver not in ("mg", "cg"):
+    if solver not in ("mg", "cg", "amg"):
         raise ValueError(f"unknown solver: {solver}")
     device = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -157,10 +157,16 @@ def solve_poisson(
     log(f"assembly: {t_asm:.3f}s ({A.data.shape[0]} blocks)")
 
     t0 = time.perf_counter()
-    mg = None
+    mg = amg = None
     if solver == "mg" and handlers is not None and len(handlers) > 1:
         mg = build_multigrid(handlers, parents, A, dtype=dtype, device=device)
         res = mg.solve_cg(b, rtol=rtol)
+    elif solver == "amg":
+        # the reference's Trilinos-AMG comparison arm
+        # (examples/agglo_amg.cc:1473-1530), as smoothed aggregation on the
+        # assembled matrix
+        amg = build_amg(A, nullspace=block_nullspace(ah))
+        res = amg.solve_cg(b, rtol=rtol)
     else:
         res = cg_solve(A.matvec, b,
                        M=block_jacobi_preconditioner(A.diag_blocks()),
@@ -191,6 +197,7 @@ def solve_poisson(
         A=A,
         b=b,
         mg=mg,
+        amg=amg,
         levels=levels,
     )
 

@@ -61,6 +61,7 @@ __all__ = [
     "level_pack_plan",
     "maybe_pack_level",
     "build_multigrid",
+    "build_field_block_multigrid",
 ]
 
 # Levels with at least this many polytopes get the i-major band copy and
@@ -805,4 +806,138 @@ def build_multigrid(
                            n_smooth=n_smooth, smoothing_range=smoothing_range,
                            precond_dtype=precond_dtype,
                            vector_dtype=vector_dtype,
+                           coarse_solver=coarse_solver)
+
+
+def _field_block_matrix(space, op, name, ah, dtype):
+    """(BlockMatrix, active mask): the (name, name) diagonal block of
+    ``op`` scattered onto ``ah``'s whole polytope set, identity-extended
+    (scaled by the mean diagonal) outside the field's subdomain."""
+    f = space.fields[name]
+    rows_l, cols_l, data = op.finalize()[(name, name)]
+    gp = np.asarray(f.polys)
+    rows, cols = gp[rows_l], gp[cols_l]
+    data = data.to(dtype)
+    act = np.zeros(ah.n_poly, dtype=bool)
+    act[gp] = True
+    ext = np.nonzero(~act)[0]
+    blocks, r_all, c_all = [data], [rows], [cols]
+    if ext.size:
+        diag = data[torch.as_tensor(np.nonzero(rows_l == cols_l)[0],
+                                    device=data.device)]
+        scale = torch.diagonal(diag, dim1=1, dim2=2).sum(-1).mean() / f.block
+        eye = scale * torch.eye(f.block, dtype=dtype, device=data.device)
+        blocks.append(eye.expand(ext.size, f.block, f.block))
+        r_all.append(ext)
+        c_all.append(ext)
+    return BlockMatrix.from_blocks(
+        np.concatenate(r_all), np.concatenate(c_all),
+        torch.cat(blocks, dim=0), ah.n_poly), act
+
+
+def build_field_block_multigrid(
+    space,
+    op,
+    name: str,
+    handlers: list,
+    parents: list,
+    chebyshev_degree: int | tuple = 3,
+    n_smooth: int | tuple = 5,
+    smoothing_range: float = 20.0,
+    dtype=torch.float64,
+    coarse_solver: str = "lu",
+    level_ops: list | None = None,
+) -> Multigrid:
+    """R3MG built from the coupled operator's ACTUAL (``name``, ``name``)
+    diagonal block (counterpart of the JAX package's function): the
+    field's block of the assembled ``MixedOperator`` (with its interface
+    terms and the subdomain's true boundary conditions) scattered onto the
+    full polytope set of a degree-matched hierarchy, polytopes outside the
+    subdomain given scaled identity blocks, and Galerkin-coarsened through
+    the exact embeddings, expanded to blockdiag(E, ..., E) for a vector
+    field's component-major blocks.  With ``level_ops`` [(space_l, op_l)]
+    aligned with ``handlers`` (the fine pair last), each level's block is
+    extracted from a system re-assembled on that level instead
+    (level-correct SIPG penalties).
+
+    A block whose subdomain has no Dirichlet boundary (darcy_stokes' pD
+    block) is singular on the per-component constants: its coarsest matrix
+    is deflated, A_0 + sigma Z Z^T with Z the normalised constants of each
+    component on the field's coarse polytopes, after an f64 ``eigvalsh``
+    on the host finds w[0] < 1e-10 w[-1].  The level is then a dense
+    BlockMatrix.  The device is the operator's."""
+    f = space.fields[name]
+    ah = handlers[-1]
+    nb = ah.n_basis
+    d = f.n_components
+    if f.basis.n_basis != nb:
+        raise ValueError(f"hierarchy basis ({nb}) must match field "
+                         f"'{name}' ({f.basis.n_basis})")
+    device = op.finalize()[(name, name)][2].device
+
+    Es = []
+    for l in range(len(handlers) - 1):
+        E = build_embedding(handlers[l], handlers[l + 1], parents[l],
+                            dtype=dtype, device=device)
+        if d > 1:  # component-major block expansion
+            eye = torch.eye(d, dtype=dtype, device=device)
+            E = torch.einsum("de,pij->pdiej", eye, E).reshape(
+                E.shape[0], d * nb, d * nb)
+        Es.append(E)
+
+    if level_ops is not None:
+        if len(level_ops) != len(handlers):
+            raise ValueError(f"{len(level_ops)} level systems for "
+                             f"{len(handlers)} levels")
+        mats = []
+        for l, (sp_l, op_l) in enumerate(level_ops):
+            A_l, act = _field_block_matrix(sp_l, op_l, name, handlers[l],
+                                           dtype)
+            mats.append(A_l)
+    else:
+        A_fine, act = _field_block_matrix(space, op, name, ah, dtype)
+        mats = [A_fine]
+        for l in range(len(handlers) - 2, -1, -1):
+            mats.insert(0, galerkin_coarsen(mats[0], Es[l], parents[l],
+                                            handlers[l].n_poly))
+
+    # Neumann-block coarse deflation, decided on the host in f64 (an f32
+    # copy of the spectrum would flip the test)
+    n0 = handlers[0].n_poly
+    bs = f.block
+    D0 = mats[0].to_dense().cpu().numpy().astype(np.float64)
+    w = np.linalg.eigvalsh(0.5 * (D0 + D0.T))
+    if w[0] < 1e-10 * w[-1]:
+        # the field's coarsest polytopes (the subdomain is hierarchy-
+        # aligned: every coarse polytope is wholly in or out)
+        a = act
+        for l in range(len(handlers) - 2, -1, -1):
+            ac = np.zeros(handlers[l].n_poly, dtype=bool)
+            ac[np.asarray(parents[l])[np.nonzero(a)[0]]] = True
+            a = ac
+        # coefficients of the constant function 1 in the shared basis
+        basis = handlers[0].basis
+        pts, wts = tensor_gauss(handlers[0].dim, handlers[0].degree + 1)
+        B = basis.eval(torch.as_tensor(pts, dtype=torch.float64)).numpy()
+        c0 = np.linalg.solve(np.einsum("qi,qj,q->ij", B, B, wts), B.T @ wts)
+        Z = np.zeros((n0, d, nb, d))
+        for comp in range(d):
+            Z[a, comp, :, comp] = c0
+        Z = Z.reshape(n0 * bs, d)
+        Z /= np.linalg.norm(Z, axis=0, keepdims=True)
+        sigma = np.trace(D0) / D0.shape[0]
+        D = D0 + sigma * (Z @ Z.T)
+        ri = np.repeat(np.arange(n0), n0)
+        ci = np.tile(np.arange(n0), n0)
+        data0 = torch.as_tensor(
+            D.reshape(n0, bs, n0, bs).transpose(0, 2, 1, 3).reshape(
+                n0 * n0, bs, bs), dtype=dtype, device=device)
+        mats[0] = BlockMatrix.from_blocks(ri, ci, data0, n0)
+
+    transfers = [
+        Transfer(E=Es[l], parent=parents[l], n_coarse=handlers[l].n_poly)
+        for l in range(len(handlers) - 1)
+    ]
+    return Multigrid.setup(mats, transfers, chebyshev_degree=chebyshev_degree,
+                           n_smooth=n_smooth, smoothing_range=smoothing_range,
                            coarse_solver=coarse_solver)

@@ -1,6 +1,6 @@
 """The port's diffusion-reaction model against the JAX package's, at f64
 on the CPU: the convergence study's errors to 1e-8 relative and its rate
-(the BASELINE gate); its partition arm (SA-AMG) raises.  Also the host
+(the BASELINE gate); its partition arm (SA-AMG).  Also the host
 models (the quality-metric table equal to the JAX package's, the
 agglomeration timings) and the timer scopes."""
 
@@ -37,10 +37,17 @@ def test_convergence_study_matches_jax():
 
 
 def test_amg_arm_raises():
-    """The partition arm solves with SA-AMG in the JAX package: it waits
-    for ROADMAP Queue 1 item 6, and nothing stands in for it."""
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tdr.solve_diffusion_reaction(dim=2, n=4, strategy="metis",
+    """The partition arm solves with SA-AMG, as the JAX package's does
+    (ROADMAP Queue 1 item 6, no longer raising): the same iterations and
+    L2 to 1e-8; an unknown strategy still raises."""
+    a = jdr.solve_diffusion_reaction(dim=2, n=8, strategy="metis",
+                                     verbose=False)
+    b = tdr.solve_diffusion_reaction(dim=2, n=8, strategy="metis",
+                                     verbose=False, device=CPU)
+    assert a["iterations"] == b["iterations"]
+    assert _rel(a["l2"], b["l2"]) <= TOL
+    with pytest.raises(ValueError, match="unknown strategy"):
+        tdr.solve_diffusion_reaction(dim=2, n=4, strategy="bogus",
                                      verbose=False, device=CPU)
 
 

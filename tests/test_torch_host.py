@@ -342,3 +342,34 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+def test_amg_host_setup_equals_jax():
+    """SA-AMG's host setup (strength graph, native and fallback
+    aggregation, tentative prolongator with its batched QR) on a seeded
+    random SPD block matrix: EXACTLY the JAX package's."""
+    import scipy.sparse as sp
+
+    from polydeal_tpu.solvers import amg as jamg
+    from polydeal_tpu_torch.solvers import amg as tamg
+
+    rng = np.random.default_rng(11)
+    n, nb = 120, 3
+    ij = rng.integers(0, n, size=(2, 400))
+    g = sp.csr_matrix((np.ones(ij.shape[1]), (ij[0], ij[1])), shape=(n, n))
+    g = ((g + g.T) > 0).astype(np.float64)
+    blocks = sp.kron(g, np.ones((nb, nb))) * sp.csr_matrix(
+        rng.uniform(-1, 0, (n * nb, n * nb)))
+    M = (blocks + blocks.T + sp.identity(n * nb) * (4 * nb * 6.0)).tocsr()
+    a = jamg._strength_graph(M, nb, 0.02)
+    b = tamg._strength_graph(M, nb, 0.02)
+    assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    la, lb = jamg._aggregate(*a, n), tamg._aggregate(*b, n)
+    assert np.array_equal(la, lb)
+    B = np.tile(np.eye(nb), (n, 1))
+    Pa, Ba = jamg._tentative(np.repeat(la, nb), B, int(la.max()) + 1)
+    Pb, Bb = tamg._tentative(np.repeat(lb, nb), B, int(lb.max()) + 1)
+    for attr in ("indptr", "indices", "data"):
+        assert np.array_equal(getattr(Pa, attr), getattr(Pb, attr))
+    assert np.array_equal(Ba, Bb)
+    assert jamg._power_lambda_max(M) == tamg._power_lambda_max(M)

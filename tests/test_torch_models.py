@@ -1,7 +1,7 @@
 """The port's Poisson model against the JAX package's, at f64 on the CPU:
 the BASELINE gate (the same L2/H1 errors, to 1e-8 relative, in 2D and 3D)
 and the same CG iterations, on the R-tree + R3MG and the partition +
-block-Jacobi CG arms; the AMG arm raises.  (Diffusion-reaction, the host
+block-Jacobi CG arms, and the SA-AMG arm.  (Diffusion-reaction, the host
 models and the timer: tests/test_torch_diffusion_reaction.py; each file
 pays ~1 min of the JAX side's jit compiles.)"""
 
@@ -43,8 +43,14 @@ def test_solve_poisson_matches_jax(kw):
 
 
 def test_amg_arm_raises():
-    """The SA-AMG arm waits for ROADMAP Queue 1 item 6; nothing stands in
-    for it."""
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tpoisson.solve_poisson(dim=2, n=4, solver="amg", verbose=False,
+    """The SA-AMG arm (ROADMAP Queue 1 item 6) no longer raises: it solves
+    as the JAX package's does (the same iterations, L2/H1 to 1e-8); an
+    unknown solver still raises."""
+    a = jpoisson.solve_poisson(dim=2, n=8, solver="amg", verbose=False)
+    b = tpoisson.solve_poisson(dim=2, n=8, solver="amg", verbose=False,
+                               device=CPU)
+    assert a["iterations"] == b["iterations"]
+    assert _rel(a["l2"], b["l2"]) <= TOL and _rel(a["h1"], b["h1"]) <= TOL
+    with pytest.raises(ValueError, match="unknown solver"):
+        tpoisson.solve_poisson(dim=2, n=4, solver="bogus", verbose=False,
                                device=CPU)
