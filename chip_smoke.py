@@ -115,6 +115,9 @@ Every K1 and K1 halo row prints K1's launch plan (W lanes a thread, S
 offset groups a block: ``ops/banded.k1_plan``), and the K1 checks of
 phases 3 and 9 (f) hold two launches bitwise equal; phase 8's 4-way cuts
 time slab 1 beside its CSR product.
+A profiler trace that comes back without the traced kernel's records is
+taken again, up to three times, and then read by CUDA events queued behind
+a sleep kernel; the run prints how many traces came back so.
 Prints the card, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}.
 """
@@ -661,19 +664,63 @@ def host_us(torch, fn, reps=1000):
     return (time.perf_counter() - t) / reps * 1e6
 
 
-def traced_us(torch, fn, kernel, n=50, tries=3):
+# profiler traces taken, those that came back without the traced kernel's
+# records, and readings that fell back to queued_events_us
+TRACES = {"taken": 0, "empty": 0, "by_events": 0}
+
+
+def queued_events_us(torch, fn, n=50, before=None):
+    """Device microseconds per call of ``fn`` by a CUDA event pair around
+    each of ``n`` calls, queued behind a sleep kernel so that the device
+    runs them back to back and the pairs time its work, not the host's
+    launches; ``before`` (if any) runs ahead of each call, outside its
+    pair.  The sleep is doubled until it outlasts the host's queueing."""
+    sleep = 2 * 10**7  # cycles: about 10 ms at the H100's clock
+    while True:
+        hold_, first = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+        torch.cuda.synchronize()
+        hold_.record()
+        torch.cuda._sleep(sleep)
+        first.record()
+        t = time.perf_counter()
+        for start, end in pairs:
+            if before is not None:
+                before()
+            start.record()
+            fn()
+            end.record()
+        queued_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        if hold_.elapsed_time(first) > queued_ms:
+            return sum(s.elapsed_time(e) for s, e in pairs) / n * 1e3
+        sleep *= 2
+
+
+def traced_us(torch, fn, kernel, n=50, tries=3, before=None):
     """Device microseconds per launch of ``kernel`` (a substring of its
-    name) over ``n`` calls of ``fn``, from a torch.profiler trace; a trace
-    that came back without the kernel's records (seen once in a dozen
-    back-to-back traces) is taken again, up to ``tries`` times."""
-    fn()
+    name) over ``n`` calls of ``fn`` (each after ``before``, if any), from
+    a torch.profiler trace.  A trace that came back without the kernel's
+    records is taken again, up to ``tries`` times; if none holds them (the
+    profiler lost the device's records: the kernel's launch is counted by
+    its wrapper all the same), the reading is ``queued_events_us``', which
+    times the whole call, and the run says so."""
+    def calls():
+        if before is not None:
+            before()
+        fn()
+
+    calls()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for _ in range(tries):
+        TRACES["taken"] += 1
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(n):
-                fn()
+                calls()
             torch.cuda.synchronize()
         spans = [e.time_range.end - e.time_range.start
                  for e in prof.events()
@@ -681,7 +728,12 @@ def traced_us(torch, fn, kernel, n=50, tries=3):
                  and kernel in e.name]
         if spans:
             return sum(spans) / len(spans)
-    fail(f"{tries} traces of {n} calls hold no {kernel} launch")
+        TRACES["empty"] += 1
+    TRACES["by_events"] += 1
+    us = queued_events_us(torch, fn, n, before)
+    log(f"  ({tries} traces of {n} calls held no {kernel} launch: "
+        f"{us:.2f} us a call by queued CUDA events instead)")
+    return us
 
 
 L2_BYTES = 50 * 2**20  # the H100's L2 cache
@@ -700,14 +752,9 @@ def cold_traced_us(torch, fn, kernel, nbytes, bound_ms, label, n=50,
     if nbytes <= L2_BYTES:
         return traced_us(torch, fn, kernel, n)
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
-
-    def cold():
-        flush.zero_()
-        fn()
-
     seen = []
     for _ in range(tries):
-        dus = traced_us(torch, cold, kernel, n)
+        dus = traced_us(torch, fn, kernel, n, before=flush.zero_)
         if bound_ms * 1e3 / dus <= ROOF_LIMIT:
             return dus
         seen.append(round(dus, 2))
@@ -756,8 +803,9 @@ def check_k0(torch, label, band, out, fused=True):
     ``fused``, fused K0's three modes too, on the same band.  Each call
     goes through the band's kept launch arguments, as ``BlockBanded``'s
     do, and is timed traced (device time per launch: the row's ``ms``),
-    by CUDA events back to back and by the host clock (the wrapper's work
-    per call, which back to back outruns a launch of a few microseconds).
+    by CUDA events back to back, by the host clock (the wrapper's work
+    per call, which back to back outruns a launch of a few microseconds)
+    and by ``queued_events_us`` (traced_us' fallback, checked here).
     Adds each case to ``out`` (label -> row; fused rows end in " fused")."""
     from polydeal_tpu_torch.ops import fused_cheb as fc
     from polydeal_tpu_torch.ops.banded import (banded_matvec_t_omajor,
@@ -783,6 +831,7 @@ def check_k0(torch, label, band, out, fused=True):
         err, rel = hold(f"K0 on {label} {dname}", got, pf(), tol)
         ms, pms = time_pair(torch, kf, pf)
         hus, dus = host_us(torch, kf), traced_us(torch, kf, "omajor_kernel")
+        qus = queued_events_us(torch, kf)
         nbytes, flops = k0_work(band, data, x.element_size())
         b_ms, b_by = bound(nbytes, flops, pdt)
         lms = None
@@ -800,12 +849,13 @@ def check_k0(torch, label, band, out, fused=True):
             del A, xf, yl, bi
         out[f"{label} {dname}"] = dict(
             max_abs_err=err, ms=dus / 1e3, plain_ms=pms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lms, events_ms=ms, host_us=hus)
+            bound_by=b_by, library_ms=lms, events_ms=ms, host_us=hus,
+            queued_us=qus)
         log(f"  K0 {label} {dname} (P={P}, {len(band.offsets)} offsets, "
             f"max |offset| {int(abs(band.offsets).max())}): "
             f"max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:g}); "
             f"{ms:.4f} ms by events, host {hus:.2f} us/call, traced "
-            f"{dus:.2f} us/launch (plain {pms:.4f}, CSR "
+            f"{dus:.2f} us/launch, queued events {qus:.2f} us/call (plain {pms:.4f}, CSR "
             f"{'-' if lms is None else f'{lms:.4f}'}; bound {b_ms:.4f} "
             f"{b_by}: {nbytes / 1e6:.2f} MB)")
         if fused:
@@ -831,15 +881,17 @@ def check_k0(torch, label, band, out, fused=True):
             ms, pms = time_pair(torch, kf, pf)
             hus, dus = (host_us(torch, kf),
                         traced_us(torch, kf, "omajor_kernel"))
+            qus = queued_events_us(torch, kf)
             nbytes, flops = k0_work(band, data, x.element_size(), True)
             b_ms, b_by = bound(nbytes, flops, pdt)
             out[f"{label} {dname} fused"] = dict(
                 max_abs_err=ferr, ms=dus / 1e3, plain_ms=pms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, events_ms=ms, host_us=hus)
+                bound_by=b_by, library_ms=None, events_ms=ms, host_us=hus,
+                queued_us=qus)
             log(f"  fused K0 {label} {dname}: step0/step/residual "
                 f"max_abs_err={ferr:.3e} rel={frel:.3e} (tol {tol:g}); step "
                 f"{ms:.4f} ms by events, host {hus:.2f} us/call, traced "
-                f"{dus:.2f} us/launch (plain {pms:.4f}; bound {b_ms:.4f} "
+                f"{dus:.2f} us/launch, queued events {qus:.2f} us/call (plain {pms:.4f}; bound {b_ms:.4f} "
                 f"{b_by}: {nbytes / 1e6:.2f} MB)")
         del data, x, b, d, dinv, got, kb
 
@@ -2284,6 +2336,9 @@ def main() -> int:
                      case=rows10[key]["case"],
                      **{k: rows10[key][k] for k in keys if k in rows10[key]})
                 for name, key, src, rpl in rows if key in rows10]
+    log(f"profiler traces: {TRACES['taken']} taken, {TRACES['empty']} held "
+        f"no record of the traced kernel, {TRACES['by_events']} readings by "
+        f"queued CUDA events instead")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
