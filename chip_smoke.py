@@ -100,6 +100,22 @@ Phases (each must pass; nothing falls back to the CPU):
      plain versions on the coupled fine bands (darcy u nb=12, darcy pD
      nb=3, the oseen proxy nb=6; f64 and f32), two launches bitwise equal,
      timed beside a CSR torch.mv.
+ 11. phase 5's system again: (a) the matrix-free fine level
+     (assembly/matfree.MatrixFreeLaplace) against the assembled fine
+     bands, f64 (1e-12) and f32 (1e-5) apply and diagonal, its f32 apply
+     timed beside its byte bound; the flagship composition with it
+     (build_multigrid(matfree_fine=True), coarse levels through K3-K5, K1,
+     K2 and fused K0): phase 5's iterations +-2, within 1e-4 of phase 5's
+     f64 solution, setup and solve seconds and the peak device memory of
+     both compositions printed; (b) bf16 smoothing vectors
+     (setup_flagship(vector_dtype=torch.bfloat16)): the lex and
+     relabel=None flagships converged within 200 iterations, within 1e-4
+     of the f64 solution; K6 and K6 halo with bf16 x against their plain
+     versions (1 bf16 ulp), two launches bitwise equal, traced beside
+     their bounds, on the relabel=None arm's fine pack and its sharded
+     fine slab; that arm sharded at world size 1 on phase 8's NCCL group,
+     within one iteration of its unsharded no-FMG solve; (c) write_vtu and
+     write_matrix_market on the 3D n=16 system, read back.
 K0 (o-major banded SpMV) and fused K0 (its Chebyshev step/residual, all
 three modes) are held against their plain versions on the real bands of
 phases 5-7 once each exists (phase 3's check, on real bands): the
@@ -2068,6 +2084,367 @@ def phase10(torch, dev):
     return counts, out
 
 
+def bf16_ulp_hold(torch, label, got, ref):
+    """``got`` within 1 bf16 ulp of ``ref`` elementwise, plus 1e-5 of the
+    largest entry where the two f32 sums, in another order, differ before
+    their one rounding to bf16 (terms that cancel); returns the max abs
+    error."""
+    g, r = got.double(), ref.double()
+    big = torch.maximum(g.abs(), r.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(torch.where(
+        big > 0, big, torch.ones_like(big)))) - 7)
+    err = (g - r).abs()
+    if got.dtype != torch.bfloat16 or not bool(
+            (err <= ulp + 1e-5 * float(r.abs().max())).all()):
+        fail(f"{label}: {got.dtype} result beyond 1 bf16 ulp of its plain "
+             f"version (max abs err {float(err.max()):.3e})")
+    return float(err.max())
+
+
+def k6_bf16_row(torch, label, kernel, plain, nbytes, flops, trace):
+    """K6 or K6 halo with bf16 x against its plain version (1 bf16 ulp),
+    two launches bitwise equal, timed by CUDA events beside the plain
+    version and traced beside its bound; the row of the JSON line (no
+    library call: no PyTorch call multiplies an f32 sparse matrix by a bf16
+    vector)."""
+    y1, y2, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(y1, y2):
+        fail(f"{label}: two launches differ")
+    err = bf16_ulp_hold(torch, label, y1, ref)
+    ms, pms = time_pair(torch, kernel, plain, reps=20)
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    dus = cold_traced_us(torch, kernel, trace, nbytes, b_ms, label, n=20)
+    log(f"  {label}: within 1 bf16 ulp of its plain version (max abs err "
+        f"{err:.3e}), two launches bitwise equal; traced {dus:.2f} us a "
+        f"launch, {b_ms * 1e3 / dus:.1%} of its bound {b_ms:.4f} ms ({b_by}:"
+        f" {nbytes / 1e6:.1f} MB), events {ms:.4f} ms, plain {pms:.4f} ms")
+    return dict(max_abs_err=err, ms=dus / 1e3, plain_ms=pms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, events_ms=ms)
+
+
+def peak_mb(torch, base):
+    """(peak, resident) MB of device memory above ``base`` bytes since the
+    last peak reset."""
+    torch.cuda.synchronize()
+    return ((torch.cuda.max_memory_allocated() - base) / 1e6,
+            (torch.cuda.memory_allocated() - base) / 1e6)
+
+
+def matfree_check(torch, dev, keep):
+    """(a) of phase 11: the matrix-free operator of phase 5's fine level
+    against its assembled bands (f64 and f32 apply on a seeded x, the
+    diagonals), its apply timed by CUDA events beside its byte bound, then
+    the flagship's composition with the matrix-free fine level
+    (``build_multigrid(matfree_fine=True)`` on phase 5's handlers, parents
+    and b), its solve held to phase 5's iterations (+-2) and f64 solution
+    (1e-4).  Returns the composition's launch counts."""
+    from polydeal_tpu_torch.assembly.matfree import MatrixFreeLaplace
+    from polydeal_tpu_torch.models import flagship as fl
+    from polydeal_tpu_torch.ops import _build
+    from polydeal_tpu_torch.solvers import multigrid
+
+    h = keep["handlers"][-1]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(h.n_dofs, generator=gen, device=dev, dtype=torch.float64)
+    ops = {}
+    for dt, A, tol in ((torch.float64, keep["A64"], 1e-12),
+                       (torch.float32, keep["A32"], 1e-5)):
+        op = ops[dt] = MatrixFreeLaplace(h, dtype=dt, device=dev)
+        xd = x.to(dt)
+        for what, got, ref in (("apply", op.apply(xd), A.matvec(xd)),
+                               ("diagonal", op.diagonal(), A.diagonal())):
+            rel = float((got - ref).abs().max()) / float(ref.abs().max())
+            log(f"  matrix-free {what} {str(dt)[6:]} against the assembled "
+                f"fine band: rel {rel:.3e} (tol {tol:g})")
+            if not rel <= tol:
+                fail(f"matrix-free {what} {dt} disagrees with the band: "
+                     f"{rel:.3e}")
+    op = ops[torch.float32]
+    del ops
+    x32 = x.float()
+    geo = sum(t.numel() * t.element_size() for t in vars(op.geom).values()
+              if isinstance(t, torch.Tensor))
+    ms = time_one(torch, lambda: op.apply(x32), reps=10)
+    b_ms, b_by = bound(geo + 2 * 4 * h.n_dofs, 0, "float32")
+    xt = x32.view(-1, h.n_basis).T.contiguous()
+    log(f"  matrix-free f32 apply at {h.n_dofs} DoF: {ms:.4f} ms a call by "
+        f"CUDA events, bound {b_ms:.4f} ms ({b_by}: geometry "
+        f"{geo / 1e6:.1f} MB read once, x and y); the assembled band's "
+        f"product: K1 in the transposed layout "
+        f"{time_one(torch, lambda: keep['A32'].matvec_t(xt)):.4f} ms, flat "
+        f"with its two layout copies "
+        f"{time_one(torch, lambda: keep['A32'].matvec(x32)):.4f} ms")
+    del op, x, x32, xt
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    mg = multigrid.build_multigrid(
+        keep["handlers"], keep["parents"], None,
+        chebyshev_degree=fl.CHEBYSHEV_DEGREE, n_smooth=fl.N_SMOOTH,
+        smoothing_range=fl.SMOOTHING_RANGE, grid_shapes=keep["grid_shapes"],
+        precond_dtype=torch.bfloat16, dtype=torch.float32,
+        coarse_solver="inv", level_assembly="banded", matfree_fine=True,
+        device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b = keep["b"]
+    res = mg.solve_cg(b, rtol=1e-8, fmg=True)  # cold
+    # the warm solve counts its matrix-free applies
+    fine_op, n_apply = mg.ells[-1].op, [0]
+    apply0 = fine_op.apply
+
+    def counted(u):
+        n_apply[0] += 1
+        return apply0(u)
+
+    fine_op.apply = counted
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = mg.solve_cg(b, rtol=1e-8, fmg=True)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t1
+    fine_op.apply = apply0
+    counts = dict(_build.launches)
+    peak, resident = peak_mb(torch, base)
+    x = res.x
+    bnorm = float(b.norm())
+    rel = float(res.residual) / bnorm
+    diff = float((x.double() - keep["x64"]).abs().max()) / float(
+        keep["x64"].abs().max())
+    kinds = [type(e).__name__ for e in mg.ells]
+    p5, r5 = keep["mem5"]
+    log(f"  matrix-free fine level over assembled coarse levels {kinds}: "
+        f"setup {setup_s:.3f} s, warm solve {solve_s:.4f} s with "
+        f"{n_apply[0]} matrix-free applies, "
+        f"{res.iterations} iterations (assembled: {keep['its']}), relative "
+        f"residual {rel:.3e}; max |x - x_f64| / max |x_f64| = {diff:.3e}")
+    log(f"  device memory above the baseline, setup + 2 solves: matrix-free "
+        f"composition peak {peak:.1f} MB, resident {resident:.1f} MB; "
+        f"assembled (phase 5) peak {p5:.1f} MB, resident {r5:.1f} MB")
+    log(f"  launches over setup + 2 solves: {counts}")
+    if tuple(x.shape) != (h.n_dofs,) or not bool(torch.isfinite(x).all()):
+        fail("matrix-free solution has the wrong shape or non-finite values")
+    if not rel <= 1e-8 or abs(res.iterations - keep["its"]) > 2:
+        fail(f"matrix-free solve: {res.iterations} iterations, relative "
+             f"residual {rel:.3e} (assembled {keep['its']})")
+    if not diff <= 1e-4:
+        # the f32 band is sensitive to gamma's rounding (PERF.md): compare
+        # the operator's gamma with the plain assembly's, face by face
+        op = MatrixFreeLaplace(h, dtype=torch.float32, device=dev)
+        ft = h.faces.interior()
+        g_ref = (op.penalty_constant / torch.as_tensor(
+            ft.h_f, dtype=torch.float32, device=dev))
+        g_mf = op.penalty_constant / op.geom.fi_hf
+        log(f"  gamma: {int((g_ref != g_mf).sum())} of {g_ref.numel()} "
+            f"interior faces differ from the plain assembly's")
+        fail(f"matrix-free f32 solution differs from the f64 one by "
+             f"{diff:.3e}")
+    for name in ("banded_matvec_imajor", "banded_fused_cheb",
+                 "banded_fused_omajor", "volume_blocks", "face_group_blocks",
+                 "boundary_blocks"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was never launched on the matrix-free "
+                 f"composition")
+    del mg, res, x, fine_op
+    torch.cuda.empty_cache()
+    return counts
+
+
+def bf16_flagship(torch, dev, relabel, keep):
+    """(b) of phase 11, one arm: the n=64 flagship with bf16 smoothing
+    vectors (``setup_flagship(vector_dtype=torch.bfloat16)``), cold and
+    warm, converged within 200 iterations, its f32 solution within 1e-4 of
+    phase 5's f64 one (by cell without the relabel).  Returns (the
+    flagship, its launch counts)."""
+    from polydeal_tpu_torch.models.flagship import (setup_flagship,
+                                                    solve_flagship)
+    from polydeal_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    fs = setup_flagship(n=keep["n"], relabel=relabel,
+                        vector_dtype=torch.bfloat16, device=dev)
+    res = solve_flagship(fs, maxiter=200)  # cold
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = solve_flagship(fs, maxiter=200)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t1
+    counts = dict(_build.launches)
+    rel = float(res.residual) / float(fs.b.norm())
+    if relabel is None:
+        x, x64 = cell_order(torch, fs, res.x), keep["x64_cells"]
+    else:
+        x, x64 = res.x.double(), keep["x64"]
+    diff = float((x - x64).abs().max()) / float(x64.abs().max())
+    label = f"bf16-vector flagship relabel={relabel}"
+    log(f"  {label}: levels {level_formats(fs)}; smoothing vectors "
+        f"{[str(d.dtype)[6:] for d in fs.mg.lo_dinvs[1:]]}; warm solve "
+        f"{solve_s:.4f} s, {res.iterations} iterations (f32 vectors: "
+        f"{keep['its']}), relative residual {rel:.3e}; max |x - x_f64| / "
+        f"max |x_f64| = {diff:.3e}")
+    log(f"  launches over setup + 2 solves: {counts}")
+    if not bool(torch.isfinite(res.x).all()):
+        fail(f"{label}: non-finite solution")
+    if not rel <= 1e-8 or res.iterations >= 200:
+        fail(f"{label} did not converge within 200 iterations (relative "
+             f"residual {rel:.3e})")
+    if not diff <= 1e-4:
+        fail(f"{label}: f32 solution differs from the f64 one by {diff:.3e}")
+    return fs, counts
+
+
+def io_check(torch, dev):
+    """(c) of phase 11: ``write_matrix_market`` and ``write_vtu`` on the 3D
+    n=16 p=1 system (one cell a polytope; its f64 SIPG matrix assembled on
+    the card), written to a temporary directory and read back: the matrix
+    read by scipy multiplies a seeded x as the card's BlockMatrix does, the
+    VTU's counts and cell arrays are what was written."""
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+    import scipy.io
+    import scipy.sparse
+
+    from polydeal_tpu_torch.assembly.sipg import assemble_sipg_matrix
+    from polydeal_tpu_torch.handler import AgglomerationHandler
+    from polydeal_tpu_torch.io import write_matrix_market, write_vtu
+    from polydeal_tpu_torch.mesh.fine_mesh import hyper_cube
+
+    mesh = hyper_cube(3, 16)
+    ah = AgglomerationHandler(mesh, np.arange(mesh.n_cells), degree=1)
+    A = assemble_sipg_matrix(ah, device=dev)
+    x = torch.randn(ah.n_dofs, generator=torch.Generator(
+        device=dev).manual_seed(12), device=dev, dtype=torch.float64)
+    y = A.matvec(x).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        nnz = write_matrix_market(A, os.path.join(tmp, "A.mtx"))
+        mm_s = time.perf_counter() - t0
+        M = scipy.sparse.csr_matrix(scipy.io.mmread(
+            os.path.join(tmp, "A.mtx")))
+        rel = float(np.abs(M @ x.cpu().numpy() - y).max() / np.abs(y).max())
+        u = np.sin(np.arange(mesh.n_cells) * 0.1)
+        write_vtu(mesh, os.path.join(tmp, "mesh.vtu"), cell_data={
+            "u": u, "polytope": ah.cell2poly.astype(float)})
+        root = ET.parse(os.path.join(tmp, "mesh.vtu")).getroot()
+    piece = root.find("UnstructuredGrid/Piece")
+    arrays = {a.get("Name"): np.array(a.text.split(), dtype=float)
+              for a in piece.iter("DataArray") if a.get("Name")}
+    ok = (int(piece.get("NumberOfPoints")) == mesh.n_vertices
+          and int(piece.get("NumberOfCells")) == mesh.n_cells
+          and arrays["connectivity"].size == 8 * mesh.n_cells
+          and np.allclose(arrays["u"], u, rtol=1e-8, atol=1e-9)
+          and np.array_equal(arrays["polytope"], ah.cell2poly))
+    log(f"  io: MatrixMarket of the n=16 system, {M.shape[0]} rows, {nnz} "
+        f"entries in {mm_s:.2f} s, read back: max |M x - A x| / max |A x| = "
+        f"{rel:.3e}; VTU {mesh.n_cells} hexes, {mesh.n_vertices} points, "
+        f"read back {'as written' if ok else 'WRONG'}")
+    if M.shape != (ah.n_dofs, ah.n_dofs) or M.nnz != nnz or not rel <= 1e-14:
+        fail("the MatrixMarket file does not read back as the matrix")
+    if not ok:
+        fail("the VTU file does not read back as written")
+
+
+def phase11(torch, dev, group, keep):
+    """Phase 11: (a) the matrix-free fine level (``matfree_check``); (b)
+    bf16 smoothing vectors: the lex and relabel=None flagships with
+    ``vector_dtype=torch.bfloat16``, K6 and K6 halo with bf16 x against
+    their plain versions on the relabel=None arm's fine pack and its
+    sharded fine slab, and that arm sharded at world size 1 on phase 8's
+    NCCL group, within one iteration of its unsharded no-FMG solve; (c) io.
+    Returns (the launch counts of the bf16 K6 and K6 halo paths, their
+    rows)."""
+    from polydeal_tpu_torch.ops import _build
+    from polydeal_tpu_torch.ops import packed as pk
+    from polydeal_tpu_torch.parallel.banded import ShardedBandedSystem
+
+    t_phase = time.perf_counter()
+    log("phase 11: the matrix-free fine level, bf16 smoothing vectors, io")
+    matfree_check(torch, dev, keep)
+
+    fs, _ = bf16_flagship(torch, dev, "lex", keep)
+    del fs
+    torch.cuda.empty_cache()
+    fs, counts_k6 = bf16_flagship(torch, dev, None, keep)
+    if counts_k6["packed_matvec_bf16"] <= 0:
+        fail("K6 with bf16 x was never launched on the relabel=None path")
+    rows = {}
+    e = fs.mg.ells[-1]
+    nb, P = e.n_basis, e.n_block_rows
+    gen = torch.Generator(device=dev).manual_seed(13)
+    xb = torch.randn(nb, P, generator=gen, device=dev).bfloat16()
+    nbytes, flops, _ = packed_work(e, False, 2)
+    rows["K6 bf16"] = k6_bf16_row(
+        torch, f"K6 bf16 x on the {P}-lane fine pack",
+        lambda: pk.packed_matvec_t(e.data_i, e.oid, e.offsets_t, nb, xb,
+                                   band=e._band(xb)),
+        lambda: pk.packed_matvec_t_ref(e.data_i, e.oid, e.offsets_t, nb, xb),
+        nbytes, flops, "packed_matvec_kernel")
+    # the bf16 pack's instantiation (on no path: packs keep their f32 band)
+    eb = e.data_i.bfloat16()
+    err = bf16_ulp_hold(
+        torch, "K6 bf16 x on the fine pack in bf16",
+        pk.packed_matvec_t(eb, e.oid, e.offsets_t, nb, xb),
+        pk.packed_matvec_t_ref(eb, e.oid, e.offsets_t, nb, xb))
+    log(f"  K6 bf16 x on the fine pack in bf16: within 1 bf16 ulp of its "
+        f"plain version (max abs err {err:.3e})")
+    del eb
+
+    bnorm = float(fs.b.norm())
+    ru = fs.mg.solve_cg(fs.b, rtol=1e-8, maxiter=200)
+    ss = ShardedBandedSystem.from_multigrid(fs.mg, group)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    x, k, res = ss.solve_cg(fs.b, rtol=1e-8, maxiter=200)
+    torch.cuda.synchronize()
+    counts_halo = dict(_build.launches)
+    diff = float((cell_order(torch, fs, x) - keep["x64_cells"]).abs().max()
+                 ) / float(keep["x64_cells"].abs().max())
+    log(f"  bf16-vector relabel=None flagship sharded at world size 1: "
+        f"lo_vec {ss.lo_vec}, levels (kind, per, T) "
+        f"{[(lv.kind, lv.per, lv.T) for lv in ss.levels]}; {k} iterations "
+        f"(unsharded no-FMG {ru.iterations}), relative residual "
+        f"{res / bnorm:.3e}; max |x - x_f64| / max |x_f64| = {diff:.3e}; "
+        f"halo launches "
+        f"{ {n: c for n, c in counts_halo.items() if 'halo' in n} }")
+    if ss.lo_vec != torch.bfloat16:
+        fail(f"sharded bf16 system runs {ss.lo_vec} vectors")
+    if not (res <= 1e-8 * bnorm and float(ru.residual) <= 1e-8 * bnorm):
+        fail("a bf16 sharded or unsharded solve missed rtol 1e-8 within 200 "
+             "iterations")
+    if abs(k - ru.iterations) > 1:
+        fail(f"bf16 sharded {k} iterations, unsharded {ru.iterations}")
+    if not diff <= 1e-4:
+        fail(f"bf16 sharded f32 solution differs from the f64 one by "
+             f"{diff:.3e}")
+    if counts_halo["packed_matvec_halo_bf16"] <= 0:
+        fail("K6 halo with bf16 x was never launched on the sharded path")
+    fine, pl = ss.levels[-1], ss.params[-1]
+    slab = Slab(torch, pl["data_i"], pl["offsets_t"], fine.nb, fine.T,
+                pl["oid"])
+    x_ext = torch.randn(fine.nb, fine.per + 2 * fine.T, generator=gen,
+                        device=dev).bfloat16()
+    nbytes, flops = slab.work(2, False)
+    rows["K6 halo bf16"] = k6_bf16_row(
+        torch, f"K6 halo bf16 x on the sharded fine slab (per={fine.per}, "
+        f"T={fine.T})", lambda: pk.packed_matvec_t_halo(
+            slab.data_i, slab.oid, slab.offs, slab.nb, x_ext, tile=slab.T,
+            band=slab.kb),
+        lambda: pk.packed_matvec_t_halo_ref(
+            slab.data_i, slab.oid, slab.offs, slab.nb, x_ext, tile=slab.T),
+        nbytes, flops, "packed_matvec_kernel")
+    del ss, fine, pl, slab, fs, x, ru
+    torch.cuda.empty_cache()
+    io_check(torch, dev)
+    log(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return {"K6 bf16": counts_k6, "K6 halo bf16": counts_halo}, rows
+
+
 def main() -> int:
     import torch
 
@@ -2118,6 +2495,9 @@ def main() -> int:
     small_solve_check(torch, dev)
 
     log("phase 5: flagship n=64, p=1 on the card")
+    torch.cuda.synchronize()
+    base5 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     fs = setup_flagship(n=64, device=dev)
     res = solve_flagship(fs)  # cold
@@ -2127,6 +2507,7 @@ def main() -> int:
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t1
     counts = dict(_build.launches)
+    mem5 = peak_mb(torch, base5)
     bnorm = float(fs.b.norm())
     rel = float(res.residual) / bnorm
     x = res.x
@@ -2171,6 +2552,12 @@ def main() -> int:
         fail(f"f32 flagship solution differs from the f64 one by {diff:.3e}")
     # phase 6 holds the packed solve to the same f64 solution, by cell
     x64_cells = cell_order(torch, ref, res64.x)
+    # phase 11 reuses phase 5's system: its hierarchy, rhs, fine bands
+    # (f32 and f64) and solutions
+    keep = dict(n=64, handlers=fs.handlers, parents=fs.parents,
+                grid_shapes=fs.grid_shapes, b=fs.b, its=res.iterations,
+                A32=fs.mg.ells[-1], A64=ref.mg.ells[-1], x64=res64.x,
+                x64_cells=x64_cells, mem5=mem5)
     del ref
     torch.cuda.empty_cache()
     log("phase 8 on phase 5's system: the lex flagship sharded")
@@ -2262,10 +2649,12 @@ def main() -> int:
 
     counts7 = phase7(torch, dev, k0, k2)
     counts8 = phase8(torch, dev, group, halo_rows)
-    torch.distributed.destroy_process_group()
-    shutil.rmtree(store_dir, ignore_errors=True)
     counts9, rows9 = phase9(torch, dev)
     counts10, rows10 = phase10(torch, dev)
+    counts11, rows11 = phase11(torch, dev, group, keep)
+    del keep
+    torch.distributed.destroy_process_group()
+    shutil.rmtree(store_dir, ignore_errors=True)
     kres.update(halo_rows)
     for key, rows, main_row in (
             ("K0", {k: r for k, r in k0.items() if not k.endswith("fused")},
@@ -2277,10 +2666,11 @@ def main() -> int:
         kres[key] = dict(rows[main_row], max_abs_err=max(
             worst, kres.get(key, {}).get("max_abs_err", 0.0)))
 
-    banded, sipg, packed, k1 = ("polydeal_tpu_torch/csrc/banded.cu",
-                                "polydeal_tpu_torch/csrc/sipg.cu",
-                                "polydeal_tpu_torch/csrc/packed.cu",
-                                "polydeal_tpu_torch/csrc/banded_matvec.cu")
+    banded, sipg, packed, k1, packed_bf16 = (
+        "polydeal_tpu_torch/csrc/banded.cu", "polydeal_tpu_torch/csrc/sipg.cu",
+        "polydeal_tpu_torch/csrc/packed.cu",
+        "polydeal_tpu_torch/csrc/banded_matvec.cu",
+        "polydeal_tpu_torch/csrc/packed_bf16.cu")
     rows = [("banded_matvec_imajor", "K1", k1,
              "polydeal_tpu/ops/banded.py:65"),
             ("banded_matvec_omajor", "K0", banded,
@@ -2336,6 +2726,16 @@ def main() -> int:
                      case=rows10[key]["case"],
                      **{k: rows10[key][k] for k in keys if k in rows10[key]})
                 for name, key, src, rpl in rows if key in rows10]
+    # phase 11's path: K6 with bf16 x on the relabel=None bf16-vector solve,
+    # K6 halo with bf16 x on its sharded solve
+    kernels += [dict(name=name, route="cuda", source=packed_bf16,
+                     replaces=rpl, launches=counts11[key][name],
+                     **{k: rows11[key][k] for k in keys})
+                for name, key, rpl in (
+                    ("packed_matvec_bf16", "K6 bf16",
+                     "polydeal_tpu/ops/packed.py:185"),
+                    ("packed_matvec_halo_bf16", "K6 halo bf16",
+                     "polydeal_tpu/ops/packed.py:313"))]
     log(f"profiler traces: {TRACES['taken']} taken, {TRACES['empty']} held "
         f"no record of the traced kernel, {TRACES['by_events']} readings by "
         f"queued CUDA events instead")

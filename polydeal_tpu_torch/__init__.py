@@ -8,9 +8,12 @@ of the JAX package's numpy code; the device path is torch, and each TPU
 kernel on the ported path is a hand-written CUDA kernel (``ops/``,
 ``csrc/``) beside its plain PyTorch version.
 
-Ported so far: the flagship R3MG Poisson solve (``models/flagship.py``),
-the monodomain, the sharded solve, and the general block-COO path with
-the scalar models (``models/poisson.py``, ``models/diffusion_reaction.py``).
+Ported: the flagship R3MG Poisson solve (``models/flagship.py``, with bf16
+smoothing vectors through ``vector_dtype``), the matrix-free fine level
+(``assembly/matfree.py``, ``build_multigrid(matfree_fine=True)``), the
+monodomain, the sharded solve, the general block-COO path with the scalar
+models, GMRES, SA-AMG and the coupled models, and the host modules ``io``,
+``accessor`` and ``mesh/gmsh_io``.
 """
 
 __version__ = "0.1.0"

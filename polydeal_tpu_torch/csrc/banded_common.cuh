@@ -1,6 +1,7 @@
 // What the i-major band kernels share: K1 (csrc/banded_matvec.cu) and K2
 // (csrc/banded.cu) read the same layout through the same register-blocked
-// product loop, and K0 the same conversions.
+// product loop, and K0 and K6/K7 (csrc/packed_common.cuh) the same
+// conversions.
 //
 // Layout (shared with the JAX package, so one array feeds either):
 //   data_i [nb * R_pad, P], row i*R_pad + k*nb + j multiplies x[j, p + off_k];
@@ -49,6 +50,13 @@ template <>
 __device__ __forceinline__ double as<double, __nv_bfloat16>(
     __nv_bfloat16 v) {
   return static_cast<double>(__bfloat162float(v));
+}
+
+// the store of an f32 sum into a bf16 output: rounded to nearest even, as
+// torch's .to(torch.bfloat16)
+template <>
+__device__ __forceinline__ __nv_bfloat16 as<__nv_bfloat16, float>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
 template <typename TV, typename TD>

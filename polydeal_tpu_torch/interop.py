@@ -2,8 +2,9 @@
 
 The two packages share layouts on purpose: a block-COO matrix, its
 block-ELL form, a band, its i-major copy, a pack, the slot-padded assembly tables, the transfer embeddings, the
-monodomain state, a mixed operator's merged blocks and an SA-AMG
-hierarchy are the same arrays in both.  These helpers build the
+monodomain state, a mixed operator's merged blocks, an SA-AMG
+hierarchy and a matrix-free operator's geometry are the same arrays in
+both.  These helpers build the
 port's objects from those arrays, so tests can run both packages on the
 same band and tables.
 Nothing here imports jax: the caller converts with ``np.asarray``.
@@ -26,7 +27,8 @@ from polydeal_tpu_torch.sparse import (
 __all__ = ["block_matrix_from_arrays", "ell_from_arrays",
            "banded_from_arrays", "packed_from_arrays", "groups_from_arrays",
            "transfer_from_arrays", "monodomain_state_from_arrays",
-           "mixed_operator_from_arrays", "amg_from_arrays"]
+           "mixed_operator_from_arrays", "amg_from_arrays",
+           "matfree_geometry_from_arrays"]
 
 
 def _t(a, device):
@@ -143,3 +145,19 @@ def amg_from_arrays(As, Ps, Pts, dinvs, los, his, coarse_inv,
                coarse_inv=_t(coarse_inv, device),
                chebyshev_degree=int(chebyshev_degree),
                n_smooth=int(n_smooth))
+
+
+def matfree_geometry_from_arrays(fields: dict, *, device):
+    """A matrix-free operator's geometry (``assembly.matfree._Geometry``)
+    from a JAX ``_Geometry``'s fields by name: the device arrays as tensors
+    on ``device``, the index arrays (``cell2poly``, ``poly2cells``,
+    ``fi_in``, ``fi_out``, ``fb_in``) as host numpy."""
+    import dataclasses
+
+    from polydeal_tpu_torch.assembly.matfree import _Geometry
+
+    host = {"cell2poly", "poly2cells", "fi_in", "fi_out", "fb_in"}
+    return _Geometry(**{
+        f.name: (np.asarray(fields[f.name]) if f.name in host
+                 else _t(fields[f.name], device))
+        for f in dataclasses.fields(_Geometry)})

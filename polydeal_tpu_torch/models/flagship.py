@@ -18,6 +18,12 @@ packed.  Its levels are numbered lexicographically by construction, so
 its ``relabel`` is ``"lex"`` and any other raises.  It is also the hierarchy that
 ``bench.py``'s ``bench_sharded`` shards (``models/sharded.py``).
 
+``vector_dtype`` is ``bench.py``'s ``BENCH_VECTOR_DTYPE`` (default None:
+the smoothing vectors in the operator's dtype): ``torch.bfloat16`` runs the
+V-cycle's smoothing vectors in bf16 (``Multigrid.setup``), at 2-3x the CG
+iterations in the JAX package's measurements, so ``solve_flagship`` may
+need a larger ``maxiter``.
+
 ``relabel=None`` is ``bench.py``'s ``BENCH_RELABEL=none`` arm: every level
 keeps the R-tree's leaf-rank numbering, so the fine band has many offsets
 (37 at n=64) while a lane touches at most 7.  Every level but the
@@ -74,6 +80,7 @@ SMOOTHING_RANGE = 20.0
 @dataclass
 class Flagship:
     handlers: list
+    parents: list  # parents[l]: level l + 1's polytopes -> level l's
     mg: multigrid.Multigrid
     b: torch.Tensor  # flat fine-level rhs
     band_offsets: np.ndarray
@@ -102,6 +109,7 @@ def setup_flagship(
     device: torch.device,
     dtype=torch.float32,
     precond_dtype=torch.bfloat16,
+    vector_dtype=None,
     coarse_solver: str = "inv",
     relabel: str | None = "lex",
     hierarchy: str = "rtree",
@@ -175,14 +183,15 @@ def setup_flagship(
     mg = multigrid.build_multigrid(
         handlers, parents, A0, chebyshev_degree=CHEBYSHEV_DEGREE,
         n_smooth=N_SMOOTH, smoothing_range=SMOOTHING_RANGE,
-        grid_shapes=grid_shapes, precond_dtype=precond_dtype, dtype=dtype,
-        coarse_solver=coarse_solver, level_assembly="banded", device=device)
+        grid_shapes=grid_shapes, precond_dtype=precond_dtype,
+        vector_dtype=vector_dtype, dtype=dtype, coarse_solver=coarse_solver,
+        level_assembly="banded", device=device)
     sync()
     t_mg = time.perf_counter() - t3
     if packed and not isinstance(mg.ells[-1], BlockPacked):
         raise RuntimeError("the packed path is not engaged")
     return Flagship(
-        handlers=handlers, mg=mg, b=b, band_offsets=band_offsets,
+        handlers=handlers, parents=parents, mg=mg, b=b, band_offsets=band_offsets,
         grid_shapes=grid_shapes,
         setup_phases=dict(hierarchy=t_hier, groups=t_groups,
                           assemble0=t_asm0, mg_setup=t_mg, **first_use),

@@ -11,7 +11,13 @@ and solved with R3MG-preconditioned CG.  Boundary ids: 1 = crown top
 ``Multigrid.setup`` bands: K0 and fused K0 on the card (K1 and K2 where a
 level reaches ``IMAJOR_MIN_P`` polytopes).
 
-    python -m polydeal_tpu_torch.models.piston --device cpu --n 16
+    python -m polydeal_tpu_torch.models.piston --device cpu --n 16 \
+        [--vtu piston.vtu]
+
+``--vtu`` writes the fine mesh with two cell arrays: ``u``, the mean of
+the solution's nodal values on each fine cell, and ``polytope``, the
+cell's polytope (``io.write_vtu(mesh, path, ...)``, which checks each
+array's length against the cells it writes).
 """
 
 from __future__ import annotations
@@ -143,10 +149,17 @@ def main():
     ap.add_argument("--degree", type=int, default=1)
     ap.add_argument("--vtu", default=None, help="write the solution as VTU")
     args = ap.parse_args()
+    _, (ah, res) = solve_piston(args.n, args.degree,
+                                device=torch.device(args.device))
     if args.vtu:
-        raise NotImplementedError(
-            "--vtu needs io.py, not ported yet (ROADMAP Queue 1 item 9)")
-    solve_piston(args.n, args.degree, device=torch.device(args.device))
+        from polydeal_tpu_torch.io import write_vtu
+        from polydeal_tpu_torch.postprocess import interpolate_to_fine_grid
+
+        uf = interpolate_to_fine_grid(ah, res.x)  # [n_cells, nodes]
+        write_vtu(ah.mesh, args.vtu, cell_data={
+            "u": uf.mean(dim=-1).cpu().numpy(),
+            "polytope": np.asarray(ah.cell2poly, dtype=float)})
+        print(f"wrote {args.vtu}")
 
 
 if __name__ == "__main__":

@@ -111,22 +111,23 @@ def min_ms(fn, device, reps: int = REPS) -> float:
 
 def run_case(case: dict, device, group) -> dict:
     """One problem on this rank: the flagship system of ``case`` (keys n,
-    hierarchy, relabel, dtype and precond_dtype as torch dtype names, rtol,
-    and optionally ``pack_min_p``, a lower pack threshold for small test
-    problems, and ``timed``), its sharded solve and V-cycle on every rank
-    and, on rank 0 only, the unsharded no-FMG solve and V-cycle they are
-    held to; with ``timed`` both solves are timed as ``bench_sharded``
+    hierarchy, relabel, dtype, precond_dtype and vector_dtype as torch dtype
+    names, rtol, and optionally ``pack_min_p``, a lower pack threshold for
+    small test problems, and ``timed``), its sharded solve and V-cycle on
+    every rank and, on rank 0 only, the unsharded no-FMG solve and V-cycle
+    they are held to; with ``timed`` both solves are timed as ``bench_sharded``
     times them (least of ``REPS`` warm runs).  Rank 0 returns numbers and
     host arrays, the other ranks their sharded numbers."""
     saved = multigrid.PACK_MIN_P
     if case.get("pack_min_p") is not None:
         multigrid.PACK_MIN_P = case["pack_min_p"]
     try:
-        pdt = case.get("precond_dtype")
+        pdt, vdt = case.get("precond_dtype"), case.get("vector_dtype")
         fs = setup_flagship(
             case["n"], device=device,
             dtype=getattr(torch, case.get("dtype", "float32")),
             precond_dtype=None if pdt is None else getattr(torch, pdt),
+            vector_dtype=None if vdt is None else getattr(torch, vdt),
             hierarchy=case.get("hierarchy", "structured"),
             relabel=case.get("relabel", "lex"))
     finally:
@@ -139,6 +140,8 @@ def run_case(case: dict, device, group) -> dict:
     x, k, res = ss.solve_cg(b, rtol=rtol, maxiter=100)
     out = dict(n_dofs=sh.n_dofs, levels=sh.level_sizes, n_dev=ss.n_dev,
                meta=level_meta(ss), comm=ss.comm_bytes_per_spmv(),
+               lo_vec=str(ss.lo_vec).removeprefix("torch."),
+               has_lo=[lv.has_lo for lv in ss.levels],
                iterations=k, residual=res, bnorm=float(b.norm()),
                x=x.cpu().numpy(), v_cycle=ss.v_cycle(b).cpu().numpy())
     if case.get("timed"):

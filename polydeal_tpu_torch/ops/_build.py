@@ -42,14 +42,16 @@ DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 # launches per kernel since the last reset: K1 (csrc/banded_matvec.cu), K2,
 # K0 and fused K0 (csrc/banded.cu), K3, K4, K5 (csrc/sipg.cu) and K6, K7
 # (csrc/packed.cu); the halo launches of K1, K2, K6 and K7 (on a shard's
-# slab) count apart
+# slab) count apart, and so do K6's and K6 halo's bf16-x launches (their
+# own instantiation, csrc/packed_bf16.cu)
 launches = {"banded_matvec_imajor": 0, "banded_fused_cheb": 0,
             "banded_matvec_omajor": 0, "banded_fused_omajor": 0,
             "volume_blocks": 0, "face_group_blocks": 0,
             "boundary_blocks": 0, "packed_matvec": 0,
             "packed_fused_cheb": 0, "banded_matvec_halo": 0,
             "banded_fused_halo": 0, "packed_matvec_halo": 0,
-            "packed_fused_halo": 0}
+            "packed_fused_halo": 0, "packed_matvec_bf16": 0,
+            "packed_matvec_halo_bf16": 0}
 
 _lib = None
 _log = ""

@@ -14,6 +14,13 @@ raises if it cannot); on a CPU tensor it runs its plain PyTorch version
 (lanes a thread W, offset groups a block S) that the library chooses;
 :func:`k1_plan` reports it.
 
+bf16 vectors: K1, K0 and K1 halo take them through an explicit cast to
+f32 before the launch and back to bf16 after it (:func:`widen_bf16`,
+:func:`narrow_to`), where the JAX package's wrappers cast around their
+Pallas calls (``polydeal_tpu/ops/banded.py:158-169``, ``:251-254``,
+``:287-291``); the launch still happens and counts.  The packed product
+K6 alone reads bf16 x in the kernel (``ops/packed.py``).
+
 Layout contracts (shared with the JAX package): K1 takes ``data_i``
 [nb * R_pad, P] with rows ordered (i, k, j) and R_pad >= n_off * nb
 (padding rows are never read) and nb in :data:`KERNEL_NB`; K0 takes
@@ -43,7 +50,7 @@ __all__ = ["banded_matvec_t_imajor", "banded_matvec_t_imajor_ref",
            "banded_matvec_t_halo", "banded_matvec_t_halo_ref",
            "KernelBand", "imajor_band", "omajor_band", "band_layout",
            "launch_band", "launch_product", "halo_check", "KERNEL_NB",
-           "K1Plan", "k1_plan"]
+           "K1Plan", "k1_plan", "widen_bf16", "narrow_to"]
 
 _VEC_DTYPES = (torch.float32, torch.float64)
 # K0 stages its offset table in 48 KB of shared memory
@@ -51,6 +58,23 @@ _MAX_OFFSETS = 48 * 1024 // 4
 # the block sizes K1 and K2 are built for (PD_NB_DISPATCH,
 # csrc/banded_common.cuh): (p + dim choose dim) for dim 2-3, p 1-3
 KERNEL_NB = (3, 4, 6, 10, 20)
+
+
+def widen_bf16(*vecs):
+    """The vectors with every bf16 one cast to f32 (None passes): what the
+    JAX package's wrappers hand their Pallas kernels for bf16 x, b, d and
+    dinv."""
+    return tuple(v.to(torch.float32)
+                 if v is not None and v.dtype == torch.bfloat16 else v
+                 for v in vecs)
+
+
+def narrow_to(out, dtype):
+    """A result (a tensor or a tuple of them) cast to ``dtype``: bf16
+    vectors get their bf16 result back after an f32 launch."""
+    if isinstance(out, tuple):
+        return tuple(o.to(dtype) for o in out)
+    return out.to(dtype)
 
 
 def _host_offsets(offsets) -> list[int]:
@@ -100,16 +124,22 @@ class KernelBand:
         self.offsets, self.keep = offsets, keep
         self.max_off = None
 
-    def vec_code(self, vecs, ldx: int | None = None) -> int:
+    def vec_code(self, vecs, ldx: int | None = None,
+                 bf16: bool = False) -> int:
         """Check one launch's vectors -- one f32 or f64 dtype (f64 for an
-        f64 band), [nb, P] (the first [nb, ldx] where ``ldx`` is given: a
-        halo launch's x_ext), contiguous, on the band's device -- and
-        return their dtype code."""
+        f64 band; with ``bf16``, K6's product, also bf16 on an f32 or bf16
+        band, and a bf16 band only with bf16 vectors), [nb, P] (the first
+        [nb, ldx] where ``ldx`` is given: a halo launch's x_ext),
+        contiguous, on the band's device -- and return their dtype code."""
         vdt = vecs[0].dtype
-        if vdt not in _VEC_DTYPES:
-            raise TypeError(f"vector dtype {vdt} not supported (f32 or f64)")
-        if vdt == torch.float32 and self.dtype == torch.float64:
+        if vdt not in _VEC_DTYPES + ((torch.bfloat16,) if bf16 else ()):
+            raise TypeError(f"vector dtype {vdt} not supported (f32 or f64"
+                            f"{', or bf16' if bf16 else ''})")
+        if self.dtype == torch.float64 and vdt != torch.float64:
             raise TypeError("f64 band needs f64 vectors")
+        if (self.layout == "packed" and self.dtype == torch.bfloat16
+                and vdt != torch.bfloat16):
+            raise TypeError("a bf16 pack needs bf16 vectors (K6 only)")
         for n, v in enumerate(vecs):
             width = ldx if n == 0 and ldx is not None else self.P
             if v.device != self.device:
@@ -252,13 +282,17 @@ def launch_band(band: KernelBand, fused: bool, vecs, tail,
     if halo is not None:
         halo_check(band.offsets, band.P, vecs[0], halo, band)
         extra = (band.P + 2 * halo, halo)
-    vcode = band.vec_code(vecs, None if halo is None else extra[0])
+    # K6 (and K6 halo) reads bf16 x in the kernel
+    vcode = band.vec_code(vecs, None if halo is None else extra[0],
+                          bf16=band.layout == "packed" and not fused)
     lib = _build.load_library()
     rc = getattr(lib, entry)(*band.head, vecs[0].data_ptr(), vcode,
                              *band.args, *extra, *tail,
                              _build.stream_handle(band.device))
     if rc != 0:
         raise RuntimeError(f"{name} ({entry}) launch failed: {rc}")
+    if vecs[0].dtype == torch.bfloat16:
+        counter += "_bf16"  # K6's bf16-x instantiation counts apart
     _build.launches[counter] += 1
 
 
@@ -278,7 +312,11 @@ def banded_matvec_t_imajor(data_i: torch.Tensor, offsets, nb: int,
 
     ``offsets`` is an int32 tensor on the band's device (read by the
     kernel on the device); ``band`` this band's :func:`imajor_band`, if
-    the caller keeps one.  Returns y [nb, P] in ``xt``'s dtype."""
+    the caller keeps one.  Returns y [nb, P] in ``xt``'s dtype (bf16 x
+    is cast to f32 for the launch and y back to bf16)."""
+    if xt.dtype == torch.bfloat16:
+        return narrow_to(banded_matvec_t_imajor(
+            data_i, offsets, nb, *widen_bf16(xt), band=band), xt.dtype)
     if xt.device.type == "cpu":
         return banded_matvec_t_imajor_ref(data_i, offsets, nb, xt)
     if band is None:
@@ -336,9 +374,13 @@ def banded_matvec_t_omajor(data: torch.Tensor, offsets, xt: torch.Tensor,
 
     ``data`` [n_off, nb, nb, P] bf16, f32 or f64, contiguous; ``offsets``
     the band's int32 device table (``BlockBanded.offsets_t``); ``xt``
-    [nb, P] f32 or f64; ``band`` this band's :func:`omajor_band`, if the
-    caller keeps one.  Accumulates in f64 for f64 data, in f32 otherwise;
-    returns y [nb, P] in ``xt``'s dtype."""
+    [nb, P] bf16, f32 or f64; ``band`` this band's :func:`omajor_band`, if
+    the caller keeps one.  Accumulates in f64 for f64 data, in f32 otherwise;
+    returns y [nb, P] in ``xt``'s dtype (bf16 x is cast to f32 for the
+    launch and y back to bf16)."""
+    if xt.dtype == torch.bfloat16:
+        return narrow_to(banded_matvec_t_omajor(
+            data, offsets, *widen_bf16(xt), band=band), xt.dtype)
     if xt.device.type == "cpu":
         return banded_matvec_t_omajor_ref(data, offsets, xt)
     if band is None:
@@ -373,7 +415,12 @@ def banded_matvec_t_halo(data_i: torch.Tensor, offsets, nb: int,
     each side; ``tile`` is T, and every |offset| must be <= T (raises
     otherwise, and on a wrong ``x_ext`` width).  ``band`` is the slab's
     :func:`imajor_band`, if the caller keeps one.  Returns y [nb, per] in
-    ``x_ext``'s dtype."""
+    ``x_ext``'s dtype (bf16 x_ext is cast to f32 for the launch and y back
+    to bf16)."""
+    if x_ext.dtype == torch.bfloat16:
+        return narrow_to(banded_matvec_t_halo(
+            data_i, offsets, nb, *widen_bf16(x_ext), tile=tile, band=band),
+            x_ext.dtype)
     if x_ext.device.type == "cpu":
         return banded_matvec_t_halo_ref(data_i, offsets, nb, x_ext, tile=tile)
     if band is None:

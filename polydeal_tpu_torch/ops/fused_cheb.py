@@ -31,9 +31,13 @@ On a CUDA tensor the wrappers launch the kernels of ``csrc/banded.cu`` and
 ``csrc/packed.cu`` (and raise if they cannot); on a CPU tensor they run the
 plain PyTorch versions below.  The update runs in the vectors' dtype (f32,
 or f64); the product accumulates in it for K2 and K7, and as K0 does
-(f64 for an f64 band, f32 otherwise) for fused K0.  ``band=`` takes the
-band's validated launch arguments where the caller keeps them
-(``ops/banded.KernelBand``).
+(f64 for an f64 band, f32 otherwise) for fused K0.  bf16 vectors are cast
+to f32 before the launch and the results back to bf16, where the JAX
+package's wrappers cast (``_prep_x``, ``_scal_vecs``,
+``polydeal_tpu/ops/fused_cheb.py:287-300``, ``:406``); the V-cycle itself
+runs bf16 sweeps through the composed smoother, as the JAX package's
+``_fused_ok`` refuses them.  ``band=`` takes the band's validated launch
+arguments where the caller keeps them (``ops/banded.KernelBand``).
 """
 
 from __future__ import annotations
@@ -47,7 +51,9 @@ from polydeal_tpu_torch.ops.banded import (
     banded_matvec_t_omajor_ref,
     imajor_band,
     launch_band,
+    narrow_to,
     omajor_band,
+    widen_bf16,
 )
 from polydeal_tpu_torch.ops.packed import (
     packed_band,
@@ -145,6 +151,10 @@ def banded_cheb_step_t(data_i, offsets, nb: int, xt, dvec, b, dinv,
                        c1: float, c2: float, *, band=None):
     """One fused Chebyshev step (K2); ``dvec=None`` is the first step (c1
     is then unused).  Returns (x', d') in ``xt``'s dtype."""
+    if xt.dtype == torch.bfloat16:
+        return narrow_to(banded_cheb_step_t(
+            data_i, offsets, nb, *widen_bf16(xt, dvec, b, dinv), c1, c2,
+            band=band), xt.dtype)
     if xt.device.type == "cpu":
         return banded_cheb_step_t_ref(data_i, offsets, nb, xt, dvec, b, dinv,
                                       c1, c2)
@@ -155,6 +165,9 @@ def banded_cheb_step_t(data_i, offsets, nb: int, xt, dvec, b, dinv,
 
 def banded_residual_t(data_i, offsets, nb: int, xt, b, *, band=None):
     """Fused r = b - A x (K2)."""
+    if xt.dtype == torch.bfloat16:
+        return narrow_to(banded_residual_t(
+            data_i, offsets, nb, *widen_bf16(xt, b), band=band), xt.dtype)
     if xt.device.type == "cpu":
         return banded_residual_t_ref(data_i, offsets, nb, xt, b)
     if band is None:
@@ -167,6 +180,10 @@ def banded_cheb_step_t_omajor(data, offsets, xt, dvec, b, dinv, c1: float,
     """One fused Chebyshev step on the o-major band [n_off, nb, nb, P]
     (fused K0); ``dvec=None`` is the first step.  Returns (x', d') in
     ``xt``'s dtype."""
+    if xt.dtype == torch.bfloat16:
+        return narrow_to(banded_cheb_step_t_omajor(
+            data, offsets, *widen_bf16(xt, dvec, b, dinv), c1, c2, band=band),
+            xt.dtype)
     if xt.device.type == "cpu":
         return banded_cheb_step_t_omajor_ref(data, offsets, xt, dvec, b, dinv,
                                              c1, c2)
@@ -177,6 +194,9 @@ def banded_cheb_step_t_omajor(data, offsets, xt, dvec, b, dinv, c1: float,
 
 def banded_residual_t_omajor(data, offsets, xt, b, *, band=None):
     """Fused r = b - A x on the o-major band (fused K0)."""
+    if xt.dtype == torch.bfloat16:
+        return narrow_to(banded_residual_t_omajor(
+            data, offsets, *widen_bf16(xt, b), band=band), xt.dtype)
     if xt.device.type == "cpu":
         return banded_residual_t_omajor_ref(data, offsets, xt, b)
     if band is None:
@@ -189,6 +209,10 @@ def packed_cheb_step_t(data_i, oid, offsets, nb: int, xt, dvec, b, dinv,
     """One fused Chebyshev step on the packed band (K7); ``dvec=None`` is
     the first step.  ``offsets`` is the plan's int32 offset table on the
     band's device.  Returns (x', d') in ``xt``'s dtype."""
+    if xt.dtype == torch.bfloat16:
+        return narrow_to(packed_cheb_step_t(
+            data_i, oid, offsets, nb, *widen_bf16(xt, dvec, b, dinv), c1, c2,
+            band=band), xt.dtype)
     if xt.device.type == "cpu":
         return packed_cheb_step_t_ref(data_i, oid, offsets, nb, xt, dvec, b,
                                       dinv, c1, c2)
@@ -199,6 +223,9 @@ def packed_cheb_step_t(data_i, oid, offsets, nb: int, xt, dvec, b, dinv,
 
 def packed_residual_t(data_i, oid, offsets, nb: int, xt, b, *, band=None):
     """Fused r = b - A x on the packed band (K7)."""
+    if xt.dtype == torch.bfloat16:
+        return narrow_to(packed_residual_t(
+            data_i, oid, offsets, nb, *widen_bf16(xt, b), band=band), xt.dtype)
     if xt.device.type == "cpu":
         return packed_residual_t_ref(data_i, oid, offsets, nb, xt, b)
     if band is None:
@@ -243,6 +270,10 @@ def banded_cheb_step_t_halo(data_i, offsets, nb: int, x_ext, dvec, b, dinv,
     """One fused Chebyshev step on a shard's i-major slab (K2 halo);
     ``dvec=None`` is the first step.  Returns (x', d') [nb, per] in
     ``b``'s dtype."""
+    if x_ext.dtype == torch.bfloat16:
+        return narrow_to(banded_cheb_step_t_halo(
+            data_i, offsets, nb, *widen_bf16(x_ext, dvec, b, dinv), c1, c2,
+            tile=tile, band=band), b.dtype)
     if x_ext.device.type == "cpu":
         return banded_cheb_step_t_halo_ref(data_i, offsets, nb, x_ext, dvec,
                                            b, dinv, c1, c2, tile=tile)
@@ -254,6 +285,10 @@ def banded_cheb_step_t_halo(data_i, offsets, nb: int, x_ext, dvec, b, dinv,
 def banded_residual_t_halo(data_i, offsets, nb: int, x_ext, b, *, tile: int,
                            band=None):
     """Fused r = b - A x on a shard's i-major slab (K2 halo)."""
+    if x_ext.dtype == torch.bfloat16:
+        return narrow_to(banded_residual_t_halo(
+            data_i, offsets, nb, *widen_bf16(x_ext, b), tile=tile,
+            band=band), b.dtype)
     if x_ext.device.type == "cpu":
         return banded_residual_t_halo_ref(data_i, offsets, nb, x_ext, b,
                                           tile=tile)
@@ -268,6 +303,10 @@ def packed_cheb_step_t_halo(data_i, oid, offsets, nb: int, x_ext, dvec, b,
     """One fused Chebyshev step on a shard's packed slab (K7 halo).  With a
     far block-COO tail, ``b`` must be b_eff = b - A_far x: the kernel's
     product covers the slots only.  Returns (x', d') [nb, per]."""
+    if x_ext.dtype == torch.bfloat16:
+        return narrow_to(packed_cheb_step_t_halo(
+            data_i, oid, offsets, nb, *widen_bf16(x_ext, dvec, b, dinv), c1,
+            c2, tile=tile, band=band), b.dtype)
     if x_ext.device.type == "cpu":
         return packed_cheb_step_t_halo_ref(data_i, oid, offsets, nb, x_ext,
                                            dvec, b, dinv, c1, c2, tile=tile)
@@ -280,6 +319,10 @@ def packed_residual_t_halo(data_i, oid, offsets, nb: int, x_ext, b, *,
                            tile: int, band=None):
     """Fused r = b - A_near x on a shard's packed slab (K7 halo); the
     caller subtracts a far tail's A_far x."""
+    if x_ext.dtype == torch.bfloat16:
+        return narrow_to(packed_residual_t_halo(
+            data_i, oid, offsets, nb, *widen_bf16(x_ext, b), tile=tile,
+            band=band), b.dtype)
     if x_ext.device.type == "cpu":
         return packed_residual_t_halo_ref(data_i, oid, offsets, nb, x_ext, b,
                                           tile=tile)

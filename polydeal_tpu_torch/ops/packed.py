@@ -28,6 +28,12 @@ the plain PyTorch version :func:`packed_matvec_t_ref`.  K6 halo
 is K6 on one shard's lane slab, x read from ``x_ext`` [nb, per + 2T]; every
 plan offset must then satisfy |o| <= T (``parallel/banded.py`` repacks a
 pack whose plan does not, splitting off a far block-COO tail).
+
+bf16 vectors: K6 and K6 halo read bf16 x in the kernel, as the JAX
+package's keep it (``packed.py:294``, ``:333``), accumulate in f32 and
+round y to bf16 once (``csrc/packed_bf16.cu``, its own translation unit);
+the band is then f32 or bf16.  The plain versions gather their windows in
+bf16 and take the products in f32 likewise.
 """
 
 from __future__ import annotations
@@ -163,33 +169,37 @@ def build_pack_plan(src: np.ndarray, dst: np.ndarray, P: int, nb: int,
     return plan, oid, far_rows, far_cols
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """K6's accumulator: f32 for bf16 vectors, the vectors' dtype
+    otherwise."""
+    return torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+
+
 def packed_matvec_t_ref(data_i: torch.Tensor, oid: torch.Tensor, offsets,
                         nb: int, xt: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K6, accumulating in ``xt``'s dtype: per
-    slot, gather x[:, p + offsets[oid[k, p]]] (an exact zero where the slot
-    is inactive or the column leaves [0, P)), then one einsum over the
-    [nb, K, nb, P] view of ``data_i``."""
+    """Plain PyTorch version of K6, accumulating in ``xt``'s dtype (f32 for
+    bf16 x): per slot, gather x[:, p + offsets[oid[k, p]]] (an exact zero
+    where the slot is inactive or the column leaves [0, P)), then one
+    einsum over the [nb, K, nb, P] view of ``data_i``; y in ``xt``'s
+    dtype."""
     K, P = oid.shape
     R_pad = data_i.shape[0] // nb
-    acc = xt.dtype
+    acc = _acc_dtype(xt)
     dev = xt.device
     offs = torch.as_tensor(offsets, device=dev).long()
     o = oid.long()
     q = torch.arange(P, device=dev) + offs[o.clamp(min=0)]  # [K, P]
     live = (o >= 0) & (q >= 0) & (q < P)
-    Xg = xt.to(acc)[:, q.clamp(0, P - 1)]  # [nb, K, P]
-    Xg = torch.where(live, Xg, torch.zeros((), dtype=acc, device=dev))
+    Xg = xt[:, q.clamp(0, P - 1)]  # [nb, K, P], in x's dtype
+    Xg = torch.where(live, Xg, torch.zeros((), dtype=xt.dtype, device=dev))
     D = (data_i.reshape(nb, R_pad, P)[:, :K * nb]
          .reshape(nb, K, nb, P).to(acc))
-    return torch.einsum("ikjp,jkp->ip", D, Xg)
+    return torch.einsum("ikjp,jkp->ip", D, Xg.to(acc)).to(xt.dtype)
 
 
 def packed_band(data_i, oid, offsets, nb) -> KernelBand:
     """Validate a packed band for K6/K7 (``band_layout`` with K slots a
-    lane, and its oid)."""
-    if data_i.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"packed band dtype {data_i.dtype} not supported "
-                        f"(f32 or f64)")
+    lane, and its oid); a bf16 band serves K6 with bf16 vectors only."""
     if (oid.dtype != torch.int32 or oid.dim() != 2
             or oid.device != data_i.device or not oid.is_contiguous()):
         raise ValueError("oid must be a contiguous [K, P] int32 tensor on "
@@ -211,7 +221,8 @@ def packed_matvec_t(data_i: torch.Tensor, oid: torch.Tensor, offsets,
 
     ``offsets`` is the plan's int32 offset table on the band's device (as
     K1 takes its offsets); ``band`` this pack's :func:`packed_band`, if the
-    caller keeps one.  Returns y [nb, P] in ``xt``'s dtype."""
+    caller keeps one.  ``xt`` is f32, f64 or bf16 (read as bf16 by the
+    kernel, accumulated in f32).  Returns y [nb, P] in ``xt``'s dtype."""
     if xt.device.type == "cpu":
         return packed_matvec_t_ref(data_i, oid, offsets, nb, xt)
     if band is None:
@@ -222,23 +233,24 @@ def packed_matvec_t(data_i: torch.Tensor, oid: torch.Tensor, offsets,
 def packed_matvec_t_halo_ref(data_i: torch.Tensor, oid: torch.Tensor,
                              offsets, nb: int, x_ext: torch.Tensor, *,
                              tile: int) -> torch.Tensor:
-    """Plain PyTorch version of K6 halo, accumulating in ``x_ext``'s dtype:
-    slot k of lane p reads x_ext[:, T + p + offsets[oid[k, p]]] (inside the
-    slab's window, no padding), an exact zero where the slot is
-    inactive."""
+    """Plain PyTorch version of K6 halo, accumulating in ``x_ext``'s dtype
+    (f32 for bf16): slot k of lane p reads x_ext[:, T + p +
+    offsets[oid[k, p]]] (inside the slab's window, no padding), an exact
+    zero where the slot is inactive; y in ``x_ext``'s dtype."""
     K, P = oid.shape
     halo_check(offsets, P, x_ext, tile)
     R_pad = data_i.shape[0] // nb
-    acc = x_ext.dtype
+    acc = _acc_dtype(x_ext)
     dev = x_ext.device
     offs = torch.as_tensor(offsets, device=dev).long()
     o = oid.long()
     q = tile + torch.arange(P, device=dev) + offs[o.clamp(min=0)]  # [K, P]
-    Xg = torch.where(o >= 0, x_ext.to(acc)[:, q],
-                     torch.zeros((), dtype=acc, device=dev))  # [nb, K, P]
+    Xg = torch.where(o >= 0, x_ext[:, q],
+                     torch.zeros((), dtype=x_ext.dtype,
+                                 device=dev))  # [nb, K, P], in x's dtype
     D = (data_i.reshape(nb, R_pad, P)[:, :K * nb]
          .reshape(nb, K, nb, P).to(acc))
-    return torch.einsum("ikjp,jkp->ip", D, Xg)
+    return torch.einsum("ikjp,jkp->ip", D, Xg.to(acc)).to(x_ext.dtype)
 
 
 def packed_matvec_t_halo(data_i: torch.Tensor, oid: torch.Tensor, offsets,
@@ -247,10 +259,10 @@ def packed_matvec_t_halo(data_i: torch.Tensor, oid: torch.Tensor, offsets,
     """K6 on one shard's lane slab: y[i, p] = sum_k sum_j
     data_i[i*R_pad + k*nb + j, p] * x_ext[j, T + p + offsets[oid[k, p]]].
 
-    ``x_ext`` [nb, per + 2T]; ``tile`` is T, and every plan offset must be
-    within it (raises otherwise, and on a wrong ``x_ext`` width).  A far
-    block-COO tail is the caller's.  Returns y [nb, per] in ``x_ext``'s
-    dtype."""
+    ``x_ext`` [nb, per + 2T] f32, f64 or bf16; ``tile`` is T, and every
+    plan offset must be within it (raises otherwise, and on a wrong
+    ``x_ext`` width).  A far block-COO tail is the caller's.  Returns y
+    [nb, per] in ``x_ext``'s dtype."""
     if x_ext.device.type == "cpu":
         return packed_matvec_t_halo_ref(data_i, oid, offsets, nb, x_ext,
                                         tile=tile)

@@ -33,8 +33,11 @@ gloo between CPU processes; only calls both support).
 At world size 1 every exchange is a plain slice and no collective runs:
 the halo wraps onto the shard's own ends, as in the JAX package.  Smoothing
 and residuals use the smoother's band copy (bf16 where ``Multigrid`` keeps
-one), as the port's ``Multigrid._cycle`` does, so the sharded and
-unsharded preconditioners match; CG runs on the full-precision band.
+one) and its vectors' dtype (``lo_vec``: bf16 where ``Multigrid`` was set
+up with ``vector_dtype=torch.bfloat16``, so the halo exchanges carry bf16
+and K6 halo reads bf16 x_ext), as the port's ``Multigrid._cycle`` does, so
+the sharded and unsharded preconditioners match; CG runs on the
+full-precision band.
 
 Usage (every rank)::
 
@@ -66,7 +69,7 @@ from polydeal_tpu_torch.ops.packed import (
 from polydeal_tpu_torch.parallel.sharding import build_halo_exchange
 from polydeal_tpu_torch.solvers.cg import cg_solve
 from polydeal_tpu_torch.solvers.chebyshev import ChebyshevSmoother
-from polydeal_tpu_torch.solvers.multigrid import Multigrid
+from polydeal_tpu_torch.solvers.multigrid import Multigrid, promote_to
 from polydeal_tpu_torch.sparse import BlockBanded, BlockPacked
 
 __all__ = ["ShardedBandedSystem"]
@@ -164,7 +167,8 @@ class ShardedBandedSystem:
     """SPMD MG-CG over banded/packed levels, one rank per shard (see the
     module docstring)."""
 
-    def __init__(self, group, levels, params, rep_mg, nb, n_true_rows):
+    def __init__(self, group, levels, params, rep_mg, nb, n_true_rows,
+                 lo_vec=None):
         self.group = group
         self.n_dev = 1 if group is None else dist.get_world_size(group)
         self.rank = 0 if group is None else dist.get_rank(group)
@@ -173,6 +177,9 @@ class ShardedBandedSystem:
         self.rep_mg = rep_mg  # Multigrid over the replicated bottom levels
         self.nb = nb
         self.n_true_rows = n_true_rows
+        # the V-cycle's vector dtype (None: the operator's): the smoothing
+        # vectors, and so the halo exchanges, run in it
+        self.lo_vec = lo_vec
 
     # ------------------------------------------------------------------
     @classmethod
@@ -186,12 +193,6 @@ class ShardedBandedSystem:
         hold their halo, and coarsen inside a slab."""
         n_dev = 1 if group is None else dist.get_world_size(group)
         rank = 0 if group is None else dist.get_rank(group)
-        if mg.lo_dinvs is not None and any(
-                lo.dtype != d.dtype for lo, d in zip(mg.lo_dinvs[1:],
-                                                    mg.dinvs_t[1:])):
-            raise NotImplementedError(
-                "sharded smoothing vectors in another dtype (vector_dtype) "
-                "are not ported yet")
         if min_sharded_lanes is None:
             min_sharded_lanes = 4 * n_dev
 
@@ -255,7 +256,9 @@ class ShardedBandedSystem:
                     else BlockBanded(ell.data[..., lanes], ell.offsets,
                                      per).with_imajor().data_i
                 ).contiguous()
-            pl_["dinv"] = mg.dinvs_t[l][:, lanes].contiguous()
+            # the Jacobi diagonal in the sweeps' dtype (lo_dinvs carries it)
+            pl_["dinv"] = (mg.dinvs_t if mg.lo_dinvs is None
+                           else mg.lo_dinvs)[l][:, lanes].contiguous()
             # the smoother's low-precision band copy, where Multigrid keeps
             # one (a packed level keeps its own band)
             if mg.lo_ells is not None:
@@ -295,7 +298,9 @@ class ShardedBandedSystem:
         )
         fine = mg.ells[-1]
         return cls(group, levels, params, rep, nb=fine.n_basis,
-                   n_true_rows=fine.n_block_rows)
+                   n_true_rows=fine.n_block_rows,
+                   lo_vec=(mg.lo_dinvs[-1].dtype if mg.lo_dinvs is not None
+                           else None))
 
     @staticmethod
     def _build_far(lv: _SLevel, pl_: dict, ell: BlockPacked, per: int,
@@ -408,7 +413,9 @@ class ShardedBandedSystem:
     def _far_matvec(self, lv: _SLevel, pl_, x_loc):
         """The far block-COO tail: ship only the lanes each shard needs
         (one exchange per neighbour distance), then gather, block products
-        and a scatter-add by local row, in the vectors' dtype."""
+        and a scatter-add by local row, in the wider of the band's and
+        the vectors' dtypes; the result in the vectors' (a bf16 sweep stays
+        bf16)."""
         n, r = self.n_dev, self.rank
         xb = x_loc.T  # [per, nb]
         segs = [xb]
@@ -420,10 +427,11 @@ class ShardedBandedSystem:
             segs.append(recv)
         xg = torch.cat(segs, dim=0)
         fdata = pl_["fdata"]
-        prod = torch.einsum("kij,kj->ki", fdata.to(x_loc.dtype),
-                            xg[pl_["fcols"]])
-        yb = x_loc.new_zeros((lv.per, lv.nb))
-        return yb.index_add_(0, pl_["flrows"], prod).T
+        ct = torch.promote_types(fdata.dtype, x_loc.dtype)
+        prod = torch.einsum("kij,kj->ki", fdata.to(ct),
+                            xg[pl_["fcols"]].to(ct))
+        yb = x_loc.new_zeros((lv.per, lv.nb), dtype=ct)
+        return yb.index_add_(0, pl_["flrows"], prod).T.to(x_loc.dtype)
 
     def _dot(self, a, b):
         d = torch.dot(a.reshape(-1), b.reshape(-1))
@@ -494,7 +502,8 @@ class ShardedBandedSystem:
     def _restrict_loc(self, lv: _SLevel, pl_, r_loc):
         """Transfer fine -> coarse inside the slab."""
         nb = lv.nb
-        t = torch.einsum("ijp,ip->jp", pl_["Et"], r_loc)
+        t = torch.einsum("ijp,ip->jp", pl_["Et"], promote_to(
+            r_loc, pl_["Et"].dtype))
         if lv.grid_shape_loc is not None:
             g = lv.grid_shape_loc
             shape = (nb,) + tuple(v for s in g for v in (s // 2, 2))
@@ -516,11 +525,14 @@ class ShardedBandedSystem:
             C = lv.uniform_C
             rep = xc_loc[:, :, None].expand(nb, lv.per // C, C).reshape(nb,
                                                                         -1)
-        return torch.einsum("ijp,jp->ip", pl_["Et"], rep)
+        return torch.einsum("ijp,jp->ip", pl_["Et"], promote_to(
+            rep, pl_["Et"].dtype))
 
     def _cycle(self, li: int, b_loc):
         """V-cycle over the sharded levels; li indexes self.levels."""
         lv, pl_ = self.levels[li], self.params[li]
+        if self.lo_vec is not None and b_loc.dtype != self.lo_vec:
+            b_loc = b_loc.to(self.lo_vec)
         b_loc = b_loc.contiguous()
         x = torch.zeros_like(b_loc)
         # the pre-smoother starts from zero (A 0 = 0 exactly)

@@ -16,6 +16,7 @@ from polydeal_tpu_torch.solvers.chebyshev import (
 )
 from polydeal_tpu_torch.solvers.gmres import GMRESResult, gmres_solve
 from polydeal_tpu_torch.solvers.multigrid import (
+    MatrixFreeLevel,
     Multigrid,
     Transfer,
     build_embedding,
@@ -41,6 +42,7 @@ __all__ = [
     "jacobi_preconditioner",
     "ChebyshevSmoother",
     "estimate_lambda_max",
+    "MatrixFreeLevel",
     "Multigrid",
     "Transfer",
     "build_embedding",

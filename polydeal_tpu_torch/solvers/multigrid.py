@@ -57,6 +57,7 @@ __all__ = [
     "detect_grid_shapes",
     "build_rtree_hierarchy",
     "build_structured_hierarchy",
+    "MatrixFreeLevel",
     "Multigrid",
     "level_pack_plan",
     "maybe_pack_level",
@@ -419,7 +420,53 @@ def _schedule(v, n_levels: int, name: str):
     return v
 
 
+# the smoothing vectors' dtypes: f32 and f64 run the fused smoothers; bf16
+# sweeps run the composed smoother (the JAX package's _fused_ok refuses
+# them too), K6 reading bf16 x and the banded products casting it to f32
 _VECTOR_DTYPES = (torch.float32, torch.float64)
+
+
+def promote_to(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``v`` in the wider of its dtype and ``dtype`` (a transfer's), where
+    the smoothing vectors run narrower (vector_dtype), as the JAX package's
+    einsums promote."""
+    if v.dtype == dtype:
+        return v
+    return v.to(torch.promote_types(v.dtype, dtype))
+
+
+class MatrixFreeLevel:
+    """A matrix-free operator as the finest MG level (the reference's
+    flagship composition: a MatrixFree finest operator over matrix-based
+    coarse levels, examples/agglo_amg.cc:1105-1110).
+
+    It has ``matvec``, ``diagonal``, ``n_basis``, ``shape`` and ``dtype``
+    (carried by the diagonal), and no ``matvec_t`` or ``fused_cheb_ok``:
+    the V-cycle runs it flat, smooths it with the composed Chebyshev
+    recurrence and switches to the transposed layout below it."""
+
+    def __init__(self, op, diag: torch.Tensor):
+        self.op = op  # e.g. assembly.matfree.MatrixFreeLaplace
+        self.diag = diag  # [n] flat, on the operator's device
+
+    @property
+    def n_basis(self) -> int:
+        return self.op.n_basis
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.diag.dtype
+
+    @property
+    def shape(self):
+        n = self.op.n_poly * self.op.n_basis
+        return (n, n)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return self.op.apply(x)
+
+    def diagonal(self) -> torch.Tensor:
+        return self.diag
 
 
 @dataclass
@@ -459,6 +506,7 @@ class Multigrid:
         precond_dtype=None,
         vector_dtype=None,
         coarse_solver: str = "lu",
+        fine_op=None,
     ) -> "Multigrid":
         """Solver layouts, eigenvalue estimates, Jacobi diagonals and the
         coarse solve.  ``matrices`` (coarse to fine) are bands, packs or
@@ -466,16 +514,27 @@ class Multigrid:
         intervals become Python floats here, once, so the V-cycle never
         waits on the device for them.
 
+        ``fine_op`` (a matrix-free operator with ``apply`` and
+        ``diagonal``, e.g. ``assembly.matfree.MatrixFreeLaplace``) is the
+        finest level, a :class:`MatrixFreeLevel` after the assembled
+        ``matrices``, which are then the coarse levels only; per-level
+        schedules count it.
+
         ``precond_dtype`` makes low-precision band copies for the
-        smoother's products; ``vector_dtype`` (f32 or f64) runs the
+        smoother's products (a packed or matrix-free level keeps its own
+        operator there); ``vector_dtype`` (bf16, f32 or f64) runs the
         smoothing vectors in that type, and needs every smoothing band to
-        be no wider (the kernels multiply an f64 band by f64 vectors
-        only): with an f64 operator, pass ``precond_dtype`` as well."""
-        n_lv = len(matrices)
+        be no wider than the vectors, bf16 ones counting as f32 (the
+        kernels multiply an f64 band by f64 vectors only, and bf16 vectors
+        reach them as f32, or K6 reads them as they are): with an f64
+        operator, pass ``precond_dtype`` as well."""
+        n_lv = len(matrices) + (fine_op is not None)
         chebyshev_degree = _schedule(chebyshev_degree, n_lv,
                                      "chebyshev_degree")
         n_smooth = _schedule(n_smooth, n_lv, "n_smooth")
         ells = [_level_operator(A) for A in matrices]
+        if fine_op is not None:
+            ells.append(MatrixFreeLevel(fine_op, fine_op.diagonal()))
         lams = []
         for Ae in ells[1:]:
             inv = 1.0 / Ae.diagonal()
@@ -494,9 +553,12 @@ class Multigrid:
                                  else Ae.diagonal()) for Ae in ells[1:]]
         lo_ells = lo_dinvs = None
         if precond_dtype is not None:
+            # matrix-free levels stay as they are; packed levels reuse the
+            # f32 operator object (no band copy), as in the JAX package
             lo_ells = [BlockELL(e.data.to(precond_dtype), e.cols,
                                 e.n_block_cols) if isinstance(e, BlockELL)
-                       else e if isinstance(e, BlockPacked)
+                       else e if isinstance(e, (BlockPacked,
+                                                MatrixFreeLevel))
                        else _with_imajor_if_big(BlockBanded(
                            e.data.to(precond_dtype), e.offsets,
                            e.n_block_cols,
@@ -507,12 +569,14 @@ class Multigrid:
             lo_ells = list(ells)
         if lo_ells is not None:
             vdt = vector_dtype
-            if vdt is not None and (vdt not in _VECTOR_DTYPES or any(
-                    torch.finfo(e.dtype).bits > torch.finfo(vdt).bits
-                    for e in lo_ells[1:])):
+            if vdt is not None and (
+                    vdt not in _VECTOR_DTYPES + (torch.bfloat16,) or any(
+                        torch.finfo(e.dtype).bits
+                        > max(torch.finfo(vdt).bits, 32)
+                        for e in lo_ells[1:])):
                 raise ValueError(
-                    f"vector_dtype {vdt} needs f32 or f64 vectors and "
-                    "smoothing bands no wider (pass precond_dtype)")
+                    f"vector_dtype {vdt} needs bf16, f32 or f64 vectors "
+                    "and smoothing bands no wider (pass precond_dtype)")
             lo_dinvs = [None] + [d if vdt is None else d.to(vdt)
                                  for d in dinvs[1:]]
         return cls(
@@ -542,7 +606,7 @@ class Multigrid:
 
     def _is_t(self, level: int) -> bool:
         """Whether the level runs in the transposed [nb, P] layout (its
-        operator has it; a block-ELL level runs flat)."""
+        operator has it; a block-ELL or matrix-free level runs flat)."""
         return hasattr(self.ells[level], "matvec_t")
 
     def _to_t(self, level: int, b_flat: torch.Tensor) -> torch.Tensor:
@@ -553,7 +617,8 @@ class Multigrid:
         """Fused smoothing and residuals (in the transposed layout) for f32
         and f64 vectors: K2 on every level that carries the i-major copy,
         fused K0 on every other banded level, K7 on every packed level
-        without a far tail; no block-ELL level."""
+        without a far tail; no block-ELL or matrix-free level, and no
+        bf16 sweep."""
         return (hasattr(A, "fused_cheb_ok") and A.fused_cheb_ok()
                 and b.dtype in _VECTOR_DTYPES)
 
@@ -565,19 +630,11 @@ class Multigrid:
         mv = A.matvec_t if b.dim() == 2 else A.matvec
         return b - mv(x)
 
-    @staticmethod
-    def _promote(v: torch.Tensor, t: Transfer) -> torch.Tensor:
-        """``v`` in the transfer's type where the smoothing vectors run
-        narrower (vector_dtype), as the JAX package's einsums promote."""
-        if v.dtype == t.E.dtype:
-            return v
-        return v.to(torch.promote_types(v.dtype, t.E.dtype))
-
     def _restrict(self, level: int, r: torch.Tensor) -> torch.Tensor:
         """Level ``level``'s residual to level - 1, in that level's
         layout."""
         t = self.transfers[level - 1]
-        r = self._promote(r, t)
+        r = promote_to(r, t.E.dtype)
         down_t = self._is_t(level - 1)
         if r.dim() == 2:
             return t.restrict_t(r) if down_t else t.restrict(
@@ -590,7 +647,7 @@ class Multigrid:
         """Level ``level - 1``'s ``xc`` up to ``level``, transposed when
         ``to_t``."""
         t = self.transfers[level - 1]
-        xc = self._promote(xc, t)
+        xc = promote_to(xc, t.E.dtype)
         if to_t:
             return (t.prolong_t(xc) if xc.dim() == 2
                     else self._to_t(level, t.prolong(xc.reshape(-1))))
@@ -741,11 +798,19 @@ def build_multigrid(
     dtype=torch.float64,
     level_assembly: str = "tables",
     coarse_solver: str = "lu",
+    matfree_fine: bool = False,
     *,
     device,
 ) -> Multigrid:
     """The R3MG preconditioner from a handler chain (coarse to fine) and
     the finest-level matrix.
+
+    ``matfree_fine=True`` makes the finest level a matrix-free operator
+    (``assembly.matfree.MatrixFreeLaplace`` in ``dtype``, geometry-only
+    memory) over the assembled coarse levels: the reference's flagship
+    composition (examples/agglo_amg.cc:1105-1110,
+    multigrid_amg.h:309-398).  It needs ``mode='direct'``, with either
+    level assembly, and ``A_fine`` may be None.
 
     ``mode='direct'`` re-assembles SIPG on every coarser level, so the
     penalty scales with each level's h: by the table path into a
@@ -762,6 +827,13 @@ def build_multigrid(
         build_banded_groups,
     )
 
+    fine_op = None
+    if matfree_fine:
+        if mode != "direct":
+            raise ValueError("matfree_fine needs mode='direct'")
+        from polydeal_tpu_torch.assembly.matfree import MatrixFreeLaplace
+
+        fine_op = MatrixFreeLaplace(handlers[-1], dtype=dtype, device=device)
     Es = [build_embedding(handlers[l], handlers[l + 1], parents[l],
                           dtype=dtype, device=device)
           for l in range(len(handlers) - 1)]
@@ -781,11 +853,14 @@ def build_multigrid(
             matrices.append(A_l if li == 0 else maybe_pack_level(h, A_l))
         # the fine level is read only through the kernels' layout when it
         # has one, so its o-major copy goes
-        matrices.append(_with_imajor_if_big(
-            maybe_pack_level(handlers[-1], A_fine), drop_omajor=True))
+        if fine_op is None:
+            matrices.append(_with_imajor_if_big(
+                maybe_pack_level(handlers[-1], A_fine), drop_omajor=True))
     elif mode == "direct" and level_assembly == "tables":
         matrices = [assemble_sipg_matrix(h, dtype=dtype, device=device)
-                    for h in handlers[:-1]] + [A_fine]
+                    for h in handlers[:-1]]
+        if fine_op is None:
+            matrices.append(A_fine)
     elif mode == "direct":
         raise ValueError(f"unknown level assembly: {level_assembly!r}")
     elif mode == "galerkin":
@@ -806,7 +881,7 @@ def build_multigrid(
                            n_smooth=n_smooth, smoothing_range=smoothing_range,
                            precond_dtype=precond_dtype,
                            vector_dtype=vector_dtype,
-                           coarse_solver=coarse_solver)
+                           coarse_solver=coarse_solver, fine_op=fine_op)
 
 
 def _field_block_matrix(space, op, name, ah, dtype):

@@ -612,14 +612,16 @@ class BlockPacked:
     def far_matvec_t(self, xt: torch.Tensor) -> torch.Tensor:
         """The far block-COO tail's product alone, [nb, P] -> [nb, P] in
         ``xt``'s dtype (zero without a tail): gather, block products,
-        scatter-add by row."""
-        yb = torch.zeros((self.n_block_rows, self.n_basis), dtype=xt.dtype,
+        scatter-add by row, in the wider of the band's and ``xt``'s
+        dtypes."""
+        ct = torch.promote_types(self.data_i.dtype, xt.dtype)
+        yb = torch.zeros((self.n_block_rows, self.n_basis), dtype=ct,
                          device=xt.device)
         if self._has_far():
-            g = xt.T[self._far_cols_t]  # [n_far, nb]
-            prod = torch.einsum("kij,kj->ki", self.far_data.to(xt.dtype), g)
+            g = xt.T[self._far_cols_t].to(ct)  # [n_far, nb]
+            prod = torch.einsum("kij,kj->ki", self.far_data.to(ct), g)
             yb.index_add_(0, self._far_rows_t, prod)
-        return yb.T
+        return yb.T.to(xt.dtype)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         xt = x.reshape(self.n_block_rows, self.n_basis).T

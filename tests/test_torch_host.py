@@ -284,8 +284,10 @@ def test_port_never_imports_jax():
     """``import polydeal_tpu_torch`` plus a full small flagship solve, a
     packed one without the relabel, two monodomain steps, a sharded solve
     (one shard, structured hierarchy), the COO path's Poisson solves (R3MG
-    and block-Jacobi CG) and a diffusion-reaction convergence study leave
-    jax and the JAX package out of sys.modules."""
+    and block-Jacobi CG), a diffusion-reaction convergence study, the
+    matrix-free fine level's MG-CG, a bf16-vector flagship solve and the
+    io, accessor and gmsh modules leave jax and the JAX package out of
+    sys.modules."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -334,6 +336,18 @@ def test_port_never_imports_jax():
         "                     verbose=False, device=cpu)['iterations'] > 0\n"
         "assert len(convergence_study(sizes=(4, 8), verbose=False,\n"
         "                             device=cpu)[1]) == 1\n"
+        "import polydeal_tpu_torch.io, polydeal_tpu_torch.accessor\n"
+        "import polydeal_tpu_torch.mesh.gmsh_io\n"
+        "import polydeal_tpu_torch.assembly.matfree\n"
+        "hs, par, gs = multigrid.build_structured_hierarchy(\n"
+        "    polydeal_tpu_torch.hyper_cube(2, 4), 4, degree=1)\n"
+        "mg = multigrid.build_multigrid(hs, par, None, grid_shapes=gs,\n"
+        "                               matfree_fine=True, device=cpu)\n"
+        "b = torch.ones(hs[-1].n_dofs, dtype=torch.float64)\n"
+        "assert mg.solve_cg(b).iterations > 0\n"
+        "fs = setup_flagship(n=4, device=cpu,\n"
+        "                    vector_dtype=torch.bfloat16)\n"
+        "assert solve_flagship(fs, maxiter=200).iterations > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'polydeal_tpu')]\n"
         "print('BAD', bad)\n"
