@@ -116,6 +116,24 @@ Phases (each must pass; nothing falls back to the CPU):
      fine slab; that arm sharded at world size 1 on phase 8's NCCL group,
      within one iteration of its unsharded no-FMG solve; (c) write_vtu and
      write_matrix_market on the 3D n=16 system, read back.
+ 12. the last modules, at world size 1 on phase 8's NCCL group: (a) the
+     flat block-COO ShardedSystem on phase 9's n=64 COO Poisson system
+     (1,048,576 DoF, f64, every level through to_block_matrix), held to
+     its unsharded solve: iterations +-1, x within 1e-8; the fine
+     ShardedMatrix's blocks, bytes and halo rows (0) and the warm solve's
+     seconds; (b) shard-local setup of bench_sharded's system: its fine
+     band built as 4 lane slabs on K3-K5 (each table with only the lanes
+     the slab needs) against the global build, bitwise where every launch
+     plan is the whole level's, else within 1e-6 of the largest entry,
+     with last_setup_stats; then ShardedBandedSystem.setup_local at world
+     size 1 held as phase 8 holds from_multigrid (21-25 iterations, within
+     one of the unsharded no-FMG solve, f32 within 1e-4 of f64; K3-K5 and
+     K1/K2 halo launched); (c) models/sharded.dryrun (the 2D packed
+     R-tree f64 solve sharded against the host solve, then the flat 2D
+     n=8 one; K6/K7 halo launched); (d) assemble_sipg_banded and
+     assemble_sipg_banded_gather at n=64 p=1 against the direct band (f64
+     1e-12, f32 1e-5 relative), seconds and peak device MB; (e)
+     chained_cost of K1 on the lex fine band beside its CUDA-event time.
 K0 (o-major banded SpMV) and fused K0 (its Chebyshev step/residual, all
 three modes) are held against their plain versions on the real bands of
 phases 5-7 once each exists (phase 3's check, on real bands): the
@@ -1577,7 +1595,8 @@ def check_k1(torch, label, band, out):
 def phase9(torch, dev):
     """Phase 9: the general block-COO path and the scalar models on the
     card (see the module docstring).  Returns (the launch counts of the
-    n=64 Poisson solve, its kernels' rows)."""
+    n=64 Poisson solve, its kernels' rows, its system and solution for
+    phase 12)."""
     from polydeal_tpu_torch.agglomeration import RTreeAgglomerator
     from polydeal_tpu_torch.assembly.sipg import (assemble_rhs,
                                                   assemble_sipg_matrix)
@@ -1659,6 +1678,9 @@ def phase9(torch, dev):
     if not same or its != [ra["iterations"]] * 2:
         fail("the COO path is not deterministic on the card")
 
+    # phase 12 (a) shards (a)'s system on the flat block-COO path
+    keep9 = dict(mg=ra["mg"], b=ra["b"], x=ra["x"],
+                 iterations=ra["iterations"])
     # (f) K1, K2 (three modes), K0 and fused K0 on (a)'s real bands: the
     # path's own f64 bands, and their f32 casts
     mg = ra["mg"]
@@ -1768,7 +1790,7 @@ def phase9(torch, dev):
         main = max(f64, key=lambda k: int(k.split()[1].split("-")[0]))
         out[key] = dict(cases[main], case=f"poisson {main}", max_abs_err=max(
             r["max_abs_err"] for r in cases.values()))
-    return counts, out
+    return counts, out, keep9
 
 
 # Phase 10's reference numbers: the JAX package on the CPU in float64,
@@ -2445,6 +2467,334 @@ def phase11(torch, dev, group, keep):
     return {"K6 bf16": counts_k6, "K6 halo bf16": counts_halo}, rows
 
 
+
+def flat_sharded_check(torch, group, keep9, smi):
+    """(a) of phase 12: phase 9's n=64 COO Poisson system (six banded f64
+    levels, 1,048,576 DoF) through the flat block-COO ShardedSystem at
+    world size 1, held to its unsharded ``mg.solve_cg``: iterations within
+    one, x within 1e-8."""
+    from polydeal_tpu_torch.parallel.sharding import ShardedSystem
+
+    mg, b = keep9["mg"], keep9["b"]
+    bnorm = float(b.norm())
+    t0 = time.perf_counter()
+    ss = ShardedSystem.from_multigrid(mg, group)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    x, k, res = ss.solve_cg(b, rtol=1e-9, maxiter=100)  # cold
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    x, k, res = ss.solve_cg(b, rtol=1e-9, maxiter=100)  # warm
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t1
+    fine, pl = ss.levels[-1], ss.params[-1]
+    nnz = pl["data"].shape[0]
+    nbytes = pl["data"].numel() * pl["data"].element_size()
+    diff = float((x - keep9["x"]).abs().max())
+    log(f"  (a) flat ShardedSystem on phase 9's n=64 COO system "
+        f"(1,048,576 DoF, f64) at world size 1: {len(ss.levels)} levels, "
+        f"the fine ShardedMatrix {nnz} blocks a shard ({nbytes / 1e6:.1f} "
+        f"MB), halo rows {sum(fine.n_sends)}, nested transfers "
+        f"{[lv.nested_transfer for lv in ss.levels[1:]]}; setup "
+        f"{setup_s:.3f} s, warm solve {solve_s:.4f} s, {k} iterations "
+        f"(unsharded {keep9['iterations']}), relative residual "
+        f"{res / bnorm:.3e}; max |x_flat - x_unsharded| = {diff:.3e} "
+        f"[{smi}]")
+    if tuple(x.shape) != tuple(keep9["x"].shape) or not bool(
+            torch.isfinite(x).all()):
+        fail("flat sharded solution has the wrong shape or non-finite "
+             "values")
+    if abs(k - keep9["iterations"]) > 1 or not res <= 1e-9 * bnorm * 1.01:
+        fail(f"flat sharded solve: {k} iterations (unsharded "
+             f"{keep9['iterations']}), relative residual {res / bnorm:.3e}")
+    if sum(fine.n_sends) != 0:
+        fail("the flat sharded system ships halo rows at world size 1")
+    if not diff <= 1e-8:
+        fail(f"flat sharded solution differs from the unsharded one by "
+             f"{diff:.3e}")
+
+
+def sipg_plans(torch, tables, degree, dim):
+    """(kind, C, Q, lanes, ranks, G, S) of every K3-K5 launch the direct
+    assembly makes over ``tables``."""
+    from polydeal_tpu_torch.ops.sipg_kernels import (sipg_form,
+                                                     sipg_launch_plan)
+
+    out = []
+    named = [("volume", tables["vol"])] + [
+        ("face", g) for g in tables["groups"].values()]
+    if tables["bdry"] is not None:
+        named.append(("boundary", tables["bdry"]))
+    for kind, g in named:
+        C, Q, P = g["w"].shape
+        pl = sipg_launch_plan(P, C, Q, sipg_form(kind, dim, degree,
+                                                 g["w"].dtype))
+        out.append((kind, C, Q, pl.lanes, pl.ranks, pl.G, pl.S))
+    return out
+
+
+def slab_setup_check(torch, dev, smi, n=64):
+    """(b) 1-2 of phase 12: the fine band of bench_sharded's system
+    (structured n=64, p=1, f32) built as 4 lane slabs [r per, (r + 1) per)
+    in this process on K3-K5, each table with only the lanes the slab
+    needs (a face group also its faces into the slab and their out
+    sides' boxes), against the global build: bitwise where every K3-K5
+    launch plan of the slab is the whole level's, else within 1e-6 of the
+    band's largest entry; and last_setup_stats of the slabs against the
+    global build."""
+    from polydeal_tpu_torch.assembly import sipg
+    from polydeal_tpu_torch.models.flagship import flagship_hierarchy
+    from polydeal_tpu_torch.solvers.multigrid import band_offsets
+
+    handlers, _, _ = flagship_hierarchy(n, 1, "structured", "lex")
+    ah = handlers[-1]
+    offs = band_offsets(ah)
+    P, n_slabs = ah.n_poly, 4
+    per = P // n_slabs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = sipg.build_banded_groups(ah, offs, torch.float32, device=dev)
+    gstats = dict(sipg.last_setup_stats)
+    A = sipg.assemble_sipg_banded_direct(ah, g, offs)
+    torch.cuda.synchronize()
+    t_global = time.perf_counter() - t0
+    plans = sipg_plans(torch, g, 1, 3)
+    del g
+    scale = float(A.data.abs().max())
+    worst, cases, t_slabs = 0.0, [], 0.0
+    for r in range(n_slabs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs = sipg.build_banded_groups(ah, offs, torch.float32, device=dev,
+                                      lanes=(r * per, (r + 1) * per))
+        st = dict(sipg.last_setup_stats)
+        As = sipg.assemble_sipg_banded_direct(ah, gs, offs)
+        torch.cuda.synchronize()
+        t_slabs += time.perf_counter() - t0
+        same = sipg_plans(torch, gs, 1, 3) == plans
+        del gs
+        ref = A.data[..., r * per:(r + 1) * per]
+        err = float((As.data - ref).abs().max())
+        bitwise = torch.equal(As.data, ref)
+        worst = max(worst, err)
+        cases.append("bitwise" if bitwise else f"{err / scale:.1e}")
+        if same and not bitwise:
+            fail(f"slab {r} of the fine band is not bitwise equal to the "
+                 f"global build under the same launch plans (max err "
+                 f"{err:.3e})")
+        if not err <= 1e-6 * scale:
+            fail(f"slab {r} of the fine band differs from the global build "
+                 f"by {err:.3e} (max |band| {scale:.3e})")
+        plans_are = "the same as" if same else "other than"
+        log(f"  (b) slab {r}: lanes [{r * per}, {(r + 1) * per}), tables "
+            f"of at most {st['max_lanes']} lanes; launch plans {plans_are} "
+            f"the whole level's; {'bitwise equal' if bitwise else 'max err'}"
+            f"{'' if bitwise else f' {err:.3e}'}; last_setup_stats {st}")
+        del As, ref
+    log(f"  (b) fine band (P={P}, {len(offs)} offsets, f32) as {n_slabs} "
+        f"slabs against the global build: {cases}; global build "
+        f"last_setup_stats {gstats}; seconds (tables + K3-K5): global "
+        f"{t_global:.3f}, the {n_slabs} slabs {t_slabs:.3f} [{smi}]")
+    del A
+    torch.cuda.empty_cache()
+    return handlers
+
+
+def local_sharded_check(torch, dev, group, smi, n=64):
+    """(b) 3 of phase 12: bench_sharded's system built shard-locally at
+    world size 1 (ShardedBandedSystem.setup_local: tables and bands by
+    slab through K3-K5, the sharded power iteration) and solved, held as
+    phase 8 holds from_multigrid: 21-25 iterations, within one of the
+    unsharded no-FMG solve, the f32 solution within 1e-4 of an f64 solve.
+    Fails unless K3-K5 and K1/K2 halo were launched.  Returns the launch
+    counts of the setup and solve."""
+    from polydeal_tpu_torch.models.flagship import setup_flagship
+    from polydeal_tpu_torch.models.sharded import setup_local
+    from polydeal_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    sh = setup_local(n, device=dev, group=group)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    x, k, res = sh.ss.solve_cg(sh.b, rtol=1e-8, maxiter=100)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    peak, resident = peak_mb(torch, base)
+    ss = sh.ss
+    bnorm = float(sh.b.norm())
+    lams = [(lv.per, lv.hi / 1.2) for lv in ss.levels]
+    del sh, ss
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fst = setup_flagship(n=n, hierarchy="structured", device=dev)
+    torch.cuda.synchronize()
+    setup_g = time.perf_counter() - t0
+    ru = fst.mg.solve_cg(fst.b, rtol=1e-8, maxiter=100)
+    lam_g = [float(h) / 1.2 for h in fst.mg.his[1:]]
+    del fst
+    torch.cuda.empty_cache()
+    ref = setup_flagship(n=n, hierarchy="structured", device=dev,
+                         dtype=torch.float64, precond_dtype=None)
+    r64 = ref.mg.solve_cg(ref.b, rtol=1e-8, maxiter=100)
+    diff = float((x.double() - r64.x).abs().max()) / float(
+        r64.x.abs().max())
+    del ref, r64
+    torch.cuda.empty_cache()
+    log(f"  (b) shard-local setup at world size 1: {setup_s:.3f} s "
+        f"(setup_flagship {setup_g:.3f} s), device peak {peak:.1f} MB, "
+        f"resident {resident:.1f} MB; lambda_max (per, value) {lams} "
+        f"(Multigrid.setup {lam_g}); {k} iterations (unsharded no-FMG "
+        f"{ru.iterations}), relative residual {res / bnorm:.3e}; max "
+        f"|x_local_f32 - x_f64| / max |x_f64| = {diff:.3e}; launches "
+        f"{counts} [{smi}]")
+    if not bool(torch.isfinite(x).all()):
+        fail("shard-local solution has non-finite values")
+    if not res <= 1e-8 * bnorm:
+        fail("shard-local solve missed rtol 1e-8")
+    if not 21 <= k <= 25 or abs(k - ru.iterations) > 1:
+        fail(f"shard-local solve took {k} iterations (unsharded "
+             f"{ru.iterations})")
+    if not diff <= 1e-4:
+        fail(f"shard-local f32 solution differs from the f64 one by "
+             f"{diff:.3e}")
+    for name in ("volume_blocks", "face_group_blocks", "boundary_blocks",
+                 "banded_matvec_halo", "banded_fused_halo"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was never launched on the shard-local "
+                 f"path")
+    return counts
+
+
+def dryrun_check(torch, dev, group, smi):
+    """(c) of phase 12: models/sharded.dryrun at world size 1 (it raises on
+    a failed hold); fails unless K6 and K7 halo served its packed fine
+    level."""
+    from polydeal_tpu_torch.models.sharded import dryrun
+    from polydeal_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    r = dryrun(dev, group)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    log(f"  (c) dryrun at world size 1 ({time.perf_counter() - t0:.2f} s): "
+        f"levels {r['levels']}, sharded {r['meta']}; {r['iterations']} "
+        f"iterations (host {r['host_iterations']}), max |x - x_host| = "
+        f"{r['max_abs_diff']:.3e}, relative residual "
+        f"{r['residual'] / r['bnorm']:.3e}; comm_bytes_per_spmv(8) "
+        f"{r['comm']}; flat: {r['flat_iterations']} iterations (host "
+        f"{r['flat_host_iterations']}), max diff "
+        f"{r['flat_max_abs_diff']:.3e}; launches {counts} [{smi}]")
+    for name in ("packed_matvec_halo", "packed_fused_halo"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was never launched on the dry run")
+    return counts
+
+
+def other_assemblies_check(torch, dev, handlers, smi):
+    """(d) of phase 12: assemble_sipg_banded (standard tables, one segment
+    sum into the band slots) and assemble_sipg_banded_gather (entity-last
+    tables, padded gather maps) at n=64 p=1 (the structured fine level,
+    262,144 polytopes) against assemble_sipg_banded_direct's band: f64
+    within 1e-12 of its largest entry, f32 within 1e-5; seconds and peak
+    device MB of each."""
+    import numpy as np
+
+    from polydeal_tpu_torch.assembly import sipg
+    from polydeal_tpu_torch.solvers.multigrid import band_offsets
+
+    ah = handlers[-1]
+    offs = band_offsets(ah)
+    for dt, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        ref = sipg.assemble_sipg_banded_direct(
+            ah, sipg.build_banded_groups(ah, offs, dt, device=dev), offs)
+        scale = float(ref.data.abs().max())
+
+        def plain():
+            return sipg.assemble_sipg_banded(ah, offsets=offs, dtype=dt,
+                                             device=dev)
+
+        def gather():
+            vol = sipg.build_volume_tables(ah, dt, device=dev)
+            faces = sipg.build_face_tables(ah, dt, device=dev)
+            tt = sipg.transpose_tables(vol, faces)
+            del vol, faces
+            return sipg.assemble_sipg_banded_gather(ah, *tt, offsets=offs)
+
+        for name, fn in (("assemble_sipg_banded", plain),
+                         ("assemble_sipg_banded_gather", gather)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            A = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak, _ = peak_mb(torch, base)
+            err = float((A.data - ref.data).abs().max())
+            dname = str(dt).split(".")[-1]
+            log(f"  (d) {name} n=64 p=1 {dname}: {secs:.3f} s (tables "
+                f"included), device peak {peak:.1f} MB; max |A - A_direct| "
+                f"/ max |A_direct| = {err / scale:.3e} (tol {tol:g}) "
+                f"[{smi}]")
+            if not np.array_equal(A.offsets, ref.offsets) or not (
+                    err <= tol * scale):
+                fail(f"{name} {dname} differs from the direct band by "
+                     f"{err / scale:.3e}")
+            del A
+            torch.cuda.empty_cache()
+        del ref
+        torch.cuda.empty_cache()
+
+
+def chained_k1_check(torch, band, k1_row, smi):
+    """(e) of phase 12: chained_cost of K1 on the lex flagship's fine band
+    (phase 5's, f32), beside a CUDA-event reading of the same call (phase
+    3's method) and phase 3's traced K1 time at the flagship's shapes."""
+    from polydeal_tpu_torch.utils.timer import chained_cost
+
+    gen = torch.Generator(device=band.data_i.device).manual_seed(12)
+    x = torch.randn(band.n_basis, band.n_block_rows, generator=gen,
+                    device=gen.device, dtype=torch.float32)
+    per = chained_cost(lambda v: band.matvec_t(v), x, n_small=8,
+                       n_large=64, reps=3) * 1e3
+    ev = time_one(torch, lambda: band.matvec_t(x))
+    log(f"  (e) K1 on the lex flagship fine band (P={band.n_block_rows}, "
+        f"{len(band.offsets)} offsets, f32): chained_cost {per:.4f} ms per "
+        f"application (CUDA graphs of 8 and 64), CUDA events {ev:.4f} ms "
+        f"per call, phase 3 traced {k1_row.get('ms', float('nan')):.4f} ms "
+        f"[{smi}]")
+    if not per > 0:
+        fail(f"chained_cost of K1 is {per} ms")
+
+
+def phase12(torch, dev, group, keep, keep9, kres):
+    """Phase 12: the last modules of the port on the card (see the module
+    docstring): the flat ShardedSystem, the shard-local setup, the dry
+    run, the other banded assemblies and chained_cost."""
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log("phase 12: flat ShardedSystem, shard-local setup, dry run, the "
+        "other banded assemblies, chained_cost")
+    flat_sharded_check(torch, group, keep9, smi)
+    keep9.clear()
+    torch.cuda.empty_cache()
+    handlers = slab_setup_check(torch, dev, smi)
+    local_sharded_check(torch, dev, group, smi)
+    dryrun_check(torch, dev, group, smi)
+    other_assemblies_check(torch, dev, handlers, smi)
+    del handlers
+    chained_k1_check(torch, keep["A32"], kres.get("K1", {}), smi)
+    log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2649,10 +2999,11 @@ def main() -> int:
 
     counts7 = phase7(torch, dev, k0, k2)
     counts8 = phase8(torch, dev, group, halo_rows)
-    counts9, rows9 = phase9(torch, dev)
+    counts9, rows9, keep9 = phase9(torch, dev)
     counts10, rows10 = phase10(torch, dev)
     counts11, rows11 = phase11(torch, dev, group, keep)
-    del keep
+    phase12(torch, dev, group, keep, keep9, kres)
+    del keep, keep9
     torch.distributed.destroy_process_group()
     shutil.rmtree(store_dir, ignore_errors=True)
     kres.update(halo_rows)

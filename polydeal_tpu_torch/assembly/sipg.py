@@ -12,11 +12,13 @@ path: ``build_banded_groups`` pads the face, boundary and cell tables per
 polytope slot on the host, and ``assemble_sipg_banded_direct`` turns them
 into the band with the volume, face group and boundary block kernels
 (K3-K5, ``ops/sipg_kernels.py``), sums over the padded slots and lane
-rolls -- no scatters or gathers; with a pack plan it emits the packed
-format (``sparse.BlockPacked``) directly.  The tensors' device decides, as
-the JAX package's backend does: on a CUDA tensor the blocks come from the
-hand-written kernels (the JAX package's TPU branch), on a CPU tensor from
-their plain einsum versions (its ``use_pallas=False`` branch).
+rolls -- no scatters or gathers (a lane slab's build puts each face
+group's blocks on the slab by lane maps instead); with a pack plan it
+emits the packed format (``sparse.BlockPacked``) directly.  The tensors'
+device decides, as the JAX package's backend does: on a CUDA tensor the
+blocks come from the hand-written kernels (the JAX package's TPU branch),
+on a CPU tensor from their plain einsum versions (its
+``use_pallas=False`` branch).
 
 Penalty: gamma = penalty_constant / h_F with penalty_constant =
 10 (p + dim)(p + 1) and h_F the diameter of the smaller-id polytope, as in
@@ -60,6 +62,13 @@ __all__ = [
     "assemble_rhs_direct",
     "assemble_sipg_banded_direct",
     "assemble_mass_banded_direct",
+    "banded_pieces",
+    "last_setup_stats",
+    "transpose_tables",
+    "assemble_sipg_banded_t",
+    "banded_gather_maps",
+    "assemble_sipg_banded_gather",
+    "assemble_sipg_banded",
 ]
 
 
@@ -341,9 +350,82 @@ def project(ah: AgglomerationHandler, fn, dtype=torch.float64,
     return torch.linalg.solve(M, b[..., None])[..., 0].reshape(-1)
 
 
+# what the most recent build_banded_groups call built: "n_dev" (the number
+# of slabs of its width in the level; 1 for a whole-level build), "lanes"
+# (lo, hi) of a slab build, "max_lanes", the most lanes of any table it
+# made, and "max_host_slab_bytes", the largest host array it made
+last_setup_stats: dict = {}
+
+
+def _lane_put(P: int, dtype, device):
+    """Materializer for the entity-last (lane-major) setup tables.
+
+    ``put(build, fill, idx, n_in)`` takes a function ``build(ids) ->
+    np.ndarray`` that makes the lanes ``ids`` (global polytope ids) of a
+    table [..., L] and lays out the table of the lanes ``idx`` (global ids,
+    default all P): positions from ``n_in`` on, and ids outside [0, P), hold
+    ``fill``.  A slab build passes only the lanes its slab needs, so no
+    host array of the global lane count is ever made (the counterpart of
+    the JAX package's one-slab-a-device ``_lane_put``; the reference's
+    rank-local setup, source/agglomeration_handler.cc:85-87,1026-1091)."""
+    def put(build, fill, idx=None, n_in=None):
+        if idx is None:
+            a = build(np.arange(P))
+        else:
+            pos = np.arange(idx.shape[0])
+            valid = (pos < (idx.shape[0] if n_in is None else n_in)) & (
+                idx >= 0) & (idx < P)
+            part = build(idx[valid])
+            a = np.full(part.shape[:-1] + (idx.shape[0],), fill,
+                        dtype=part.dtype)
+            a[..., valid] = part
+        a = np.ascontiguousarray(a)
+        last_setup_stats["max_lanes"] = max(
+            last_setup_stats.get("max_lanes", 0), a.shape[-1])
+        last_setup_stats["max_host_slab_bytes"] = max(
+            last_setup_stats.get("max_host_slab_bytes", 0), a.nbytes)
+        # contiguous, as the kernels take them
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return put
+
+
+def _slab_face_lanes(has: np.ndarray, o: int, lo: int, hi: int):
+    """The lanes a slab [lo, hi) needs of the face group of offset ``o``
+    (``has``: which polytopes are the in side of such a face), or None if
+    no face of the group touches the slab: (idx, n_in, k, keep, give).
+
+    K4 reads the in side's box at lane q and the out side's at lane
+    (q + k) mod L, so ``idx`` lists the in-side lanes (its first ``n_in``)
+    followed by out-side lanes that put each in-side lane's out box k
+    lanes on.  ``keep`` = (positions, slab lanes) of the faces whose
+    poly_in lies in the slab (their m11 and m12), ``give`` the same of the
+    faces whose poly_out does (their m21 and m22).  Of two layouts, the one
+    with fewer lanes: the window [lo - o, hi + o) (k = o; for o >= per
+    the windows [lo - o, hi - o), [lo, hi) and [lo + o, hi + o), k = per),
+    or only the in-side lanes U that have a face, then U + o (k = |U|): a
+    far, sparse offset costs its faces' lanes, not the slab's."""
+    per = hi - lo
+    s = min(o, per)
+    near = np.arange(max(lo - o, 0), max(hi - o, 0))
+    U = np.union1d(near, np.arange(lo, hi))
+    U = U[has[U]]
+    if U.size == 0:
+        return None
+    if 2 * U.size < per + 2 * s:
+        kp = np.nonzero(U >= lo)[0]
+        gp = np.nonzero((U + o >= lo) & (U + o < hi))[0]
+        return (np.concatenate([U, U + o]), U.size, U.size,
+                (kp, U[kp] - lo), (gp, U[gp] + o - lo))
+    idx = np.concatenate([np.arange(lo - o, lo - o + s), np.arange(lo, hi),
+                          np.arange(hi - s, hi) + o])
+    lanes = np.arange(per)
+    return idx, per + s, s, (s + lanes, lanes), (lanes, lanes)
+
+
 def build_banded_groups(ah: AgglomerationHandler, offsets: np.ndarray,
                         dtype=torch.float64, *, device,
-                        dirichlet_ids=None) -> dict:
+                        dirichlet_ids=None, lanes=None) -> dict:
     """Slot-padded, entity-last tables: the banded assembly inputs.
 
     Interior faces are grouped by (offset, poly_in) into [C, q, ..., P]
@@ -355,34 +437,83 @@ def build_banded_groups(ah: AgglomerationHandler, offsets: np.ndarray,
 
     Returns a dict of tensors on ``device`` with the same keys as the JAX
     package's: groups {offset: {w, n, h_f, pts_in}}, bdry, vol {pts, w},
-    ext_t and lo_t [dim, P]."""
+    ext_t and lo_t [dim, P].
+
+    ``lanes=(lo, hi)`` builds one lane slab for a shard-local setup, each
+    table with only the lanes it needs: the volume and boundary tables and
+    ext_t/lo_t the slab's own, each face group the lanes of
+    :func:`_slab_face_lanes` (the faces whose poly_in or poly_out lies in
+    the slab, and their out sides' boxes), with those lanes' own boxes
+    (``ext``, ``lo``), K4's box offset ``k`` and the ``keep``/``give``
+    lane maps as tensors; a group no face of which touches the slab is
+    left out.  :func:`assemble_sipg_banded_direct` then returns the band of
+    lanes [lo, hi): the reference's ghost-polytope layer
+    (source/agglomeration_handler.cc:1026-1091) as static lanes, with no
+    communication during setup."""
     P = ah.n_poly
     ft = ah.faces
     offsets = np.asarray(offsets, dtype=np.int64)
+    own = None
+    if lanes is not None:
+        lo, hi = (int(v) for v in lanes)
+        if not 0 <= lo < hi <= P:
+            raise ValueError(f"lane slab {lanes} outside [0, {P})")
+        lanes, own = (lo, hi), np.arange(lo, hi)
+    last_setup_stats.clear()
+    last_setup_stats["n_dev"] = (1 if lanes is None
+                                 else P // (lanes[1] - lanes[0]))
+    if lanes is not None:
+        last_setup_stats["lanes"] = lanes
+    put = _lane_put(P, dtype, device)
 
-    def put(a):  # contiguous, as the kernels take them
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=device)
+    def ext_of(idx):
+        return ah.extents[idx].T  # [dim, L]
 
-    def face_group(rows: np.ndarray, by: np.ndarray):
+    def lo_of(idx):
+        return ah.bbox_lo[idx].T
+
+    def face_group(rows: np.ndarray, by: np.ndarray, o: int = 0):
         members, _ = padded_group_lists(by, P) if rows.size else (
             np.full((P, 1), -1, dtype=np.int64), None)
         mask = members >= 0
         safe = np.where(mask, rows[np.maximum(members, 0)], 0)
         C = members.shape[1]
-        s = safe.reshape(-1)
-        pts = ft.points_in[s].reshape(P, C, *ft.points_in.shape[1:])
-        pts = np.where(mask.reshape(P, C, 1, 1), pts, 0.5)
-        w = ft.weights[s].reshape(P, C, -1)
-        w = np.where(mask[:, :, None], w, 0.0)
-        n = ft.normals[s].reshape(P, C, *ft.normals.shape[1:])
-        h_f = np.where(mask, ft.h_f[safe], 1.0)
-        return dict(
-            w=put(np.transpose(w, (1, 2, 0))),  # [C, q, P]
-            n=put(np.transpose(n, (1, 2, 3, 0))),  # [C, q, d, P]
-            h_f=put(h_f.T),  # [C, P]
-            pts_in=put(np.transpose(pts, (1, 2, 3, 0))),  # [C, q, d, P]
-        )
+        idx, n_in, extra = own, None, {}
+        if lanes is not None and o:
+            sl = _slab_face_lanes(mask[:, 0], o, *lanes)
+            if sl is None:
+                return None
+            idx, n_in, k, keep, give = sl
+
+            def lane_map(m):
+                return tuple(torch.as_tensor(a, device=device) for a in m)
+
+            extra = dict(ext=put(ext_of, 1.0, idx), lo=put(lo_of, 0.0, idx),
+                         k=k, keep=lane_map(keep), give=lane_map(give))
+
+        def b_pts(idx):  # [C, q, d, L]
+            s, m = safe[idx], mask[idx]
+            pts = ft.points_in[s.reshape(-1)].reshape(
+                len(idx), C, *ft.points_in.shape[1:])
+            pts = np.where(m.reshape(len(idx), C, 1, 1), pts, 0.5)
+            return np.transpose(pts, (1, 2, 3, 0))
+
+        def b_w(idx):  # [C, q, L]
+            s, m = safe[idx], mask[idx]
+            w = ft.weights[s.reshape(-1)].reshape(len(idx), C, -1)
+            return np.transpose(np.where(m[:, :, None], w, 0.0), (1, 2, 0))
+
+        def b_n(idx):  # [C, q, d, L]
+            n = ft.normals[safe[idx].reshape(-1)].reshape(
+                len(idx), C, *ft.normals.shape[1:])
+            return np.transpose(n, (1, 2, 3, 0))
+
+        def b_hf(idx):  # [C, L]
+            return np.where(mask[idx], ft.h_f[safe[idx]], 1.0).T
+
+        return dict(w=put(b_w, 0.0, idx, n_in), n=put(b_n, 0.0, idx, n_in),
+                    h_f=put(b_hf, 1.0, idx, n_in),
+                    pts_in=put(b_pts, 0.5, idx, n_in), **extra)
 
     interior = ~ft.is_boundary
     off_of = np.where(interior, ft.poly_out - ft.poly_in, 0)
@@ -390,7 +521,9 @@ def build_banded_groups(ah: AgglomerationHandler, offsets: np.ndarray,
     for o in (int(o) for o in offsets if o > 0):
         rows = np.where(interior & (off_of == o))[0]
         if rows.size:
-            groups[o] = face_group(rows, ft.poly_in[rows])
+            g = face_group(rows, ft.poly_in[rows], o)
+            if g is not None:
+                groups[o] = g
     b_rows = np.where(ft.is_boundary)[0][dirichlet_face_mask(ah,
                                                              dirichlet_ids)]
     bdry = face_group(b_rows, ft.poly_in[b_rows]) if b_rows.size else None
@@ -398,17 +531,25 @@ def build_banded_groups(ah: AgglomerationHandler, offsets: np.ndarray,
     # volume: padded cells per polytope, entity-last
     members = ah.poly2cells  # [P, Cc]
     maskc = members >= 0
-    s = np.maximum(members, 0).reshape(-1)
+    safe_v = np.maximum(members, 0)
     Cc = members.shape[1]
-    upts = ah.cell_qpoints_unit[s].reshape(
-        P, Cc, *ah.cell_qpoints_unit.shape[1:])
-    upts = np.where(maskc[:, :, None, None], upts, 0.5)
-    wv = ah.cell_qweights[s].reshape(P, Cc, -1)
-    wv = np.where(maskc[:, :, None], wv, 0.0)
-    vol = dict(pts=put(np.transpose(upts, (1, 2, 3, 0))),
-               w=put(np.transpose(wv, (1, 2, 0))))
+
+    def bv_pts(idx):
+        s, m = safe_v[idx], maskc[idx]
+        upts = ah.cell_qpoints_unit[s.reshape(-1)].reshape(
+            len(idx), Cc, *ah.cell_qpoints_unit.shape[1:])
+        upts = np.where(m[:, :, None, None], upts, 0.5)
+        return np.transpose(upts, (1, 2, 3, 0))
+
+    def bv_w(idx):
+        s, m = safe_v[idx], maskc[idx]
+        wv = ah.cell_qweights[s.reshape(-1)].reshape(len(idx), Cc, -1)
+        return np.transpose(np.where(m[:, :, None], wv, 0.0), (1, 2, 0))
+
+    vol = dict(pts=put(bv_pts, 0.5, own), w=put(bv_w, 0.0, own))
     return dict(groups=groups, bdry=bdry, vol=vol,
-                ext_t=put(ah.extents.T), lo_t=put(ah.bbox_lo.T))
+                ext_t=put(ext_of, 1.0, own),  # [dim, L]
+                lo_t=put(lo_of, 0.0, own))
 
 
 def assemble_rhs_direct(ah: AgglomerationHandler, tables: dict, f_fn,
@@ -479,6 +620,59 @@ def _emit_packed(pieces, offsets, plan, oid) -> BlockPacked:
                        oid=oid, plan=plan)
 
 
+def banded_pieces(ah: AgglomerationHandler, tables: dict, offsets,
+                  penalty_constant: float | None = None) -> list:
+    """The band of :func:`assemble_sipg_banded_direct` as one [nb, nb, L]
+    block row a band offset (in ``offsets``' order), before it is laid
+    out: K3-K5, sums over the padded slots and lane rolls; over a slab's
+    tables, its own lanes [lo, hi) only, each face group's blocks put onto
+    them by its ``keep`` and ``give`` lane maps."""
+    if penalty_constant is None:
+        penalty_constant = default_penalty_constant(ah.degree, ah.dim)
+    nb, deg, dim = ah.n_basis, ah.degree, ah.dim
+    offsets = np.asarray(offsets, dtype=np.int64)
+    ext_t = tables["ext_t"]  # [dim, P]
+    lo_t = tables["lo_t"]  # [dim, P]
+    P = ext_t.shape[1]  # the level's lanes, or a slab's own
+
+    diag = volume_blocks(tables["vol"], ext_t, deg, dim).reshape(nb, nb, P)
+    rows = {int(o): None for o in offsets}
+    for o, g in tables["groups"].items():
+        if "k" in g:  # a slab's group, on its own lanes
+            m11, m12, m21, m22 = (
+                m.reshape(nb, nb, -1) for m in face_group_blocks(
+                    g, g["ext"], g["lo"], g["k"], deg, dim,
+                    penalty_constant))
+
+            def on_slab(m, lane_map):
+                pos, lanes = lane_map
+                out = m.new_zeros((nb, nb, P))
+                out[..., lanes] = m[..., pos]
+                return out
+
+            m11, m12 = on_slab(m11, g["keep"]), on_slab(m12, g["keep"])
+            m21r, m22r = on_slab(m21, g["give"]), on_slab(m22, g["give"])
+        else:
+            m11, m12, m21, m22 = (
+                m.reshape(nb, nb, P) for m in face_group_blocks(
+                    g, ext_t, lo_t, o, deg, dim, penalty_constant))
+            # m22 and m21 belong to poly_out = p + o: roll them onto its
+            # lane
+            m21r = torch.roll(m21, o, dims=-1)
+            m22r = torch.roll(m22, o, dims=-1)
+        diag = diag + m11 + m22r
+        rows[o] = m12 if rows[o] is None else rows[o] + m12
+        rows[-o] = m21r if rows[-o] is None else rows[-o] + m21r
+    if tables["bdry"] is not None:
+        diag = diag + boundary_blocks(tables["bdry"], ext_t, deg, dim,
+                                      penalty_constant).reshape(nb, nb, P)
+
+    zero = diag.new_zeros((nb, nb, P))
+    return [diag if o == 0 else (
+        rows[int(o)] if rows[int(o)] is not None else zero)
+        for o in offsets]
+
+
 def assemble_sipg_banded_direct(
     ah: AgglomerationHandler,
     tables: dict,
@@ -494,36 +688,19 @@ def assemble_sipg_banded_direct(
     follow the reference kernel (poly_utils.h:1870-1926); normals point
     outward from poly_in.  With ``pack_plan`` (a ``PackPlan`` over these
     offsets) and ``pack_oid`` (its [K, P] int32 slot table on the tables'
-    device) the result is emitted packed instead."""
-    if penalty_constant is None:
-        penalty_constant = default_penalty_constant(ah.degree, ah.dim)
-    P, nb, deg, dim = ah.n_poly, ah.n_basis, ah.degree, ah.dim
+    device) the result is emitted packed instead.
+
+    Over one lane slab's tables (``build_banded_groups(lanes=(lo, hi))``)
+    the kernels run on the lanes each table holds and the result holds the
+    lanes [lo, hi) only (``pack_oid`` then [K, hi - lo], the plan's oid
+    columns of those lanes): every block of those rows, columns anywhere
+    in the level."""
     offsets = np.asarray(offsets, dtype=np.int64)
-    ext_t = tables["ext_t"]  # [dim, P]
-    lo_t = tables["lo_t"]  # [dim, P]
-
-    diag = volume_blocks(tables["vol"], ext_t, deg, dim).reshape(nb, nb, P)
-    rows = {int(o): None for o in offsets}
-    for o, g in tables["groups"].items():
-        m11, m12, m21, m22 = (
-            m.reshape(nb, nb, P) for m in face_group_blocks(
-                g, ext_t, lo_t, o, deg, dim, penalty_constant))
-        # m22 and m21 belong to poly_out = p + o: roll them onto its lane
-        diag = diag + m11 + torch.roll(m22, o, dims=-1)
-        rows[o] = m12 if rows[o] is None else rows[o] + m12
-        m21r = torch.roll(m21, o, dims=-1)
-        rows[-o] = m21r if rows[-o] is None else rows[-o] + m21r
-    if tables["bdry"] is not None:
-        diag = diag + boundary_blocks(tables["bdry"], ext_t, deg, dim,
-                                      penalty_constant).reshape(nb, nb, P)
-
-    zero = diag.new_zeros((nb, nb, P))
-    pieces = [diag if o == 0 else (rows[int(o)] if rows[int(o)] is not None
-                                   else zero)
-              for o in offsets]
+    pieces = banded_pieces(ah, tables, offsets, penalty_constant)
     if pack_plan is not None:
         return _emit_packed(pieces, offsets, pack_plan, pack_oid)
-    return _emit_banded(pieces, offsets, nb, P, layout)
+    return _emit_banded(pieces, offsets, ah.n_basis, pieces[0].shape[-1],
+                        layout)
 
 
 def assemble_mass_banded_direct(ah: AgglomerationHandler, tables: dict,
@@ -541,3 +718,238 @@ def assemble_mass_banded_direct(ah: AgglomerationHandler, tables: dict,
         r = lo_t[None, None] + vol["pts"] * ext_t[None, None]
         w = w * coeff_fn(torch.movedim(r, 2, -1))
     return torch.einsum("cqip,cqjp,cqp->ijp", B, B, w)
+
+
+def transpose_tables(vol: VolumeTables, faces):
+    """Entity-LAST copies of the shape tables for the banded assembly over
+    them (:func:`assemble_sipg_banded_t`, :func:`assemble_sipg_banded_gather`):
+    [q, nb(, dim), entity].  Returns (vol_t, fi_t, fb_t, static): three
+    dicts of tensors and one of the host index arrays (cell2poly, poly_in,
+    poly_out, poly_b), with the JAX package's keys."""
+    fi, fb = faces
+
+    def t3(a):  # [F, q, i] -> [q, i, F]
+        return None if a is None else a.permute(1, 2, 0).contiguous()
+
+    def t4(a):  # [F, q, i, d] -> [q, i, d, F]
+        return None if a is None else a.permute(1, 2, 3, 0).contiguous()
+
+    def t2(a):  # [F, q] -> [q, F]
+        return None if a is None else a.T.contiguous()
+
+    vol_t = dict(B=t3(vol.B), G=t4(vol.G), w=t2(vol.w))
+    fi_t = dict(B0=t3(fi.B0), G0=t4(fi.G0), B1=t3(fi.B1), G1=t4(fi.G1),
+                w=t2(fi.w), n=t4(fi.n[:, :, None, :])[:, 0], h_f=fi.h_f)
+    fb_t = dict(B0=t3(fb.B0), G0=t4(fb.G0), w=t2(fb.w),
+                n=t4(fb.n[:, :, None, :])[:, 0], h_f=fb.h_f)
+    static = dict(cell2poly=vol.cell2poly, poly_in=fi.poly_in,
+                  poly_out=fi.poly_out, poly_b=fb.poly_in)
+    return vol_t, fi_t, fb_t, static
+
+
+def _entity_values_t(vol_t: dict, fi_t: dict, fb_t: dict, static: dict,
+                     penalty_constant: float) -> torch.Tensor:
+    """[E, nb, nb]: every entity's block over the entity-last tables, in
+    the stream order volume cells, m11, m12, m21, m22 faces, boundary
+    faces (the last only where ``static`` has any)."""
+    gamma_i = penalty_constant / fi_t["h_f"]  # [F]
+    gn0 = torch.einsum("qidf,qdf->qif", fi_t["G0"], fi_t["n"])
+    gn1 = torch.einsum("qidf,qdf->qif", fi_t["G1"], fi_t["n"])
+    w = fi_t["w"]
+    wg = w * gamma_i[None, :]
+
+    def blk(a, b, wgt):
+        return torch.einsum("qif,qjf,qf->fij", a, b, wgt)
+
+    B0, B1 = fi_t["B0"], fi_t["B1"]
+    vals = [torch.einsum("qidc,qjdc,qc->cij", vol_t["G"], vol_t["G"],
+                         vol_t["w"]),
+            -0.5 * blk(gn0, B0, w) - 0.5 * blk(B0, gn0, w) + blk(B0, B0, wg),
+            0.5 * blk(gn0, B1, w) - 0.5 * blk(B0, gn1, w) - blk(B0, B1, wg),
+            -0.5 * blk(gn1, B0, w) + 0.5 * blk(B1, gn0, w) - blk(B1, B0, wg),
+            0.5 * blk(gn1, B1, w) + 0.5 * blk(B1, gn1, w) + blk(B1, B1, wg)]
+    if static["poly_b"].shape[0]:
+        gamma_b = penalty_constant / fb_t["h_f"]
+        gnb = torch.einsum("qidf,qdf->qif", fb_t["G0"], fb_t["n"])
+        Bb, wb = fb_t["B0"], fb_t["w"]
+        vals.append(-blk(Bb, gnb, wb) - blk(gnb, Bb, wb)
+                    + blk(Bb, Bb, wb * gamma_b[None, :]))
+    return torch.cat(vals, dim=0)
+
+
+def _band_slots(static: dict, offsets: np.ndarray, P: int) -> np.ndarray:
+    """The band slot (offset index * P + lane) of every entity, in the
+    stream order of :func:`_entity_values_t`."""
+    pin = static["poly_in"].astype(np.int64)
+    pout = static["poly_out"].astype(np.int64)
+    o0 = int(np.searchsorted(offsets, 0))
+    slots = [o0 * P + static["cell2poly"].astype(np.int64),
+             o0 * P + pin,
+             np.searchsorted(offsets, pout - pin) * P + pin,
+             np.searchsorted(offsets, pin - pout) * P + pout,
+             o0 * P + pout]
+    if static["poly_b"].shape[0]:
+        slots.append(o0 * P + static["poly_b"].astype(np.int64))
+    return np.concatenate(slots)
+
+
+def _band_of_slots(vals: torch.Tensor, slots: np.ndarray,
+                   offsets: np.ndarray, P: int) -> BlockBanded:
+    """The band [n_off, nb, nb, P] of the entity blocks ``vals`` [E, nb,
+    nb] summed into their slots (one deterministic segment sum)."""
+    n_off = offsets.shape[0]
+    nb = vals.shape[-1]
+    band = segment_sum(vals, slots, n_off * P)  # [n_off * P, nb, nb]
+    data = band.reshape(n_off, P, nb, nb).permute(0, 2, 3, 1).contiguous()
+    return BlockBanded(data=data, offsets=offsets, n_block_cols=P)
+
+
+def assemble_sipg_banded_t(
+    ah: AgglomerationHandler,
+    vol_t: dict,
+    fi_t: dict,
+    fb_t: dict,
+    static: dict,
+    offsets: np.ndarray,
+    penalty_constant: float | None = None,
+) -> BlockBanded:
+    """Banded SIPG assembly over entity-last tables (see
+    :func:`transpose_tables`): every entity's block by einsums, summed into
+    its band slot by a deterministic segment sum."""
+    if penalty_constant is None:
+        penalty_constant = default_penalty_constant(ah.degree, ah.dim)
+    P = ah.n_poly
+    offsets = np.asarray(offsets, dtype=np.int64)
+    vals = _entity_values_t(vol_t, fi_t, fb_t, static, penalty_constant)
+    return _band_of_slots(vals, _band_slots(static, offsets, P), offsets, P)
+
+
+def banded_gather_maps(ah: AgglomerationHandler, static: dict,
+                       offsets: np.ndarray):
+    """Static reduction maps for the banded assembly: for each band offset
+    o, ``maps[o]`` = (idx [P, C_o] int64, mask [P, C_o] float64), the padded
+    list of the entities (in the stream order of
+    :func:`assemble_sipg_banded_t`: volume cells, m11, m12, m21, m22 faces,
+    boundary faces) whose block lands in slot (o, p).  A jax-free copy of
+    the JAX package's host function."""
+    P = ah.n_poly
+    pin = static["poly_in"].astype(np.int64)
+    pout = static["poly_out"].astype(np.int64)
+    offsets = np.asarray(offsets, dtype=np.int64)
+    o0 = int(np.searchsorted(offsets, 0))
+    n_fi = pin.shape[0]
+    n_c = static["cell2poly"].shape[0]
+    base_m11 = n_c
+    base_m12 = base_m11 + n_fi
+    base_m21 = base_m12 + n_fi
+    base_m22 = base_m21 + n_fi
+    base_b = base_m22 + n_fi
+
+    okey = [[] for _ in range(offsets.shape[0])]  # entity ids per offset
+    opoly = [[] for _ in range(offsets.shape[0])]
+
+    def put(o_idx, polys, base):
+        for oi in np.unique(o_idx):
+            m = o_idx == oi
+            okey[oi].append(np.where(m)[0] + base)
+            opoly[oi].append(polys[m])
+
+    put(np.full(n_c, o0), static["cell2poly"].astype(np.int64), 0)
+    put(np.full(n_fi, o0), pin, base_m11)
+    put(np.searchsorted(offsets, pout - pin), pin, base_m12)
+    put(np.searchsorted(offsets, pin - pout), pout, base_m21)
+    put(np.full(n_fi, o0), pout, base_m22)
+    if static["poly_b"].shape[0]:
+        pb = static["poly_b"].astype(np.int64)
+        put(np.full(pb.shape[0], o0), pb, base_b)
+
+    maps = []
+    for k in range(offsets.shape[0]):
+        if okey[k]:
+            ents = np.concatenate(okey[k])
+            pols = np.concatenate(opoly[k])
+            # group entity ids by target polytope; pad with entity 0 and
+            # a zero mask (members indexes into `ents`)
+            members, _ = padded_group_lists(pols, P)
+            mask = members >= 0
+            safe = ents[np.where(mask, members, 0)]
+            maps.append((safe, mask.astype(np.float64)))
+        else:
+            maps.append((np.zeros((P, 1), dtype=np.int64),
+                         np.zeros((P, 1))))
+    return maps
+
+
+def assemble_sipg_banded_gather(
+    ah: AgglomerationHandler,
+    vol_t: dict,
+    fi_t: dict,
+    fb_t: dict,
+    static: dict,
+    offsets: np.ndarray,
+    maps=None,
+    penalty_constant: float | None = None,
+) -> BlockBanded:
+    """Banded SIPG assembly, gather form: the blocks of
+    :func:`assemble_sipg_banded_t`, reduced into each band slot by the
+    static padded gathers and masked sums of :func:`banded_gather_maps`."""
+    if penalty_constant is None:
+        penalty_constant = default_penalty_constant(ah.degree, ah.dim)
+    P = ah.n_poly
+    offsets = np.asarray(offsets, dtype=np.int64)
+    if maps is None:
+        maps = banded_gather_maps(ah, static, offsets)
+    vals = _entity_values_t(vol_t, fi_t, fb_t, static, penalty_constant)
+    dev = vals.device
+    pieces = []
+    for idx, mask in maps:
+        g = vals[torch.as_tensor(idx.reshape(-1), device=dev)].reshape(
+            idx.shape + vals.shape[1:])  # [P, C, nb, nb]
+        m = torch.as_tensor(mask, dtype=vals.dtype, device=dev)
+        pieces.append(torch.einsum("pc,pcij->ijp", m, g))
+    return BlockBanded(data=torch.stack(pieces, dim=0), offsets=offsets,
+                       n_block_cols=P)
+
+
+def assemble_sipg_banded(
+    ah: AgglomerationHandler,
+    offsets: np.ndarray | None = None,
+    penalty_constant: float | None = None,
+    include_boundary: bool = True,
+    dtype=torch.float64,
+    vol: VolumeTables | None = None,
+    faces: tuple | None = None,
+    *,
+    device,
+) -> BlockBanded:
+    """The SIPG matrix straight in the banded layout [n_off, nb, nb, P]
+    from the standard tables, without a block-COO matrix: every entity's
+    block by einsums, summed into its band slot by a deterministic segment
+    sum.  ``offsets`` fixes the band (a superset may be passed); by
+    default it is the mesh's.  ``include_boundary=False`` drops the
+    boundary Nitsche terms."""
+    if penalty_constant is None:
+        penalty_constant = default_penalty_constant(ah.degree, ah.dim)
+    if vol is None:
+        vol = build_volume_tables(ah, dtype, device=device)
+    if faces is None:
+        faces = build_face_tables(ah, dtype, device=device)
+    fi, fb = faces
+    P = ah.n_poly
+    pin = fi.poly_in.astype(np.int64)
+    pout = fi.poly_out.astype(np.int64)
+    if offsets is None:
+        offsets = np.unique(np.concatenate([
+            pout - pin, pin - pout, np.zeros(1, dtype=np.int64)]))
+    offsets = np.asarray(offsets, dtype=np.int64)
+    static = dict(cell2poly=vol.cell2poly, poly_in=fi.poly_in,
+                  poly_out=fi.poly_out,
+                  poly_b=(fb.poly_in if include_boundary
+                          else fb.poly_in[:0]))
+    M11, M12, M21, M22 = _interior_blocks(fi, penalty_constant)
+    vals = [torch.einsum("cqid,cqjd,cq->cij", vol.G, vol.G, vol.w),
+            M11, M12, M21, M22]
+    if static["poly_b"].shape[0]:
+        vals.append(_boundary_block(fb, penalty_constant))
+    return _band_of_slots(torch.cat(vals, dim=0),
+                          _band_slots(static, offsets, P), offsets, P)

@@ -1,12 +1,12 @@
 """Carry the JAX package's objects, given as numpy arrays, into the port.
 
 The two packages share layouts on purpose: a block-COO matrix, its
-block-ELL form, a band, its i-major copy, a pack, the slot-padded assembly tables, the transfer embeddings, the
-monodomain state, a mixed operator's merged blocks, an SA-AMG
-hierarchy and a matrix-free operator's geometry are the same arrays in
-both.  These helpers build the
-port's objects from those arrays, so tests can run both packages on the
-same band and tables.
+block-ELL form, a band, its i-major copy, a pack, a row-sharded
+block-COO matrix, the slot-padded assembly tables, the transfer
+embeddings, the monodomain state, a mixed operator's merged blocks, an
+SA-AMG hierarchy and a matrix-free operator's geometry are the same arrays
+in both.  These helpers build the port's objects from those arrays, so
+tests can run both packages on the same band and tables.
 Nothing here imports jax: the caller converts with ``np.asarray``.
 """
 
@@ -25,6 +25,7 @@ from polydeal_tpu_torch.sparse import (
 )
 
 __all__ = ["block_matrix_from_arrays", "ell_from_arrays",
+           "sharded_matrix_from_arrays",
            "banded_from_arrays", "packed_from_arrays", "groups_from_arrays",
            "transfer_from_arrays", "monodomain_state_from_arrays",
            "mixed_operator_from_arrays", "amg_from_arrays",
@@ -45,6 +46,20 @@ def block_matrix_from_arrays(data, rows, cols, n_block_rows: int,
                        cols=np.asarray(cols, dtype=np.int64),
                        n_block_rows=int(n_block_rows),
                        n_block_cols=int(n_block_cols))
+
+
+def sharded_matrix_from_arrays(data, lrows, cols, rows_per_shard: int,
+                               n_rows_pad: int, n_dev: int, *, device):
+    """ShardedMatrix from a JAX ``ShardedMatrix``'s ``data`` [n_dev *
+    nnz_per, nb, nb], ``lrows`` and ``cols`` (every shard's, in shard
+    order) and its sizes."""
+    from polydeal_tpu_torch.parallel.sharding import ShardedMatrix
+
+    return ShardedMatrix(data=_t(data, device),
+                         lrows=np.asarray(lrows, dtype=np.int64),
+                         cols=np.asarray(cols, dtype=np.int64),
+                         rows_per_shard=int(rows_per_shard),
+                         n_rows_pad=int(n_rows_pad), n_dev=int(n_dev))
 
 
 def ell_from_arrays(data, cols, n_block_cols: int, *, device) -> BlockELL:

@@ -68,7 +68,8 @@ from polydeal_tpu_torch.solvers import multigrid
 from polydeal_tpu_torch.solvers.cg import CGResult
 from polydeal_tpu_torch.sparse import BlockPacked
 
-__all__ = ["Flagship", "setup_flagship", "solve_flagship"]
+__all__ = ["Flagship", "flagship_hierarchy", "setup_flagship",
+           "solve_flagship"]
 
 # the flagship configuration (bench.py's defaults)
 TRIM = 3  # extraction levels kept below the fine DG level
@@ -102,6 +103,31 @@ class Flagship:
         return [h.n_poly for h in self.handlers]
 
 
+def flagship_hierarchy(n: int = 64, degree: int = 1,
+                       hierarchy: str = "rtree", relabel: str | None = "lex"):
+    """(handlers, parents, grid_shapes) of the flagship's hierarchy on
+    ``hyper_cube(3, n)`` (host only): ``"rtree"`` trimmed to :data:`TRIM`
+    extraction levels, or ``"structured"``."""
+    mesh = hyper_cube(3, n)
+    if hierarchy == "structured":
+        if relabel != "lex":
+            raise ValueError("the structured hierarchy is numbered "
+                             f"lexicographically: relabel {relabel!r} is not "
+                             "'lex'")
+        return multigrid.build_structured_hierarchy(
+            mesh, n, degree=degree, coarsest_side=max(2, n >> TRIM))
+    if hierarchy == "rtree":
+        agg = RTreeAgglomerator.build(mesh.cell_centers())
+        lv0 = max(1, agg.n_levels - 1 - TRIM)
+        handlers, parents = multigrid.build_rtree_hierarchy(
+            mesh, agg, list(range(lv0, agg.n_levels - 1)), degree=degree,
+            relabel=relabel)
+        return handlers, parents, (
+            multigrid.detect_grid_shapes(handlers, parents) if relabel
+            else None)
+    raise ValueError(f"unknown hierarchy: {hierarchy!r}")
+
+
 def setup_flagship(
     n: int = 64,
     degree: int = 1,
@@ -129,33 +155,12 @@ def setup_flagship(
     first_use = _build.prepare_device(device)
     dim = 3
     t0 = time.perf_counter()
-    mesh = hyper_cube(dim, n)
-    if hierarchy == "structured":
-        if relabel != "lex":
-            raise ValueError("the structured hierarchy is numbered "
-                             f"lexicographically: relabel {relabel!r} is not "
-                             "'lex'")
-        handlers, parents, grid_shapes = (
-            multigrid.build_structured_hierarchy(
-                mesh, n, degree=degree, coarsest_side=max(2, n >> TRIM)))
-    elif hierarchy == "rtree":
-        agg = RTreeAgglomerator.build(mesh.cell_centers())
-        lv0 = max(1, agg.n_levels - 1 - TRIM)
-        handlers, parents = multigrid.build_rtree_hierarchy(
-            mesh, agg, list(range(lv0, agg.n_levels - 1)), degree=degree,
-            relabel=relabel)
-        grid_shapes = (multigrid.detect_grid_shapes(handlers, parents)
-                       if relabel else None)
-    else:
-        raise ValueError(f"unknown hierarchy: {hierarchy!r}")
+    handlers, parents, grid_shapes = flagship_hierarchy(n, degree, hierarchy,
+                                                        relabel)
     ah = handlers[-1]
     t_hier = time.perf_counter() - t0
 
-    ft = ah.faces
-    interior = ~ft.is_boundary
-    diffs = (ft.poly_out - ft.poly_in)[interior].astype(np.int64)
-    band_offsets = np.unique(np.concatenate(
-        [diffs, -diffs, np.zeros(1, dtype=np.int64)]))
+    band_offsets = multigrid.band_offsets(ah)
     if relabel == "lex" and len(band_offsets) > 2 * dim + 3:
         raise RuntimeError("the lex relabel should give a narrow band, not "
                            f"{len(band_offsets)} offsets")

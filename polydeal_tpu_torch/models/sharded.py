@@ -11,9 +11,23 @@ solutions.  ``bench_sharded`` runs it on one device; here any number of
 ranks can, each building the same problem from the same deterministic
 host code.
 
+:func:`setup_local` builds each rank's share shard-locally
+(``ShardedBandedSystem.setup_local``: only its lane slabs of the sharded
+levels, their tables and bands through K3-K5 one slab at a time) instead of
+from the whole system.  :func:`dryrun` is the counterpart of the repo's
+``__graft_entry__.dryrun_multichip``: the R-tree hierarchy on
+``hyper_cube(2, 16)`` at p=1 in f64 with a packed fine level (a far
+block-COO tail once a slab is narrower than its offsets), sharded and held
+to the host solve, then the flat block-COO ``ShardedSystem`` on the 2D
+n=8 problem.
+
 Usage, one GPU per rank (rank r on ``cuda:r``) or CPU processes::
 
     python -m polydeal_tpu_torch.models.sharded --nproc 4 --device cpu --n 8
+    python -m polydeal_tpu_torch.models.sharded --nproc 4 --device cpu --n 8 \
+        --local
+    python -m polydeal_tpu_torch.models.sharded --nproc 4 --device cpu \
+        --dryrun
     python -m polydeal_tpu_torch.models.sharded --nproc 1
 
     group = init_group(rank, world, device=dev, store_path=path)
@@ -25,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import pickle
 import subprocess
@@ -34,13 +49,15 @@ from dataclasses import dataclass
 
 import torch
 
+from polydeal_tpu_torch.models import flagship
 from polydeal_tpu_torch.models.flagship import Flagship, setup_flagship
 from polydeal_tpu_torch.parallel.banded import ShardedBandedSystem
-from polydeal_tpu_torch.parallel.sharding import init_group
+from polydeal_tpu_torch.parallel.sharding import ShardedSystem, init_group
 from polydeal_tpu_torch.solvers import multigrid
 
-__all__ = ["Sharded", "share", "setup_sharded", "solve_sharded",
-           "level_meta", "max_offset", "min_ms", "run_case", "run_rank",
+__all__ = ["Sharded", "share", "setup_sharded", "setup_local",
+           "solve_sharded", "level_meta", "max_offset", "min_ms", "run_case",
+           "local_case", "flat_problem", "flat_case", "dryrun", "run_rank",
            "spawn"]
 
 REPS = 3  # warm timed solves, the least kept (bench_sharded's)
@@ -66,12 +83,53 @@ def setup_sharded(n: int = 64, degree: int = 1, *, device, group=None,
                   dtype=torch.float32, precond_dtype=torch.bfloat16,
                   hierarchy: str = "structured", relabel: str | None = "lex"
                   ) -> Sharded:
-    """The flagship system (``setup_flagship``, ``bench_sharded``'s
-    configuration by default), which every rank builds whole, and this
-    rank's share of its multigrid; the whole system is dropped."""
+    """This rank's share of the flagship system (``setup_flagship``,
+    ``bench_sharded``'s configuration by default), built whole by every
+    rank and then shared out (the whole system is dropped);
+    :func:`setup_local` builds it shard-locally."""
     return share(setup_flagship(n, degree, device=device, dtype=dtype,
                                 precond_dtype=precond_dtype,
                                 hierarchy=hierarchy, relabel=relabel), group)
+
+
+def _u_exact(x):
+    return torch.prod(torch.sin(math.pi * x), dim=-1)
+
+
+def _f_poisson(x):
+    return x.shape[-1] * math.pi**2 * _u_exact(x)
+
+
+def setup_local(n: int = 64, degree: int = 1, *, device, group=None,
+                dtype=torch.float32, precond_dtype=torch.bfloat16,
+                hierarchy: str = "structured", relabel: str | None = "lex"
+                ) -> Sharded:
+    """This rank's share of the flagship system built shard-locally: the
+    host hierarchy whole, then ``ShardedBandedSystem.setup_local`` with the
+    flagship's smoother and coarse solve (``setup_flagship``'s), and this
+    rank's part of the rhs from its slab tables (``b`` is then local)."""
+    _build_prepare(device)
+    handlers, parents, grid_shapes = flagship.flagship_hierarchy(
+        n, degree, hierarchy, relabel)
+    ss = ShardedBandedSystem.setup_local(
+        handlers, parents, group, device=device, grid_shapes=grid_shapes,
+        dtype=dtype, precond_dtype=precond_dtype,
+        chebyshev_degree=flagship.CHEBYSHEV_DEGREE,
+        n_smooth=flagship.N_SMOOTH,
+        smoothing_range=flagship.SMOOTHING_RANGE, coarse_solver="inv",
+        rhs=(_f_poisson, _u_exact))
+    return Sharded(ss, ss.b_local, handlers[-1].n_dofs,
+                   [h.n_poly for h in handlers])
+
+
+def _build_prepare(device) -> None:
+    """What setup_flagship does first on a device: TF32 off, the kernel
+    library loaded."""
+    from polydeal_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.prepare_device(device)
 
 
 def solve_sharded(sh: Sharded, rtol: float = 1e-8, maxiter: int = 100):
@@ -117,7 +175,15 @@ def run_case(case: dict, device, group) -> dict:
     every rank and, on rank 0 only, the unsharded no-FMG solve and V-cycle
     they are held to; with ``timed`` both solves are timed as ``bench_sharded``
     times them (least of ``REPS`` warm runs).  Rank 0 returns numbers and
-    host arrays, the other ranks their sharded numbers."""
+    host arrays, the other ranks their sharded numbers.  A case with
+    ``kind`` "local" runs :func:`local_case`, "dryrun" :func:`dryrun`,
+    "flat" :func:`flat_case`."""
+    if case.get("kind") == "local":
+        return local_case(case, device, group)
+    if case.get("kind") == "flat":
+        return flat_case(case, device, group)
+    if case.get("kind") == "dryrun":
+        return dryrun(device, group)
     saved = multigrid.PACK_MIN_P
     if case.get("pack_min_p") is not None:
         multigrid.PACK_MIN_P = case["pack_min_p"]
@@ -161,6 +227,198 @@ def run_case(case: dict, device, group) -> dict:
         out["unsharded_ms"] = min_ms(
             lambda: fs.mg.solve_cg(b, rtol=rtol, maxiter=100), device)
         out["ratio"] = out["sharded_ms"] / out["unsharded_ms"]
+    return out
+
+
+def _global_lanes(ss) -> list:
+    """(level index, key, shape) of every tensor of a sharded level's
+    params that has a dimension of the level's global lane count."""
+    bad = []
+    for li, (lv, pl_) in enumerate(zip(ss.levels, ss.params)):
+        P_l = lv.per * ss.n_dev
+        for key, t in pl_.items():
+            if torch.is_tensor(t) and P_l in t.shape:
+                bad.append((li, key, tuple(t.shape)))
+    return bad
+
+
+def local_case(case: dict, device, group) -> dict:
+    """The shard-local setup of the flagship system of ``case`` (keys as
+    :func:`run_case`'s) on every rank, held by the caller to
+    ``from_multigrid`` of the whole setup (which every rank also builds
+    here): both solves from zero, their eigenvalue estimates and fine
+    slabs, which of the local system's tensors have a dimension of their
+    level's global lane count (``global_lanes``; none may, beyond one
+    rank), and per sharded level the largest host table of its slab build
+    beside that of a whole-level build (``table_bytes``)."""
+    from polydeal_tpu_torch.assembly import sipg
+
+    saved = multigrid.PACK_MIN_P
+    if case.get("pack_min_p") is not None:
+        multigrid.PACK_MIN_P = case["pack_min_p"]
+    pdt = case.get("precond_dtype")
+    kw = dict(dtype=getattr(torch, case.get("dtype", "float32")),
+              precond_dtype=None if pdt is None else getattr(torch, pdt),
+              hierarchy=case.get("hierarchy", "structured"),
+              relabel=case.get("relabel", "lex"))
+    try:
+        sl = setup_local(case["n"], device=device, group=group, **kw)
+        sg = share(setup_flagship(case["n"], device=device, **kw), group)
+    finally:
+        multigrid.PACK_MIN_P = saved
+    rtol = case.get("rtol", 1e-8)
+    ss, gs = sl.ss, sg.ss
+    x, k, res = ss.solve_cg(sl.b, rtol=rtol, maxiter=100)
+    xg, kg, resg = gs.solve_cg(sg.b, rtol=rtol, maxiter=100)
+    fine = ss.params[-1]
+    handlers, _, _ = flagship.flagship_hierarchy(
+        case["n"], 1, kw["hierarchy"], kw["relabel"])
+    whole = []
+    for h in handlers[len(handlers) - len(ss.levels):]:
+        sipg.build_banded_groups(h, multigrid.band_offsets(h), kw["dtype"],
+                                 device=device)
+        whole.append(sipg.last_setup_stats["max_host_slab_bytes"])
+    return dict(
+        n_dev=ss.n_dev, meta=level_meta(ss), meta_global=level_meta(gs),
+        iterations=k, iterations_global=kg, residual=res,
+        bnorm=float(sg.b.norm()), max_abs_diff=float((x - xg).abs().max()),
+        x=x.cpu().numpy(),
+        lam_rel=[abs(a.hi - b.hi) / b.hi for a, b in zip(ss.levels,
+                                                         gs.levels)],
+        b_diff=float((ss._local(sl.b) - gs._local(sg.b)).abs().max()),
+        slabs_equal=[all(torch.equal(a[key], b[key]) for key in b
+                         if torch.is_tensor(b[key]) and key != "dinv")
+                     for a, b in zip(ss.params, gs.params)],
+        dinv_diff=max(float((a["dinv"] - b["dinv"]).abs().max())
+                      for a, b in zip(ss.params, gs.params)),
+        fine_data_i=fine["data_i"].cpu().numpy(),
+        global_lanes=_global_lanes(ss), rep_levels=ss.rep_mg.n_levels,
+        table_bytes=[(st["max_host_slab_bytes"], w)
+                     for st, w in zip(ss.setup_stats, whole)])
+
+
+def flat_problem(n: int, degree: int = 1, *, device, dtype=torch.float64,
+                 **mg_kw):
+    """(fine handler, A, b, mg): the 2D Poisson problem on the R-tree
+    hierarchy of ``hyper_cube(2, n)`` (every extraction level), table
+    assembly, R3MG over block-COO levels (``build_multigrid``'s defaults,
+    ``mg_kw`` on top): the JAX package's ``tests/test_sharding.py``
+    ``setup_problem``."""
+    from polydeal_tpu_torch.agglomeration import RTreeAgglomerator
+    from polydeal_tpu_torch.assembly.sipg import (assemble_rhs,
+                                                  assemble_sipg_matrix)
+    from polydeal_tpu_torch.mesh import hyper_cube
+
+    m0 = hyper_cube(2, n)
+    agg = RTreeAgglomerator.build(m0.cell_centers())
+    handlers, parents = multigrid.build_rtree_hierarchy(
+        m0, agg, list(range(1, agg.n_levels - 1)) or [1], degree=degree)
+    hf = handlers[-1]
+    A = assemble_sipg_matrix(hf, dtype=dtype, device=device)
+    b = assemble_rhs(hf, _f_poisson, _u_exact, dtype=dtype, device=device)
+    mg = multigrid.build_multigrid(handlers, parents, A, dtype=dtype,
+                                   device=device, **mg_kw)
+    return hf, A, b, mg
+
+
+def flat_case(case: dict, device, group) -> dict:
+    """:func:`flat_problem` (case keys n, and optionally chebyshev_degree
+    and n_smooth) through the flat block-COO ``ShardedSystem`` over
+    ``group`` (keys rtol, maxiter, precondition), beside the same solve on
+    the host: MG-CG, or CG with no preconditioner.  Returns both solutions
+    and iteration counts, the fine level's halo metadata and the L2 error
+    of the sharded solution."""
+    from polydeal_tpu_torch.postprocess import compute_global_error
+    from polydeal_tpu_torch.solvers.cg import cg_solve
+
+    mg_kw = {k: case[k] for k in ("chebyshev_degree", "n_smooth")
+             if k in case}
+    hf, A, b, mg = flat_problem(case["n"], device=device, **mg_kw)
+    rtol, maxiter = case.get("rtol", 1e-9), case.get("maxiter", 100)
+    pre = case.get("precondition", True)
+    ss = ShardedSystem.from_multigrid(mg, group)
+    x, k, res = ss.solve_cg(b, rtol=rtol, maxiter=maxiter, precondition=pre)
+    host = (mg.solve_cg(b, rtol=rtol, maxiter=maxiter) if pre
+            else cg_solve(A.matvec, b, rtol=rtol, maxiter=maxiter))
+    fine = ss.levels[-1]
+    return dict(n_dev=ss.n_dev, iterations=k, residual=res,
+                x=x.cpu().numpy(), host_iterations=host.iterations,
+                x_host=host.x.cpu().numpy(),
+                fine=dict(rows_per_shard=fine.rows_per_shard,
+                          n_rows_pad=fine.n_rows_pad, deltas=fine.deltas,
+                          n_sends=fine.n_sends,
+                          nested_transfer=fine.nested_transfer),
+                l2=float(compute_global_error(hf, x, _u_exact)[0]))
+
+
+def dryrun(device, group) -> dict:
+    """The counterpart of ``__graft_entry__.dryrun_multichip`` on this
+    rank: the R-tree hierarchy on ``hyper_cube(2, 16)``, p=1, f64, banded
+    level assembly, every level of a multiple of 128 polytopes packed with
+    ``pack_near_limit=max(per // 2, 4)`` (per: the fine lanes a rank), the
+    packed fine level sharded over ``group`` and held to the host solve
+    (rtol 1e-8: the same iterations, x within 1e-9, the residual at most
+    1e-8 |b|); then the flat block-COO ``ShardedSystem`` on the 2D n=8
+    problem (f32, table assembly) at rtol 1e-6 (the same iterations, x
+    within 1e-4).  Raises on a failed hold; returns the numbers, with
+    ``comm_bytes_per_spmv(8)``."""
+    from polydeal_tpu_torch.agglomeration import RTreeAgglomerator
+    from polydeal_tpu_torch.assembly.sipg import (
+        assemble_rhs,
+        assemble_sipg_banded_direct,
+        build_banded_groups,
+    )
+    from polydeal_tpu_torch.mesh import hyper_cube
+    from polydeal_tpu_torch.sparse import BlockPacked
+
+    _build_prepare(device)
+    n_dev = 1 if group is None else torch.distributed.get_world_size(group)
+    f64 = torch.float64
+    mesh = hyper_cube(2, 16)
+    agg = RTreeAgglomerator.build(mesh.cell_centers())
+    handlers, parents = multigrid.build_rtree_hierarchy(
+        mesh, agg, list(range(1, agg.n_levels - 1)), degree=1)
+    ah = handlers[-1]
+    offs = multigrid.band_offsets(ah)
+    groups = build_banded_groups(ah, offs, f64, device=device)
+    A = assemble_sipg_banded_direct(ah, groups, offs)
+    del groups
+    b = assemble_rhs(ah, _f_poisson, _u_exact, dtype=f64, device=device)
+    per = ah.n_poly // n_dev
+    mg = multigrid.build_multigrid(
+        handlers, parents, A, dtype=f64, level_assembly="banded", pack=True,
+        pack_near_limit=max(per // 2, 4), device=device)
+    fine = mg.ells[-1]
+    if not isinstance(fine, BlockPacked):
+        raise RuntimeError("dryrun: the fine level is not packed")
+    host = mg.solve_cg(b, rtol=1e-8, maxiter=60)
+    ss = ShardedBandedSystem.from_multigrid(mg, group)
+    x, iters, res = ss.solve_cg(b, rtol=1e-8, maxiter=60)
+    diff = float((x - host.x).abs().max())
+    bnorm = float(b.norm())
+    out = dict(n_dev=n_dev, levels=[h.n_poly for h in handlers],
+               fine_has_far=fine._has_far(), meta=level_meta(ss),
+               iterations=iters, host_iterations=host.iterations,
+               max_abs_diff=diff, residual=res, bnorm=bnorm,
+               comm=ss.comm_bytes_per_spmv(dtype_bytes=8))
+    if iters != host.iterations or not diff <= 1e-9 or not (
+            res <= 1e-8 * bnorm):
+        raise RuntimeError(f"dryrun: the sharded packed solve misses the "
+                           f"host solve: {out}")
+
+    # the flat block-COO path (the JAX dryrun's _build_problem(2, 8, 1):
+    # table assembly, f32)
+    _, _, b2, mg2 = flat_problem(8, device=device, dtype=torch.float32)
+    ss2 = ShardedSystem.from_multigrid(mg2, group)
+    x2, it2, _ = ss2.solve_cg(b2, rtol=1e-6, maxiter=40)
+    r2 = mg2.solve_cg(b2, rtol=1e-6, maxiter=40)
+    diff2 = float((x2 - r2.x).abs().max())
+    out.update(flat_iterations=it2, flat_host_iterations=r2.iterations,
+               flat_max_abs_diff=diff2,
+               flat_halo_rows=sum(ss2.levels[-1].n_sends))
+    if it2 != r2.iterations or not diff2 <= 1e-4:
+        raise RuntimeError(f"dryrun: the flat sharded solve misses the host "
+                           f"solve: {out}")
     return out
 
 
@@ -221,6 +479,12 @@ def main(argv=None) -> int:
     ap.add_argument("--relabel", choices=("lex", "none"), default="lex",
                     help="the rtree hierarchy's numbering (none: packed "
                          "levels)")
+    ap.add_argument("--local", action="store_true",
+                    help="build each rank's share shard-locally and hold it "
+                         "to the share of the whole setup")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="the multi-rank dry run (2D packed R-tree f64 and "
+                         "the flat block-COO solve) instead")
     args = ap.parse_args(argv)
     if args.device == "cuda" and torch.cuda.device_count() < args.nproc:
         raise SystemExit(f"sharded: {args.nproc} ranks need {args.nproc} "
@@ -229,10 +493,21 @@ def main(argv=None) -> int:
                 relabel=None if args.relabel == "none" else "lex",
                 dtype="float32", precond_dtype="bfloat16", rtol=1e-8,
                 timed=True)
-    (r,) = spawn(args.nproc, [case], device=args.device, timeout=3000.0)
     keep = ("n_dofs", "levels", "n_dev", "meta", "comm", "iterations",
             "unsharded_iterations", "residual", "bnorm", "max_abs_diff",
             "unsharded_ms", "sharded_ms", "ratio")
+    if args.dryrun:
+        case = dict(kind="dryrun")
+        keep = ("n_dev", "levels", "fine_has_far", "meta", "iterations",
+                "host_iterations", "max_abs_diff", "residual", "bnorm",
+                "comm", "flat_iterations", "flat_host_iterations",
+                "flat_max_abs_diff", "flat_halo_rows")
+    elif args.local:
+        case = dict(case, kind="local")
+        keep = ("n_dev", "meta", "iterations", "iterations_global",
+                "residual", "bnorm", "max_abs_diff", "lam_rel", "b_diff",
+                "slabs_equal", "global_lanes", "rep_levels", "table_bytes")
+    (r,) = spawn(args.nproc, [case], device=args.device, timeout=3000.0)
     out = {k: r[k] for k in keep if k in r}
     out["device"] = "cpu"
     if args.device == "cuda":

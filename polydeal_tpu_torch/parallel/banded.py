@@ -39,10 +39,26 @@ and K6 halo reads bf16 x_ext), as the port's ``Multigrid._cycle`` does, so
 the sharded and unsharded preconditioners match; CG runs on the
 full-precision band.
 
+Two setups give the same system.
+:meth:`ShardedBandedSystem.from_multigrid` takes a whole ``Multigrid`` that
+every rank has built; :meth:`ShardedBandedSystem.setup_local` builds on
+each rank only its slabs of the sharded levels (the counterpart of
+the JAX package's ``build_multigrid(device_mesh=)``): their tables and
+bands one lane slab at a time through K3-K5
+(``assembly.sipg.build_banded_groups(lanes=)``), their Jacobi diagonals,
+transfer blocks and smoother copies, and their eigenvalue estimates by a
+sharded power iteration; no rank holds a tensor of a sharded level with
+the level's lane count.  Handlers stay global on the host, and the
+replicated bottom is a whole ``Multigrid`` on every rank, as in the JAX
+package.  Which levels are sharded is decided by one rule
+(:func:`_sharded_prefix`) from host metadata before any assembly.
+
 Usage (every rank)::
 
     group = init_group(rank, world, device=dev, store_path=path)
     ss = ShardedBandedSystem.from_multigrid(mg, group)
+    ss = ShardedBandedSystem.setup_local(handlers, parents, group,
+                                         device=dev, grid_shapes=gs)
     x, iters, res = ss.solve_cg(b)
 """
 
@@ -54,6 +70,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from polydeal_tpu_torch.assembly.sipg import (
+    assemble_rhs_direct,
+    assemble_sipg_banded_direct,
+    banded_pieces,
+    build_banded_groups,
+    last_setup_stats,
+)
 from polydeal_tpu_torch.ops.banded import banded_matvec_t_halo, imajor_band
 from polydeal_tpu_torch.ops.fused_cheb import (
     banded_cheb_step_t_halo,
@@ -66,11 +89,26 @@ from polydeal_tpu_torch.ops.packed import (
     packed_band,
     packed_matvec_t_halo,
 )
-from polydeal_tpu_torch.parallel.sharding import build_halo_exchange
+from polydeal_tpu_torch.parallel.sharding import build_halo_exchange, exchange
 from polydeal_tpu_torch.solvers.cg import cg_solve
 from polydeal_tpu_torch.solvers.chebyshev import ChebyshevSmoother
-from polydeal_tpu_torch.solvers.multigrid import Multigrid, promote_to
-from polydeal_tpu_torch.sparse import BlockBanded, BlockPacked
+from polydeal_tpu_torch.solvers.multigrid import (
+    Multigrid,
+    _schedule,
+    band_offsets,
+    banded_direct_levels,
+    build_embedding,
+    level_pack,
+    level_transfers,
+    promote_to,
+    uniform_children,
+)
+from polydeal_tpu_torch.sparse import (
+    BlockBanded,
+    BlockPacked,
+    far_blocks,
+    pack_blocks,
+)
 
 __all__ = ["ShardedBandedSystem"]
 
@@ -163,6 +201,50 @@ def _check_edge_blocks(ell) -> None:
             "column leaves [0, P): the ring halo would read the other end")
 
 
+def _sharded_prefix(n_lv: int, n_dev: int, min_sharded_lanes: int,
+                    lanes_of, tile_of, transfer_of) -> list:
+    """The sharded levels, coarsest first: from the finest down while a
+    level is banded or packed (``lanes_of(l)`` its lane count, None
+    otherwise), its lanes divide into ``n_dev`` slabs of at least
+    ``min_sharded_lanes`` / n_dev lanes, its halo width ``tile_of(l,
+    per)`` (None when it exceeds the slab) fits, and the transfer into it
+    (``transfer_of(l)``: its uniform child count and grid shape) coarsens
+    inside a slab.  Level 0 is never sharded."""
+    sharded = []
+    for l in range(n_lv - 1, 0, -1):
+        P_l = lanes_of(l)
+        if P_l is None or P_l % n_dev != 0 or P_l < min_sharded_lanes:
+            break
+        per = P_l // n_dev
+        if tile_of(l, per) is None:
+            break
+        C, grid_shape = transfer_of(l)
+        if C:
+            if per % C != 0:
+                break
+        elif grid_shape is not None:
+            # the local fine grid (g0/n, g1, ...) must coarsen in-shard
+            if grid_shape[0] % (2 * n_dev) != 0:
+                break
+        else:
+            break  # general transfer: not localizable
+        sharded.append(l)
+    return sharded[::-1]
+
+
+def _repacked_plan(h, pp, per: int):
+    """(plan, oid, far_rows, far_cols) of a packed level for slabs of
+    ``per`` lanes: the plan as it is when it reaches no further than a
+    slab, else the sparsity repacked with a near/far split at ``per`` (as
+    :func:`_shard_ready` repacks a pack), from the face table."""
+    if max(abs(o) for o in pp[0].offsets) <= per:
+        return pp
+    ft = h.faces
+    interior = ~ft.is_boundary
+    return build_pack_plan(ft.poly_in[interior], ft.poly_out[interior],
+                           h.n_poly, h.n_basis, near_limit=per)
+
+
 class ShardedBandedSystem:
     """SPMD MG-CG over banded/packed levels, one rank per shard (see the
     module docstring)."""
@@ -180,6 +262,10 @@ class ShardedBandedSystem:
         # the V-cycle's vector dtype (None: the operator's): the smoothing
         # vectors, and so the halo exchanges, run in it
         self.lo_vec = lo_vec
+        # this rank's part of the fine rhs, and what each sharded level's
+        # slab build made, where setup_local built the system
+        self.b_local = None
+        self.setup_stats = None
 
     # ------------------------------------------------------------------
     @classmethod
@@ -198,30 +284,23 @@ class ShardedBandedSystem:
 
         # the sharded prefix (finest downward); packs whose plans reach
         # beyond a shard are repacked for the halo on the fly
-        ready, sharded = {}, []
-        for l in range(mg.n_levels - 1, 0, -1):
+        ready = {}
+
+        def lanes_of(l):
             ell = mg.ells[l]
-            if not isinstance(ell, (BlockBanded, BlockPacked)):
-                break
-            P_l = ell.n_block_rows
-            if P_l % n_dev != 0 or P_l < min_sharded_lanes:
-                break
-            per = P_l // n_dev
-            ell = ready[l] = _shard_ready(ell, per)
-            if _tile_for(ell, per) is None:
-                break
+            return (ell.n_block_rows
+                    if isinstance(ell, (BlockBanded, BlockPacked)) else None)
+
+        def tile_of(l, per):
+            ready[l] = _shard_ready(mg.ells[l], per)
+            return _tile_for(ready[l], per)
+
+        def transfer_of(l):
             t = mg.transfers[l - 1]
-            if t._uniform_C:
-                if per % t._uniform_C != 0:
-                    break
-            elif t.grid_shape is not None:
-                # the local fine grid (g0/n, g1, ...) must coarsen in-shard
-                if t.grid_shape[0] % (2 * n_dev) != 0:
-                    break
-            else:
-                break  # general transfer: not localizable
-            sharded.append(l)
-        sharded = sharded[::-1]  # coarsest-sharded .. finest
+            return t._uniform_C, t.grid_shape
+
+        sharded = _sharded_prefix(mg.n_levels, n_dev, min_sharded_lanes,
+                                  lanes_of, tile_of, transfer_of)
         if not sharded:
             raise ValueError(
                 "no level is shardable over this group (need banded/packed "
@@ -248,7 +327,11 @@ class ShardedBandedSystem:
                 pl_["oid"] = ell.oid[:, lanes].contiguous()
                 if ell._has_far():
                     lv.has_far = True
-                    cls._build_far(lv, pl_, ell, per, n_dev, rank)
+                    cls._build_far(lv, pl_, np.asarray(ell.far_rows),
+                                   np.asarray(ell.far_cols),
+                                   lambda idx: ell.far_data[torch.as_tensor(
+                                       idx, device=ell.far_data.device)],
+                                   per, n_dev, rank)
             else:
                 lv.offsets = tuple(int(o) for o in ell.offsets)
                 pl_["data_i"] = (
@@ -303,14 +386,14 @@ class ShardedBandedSystem:
                            else None))
 
     @staticmethod
-    def _build_far(lv: _SLevel, pl_: dict, ell: BlockPacked, per: int,
-                   n_dev: int, rank: int):
-        """This rank's rows of the far block-COO tail (split by row owner,
-        zero-padded to the largest share) and its halo send lists for the
-        remote columns; every rank computes every shard's lists, so that
-        the exchange pairs up."""
-        rows = np.asarray(ell.far_rows)
-        cols = np.asarray(ell.far_cols)
+    def _build_far(lv: _SLevel, pl_: dict, rows: np.ndarray, cols: np.ndarray,
+                   blocks_of, per: int, n_dev: int, rank: int):
+        """This rank's rows of the far block-COO tail (``rows``/``cols``
+        global, split by row owner and zero-padded to the largest share;
+        ``blocks_of(idx)`` gives the blocks of the tail entries ``idx``,
+        which are this rank's) and its halo send lists for the remote
+        columns; every rank computes every shard's lists, so that the
+        exchange pairs up."""
         owner = rows // per
         counts = np.bincount(owner, minlength=n_dev)
         nnz_per = max(int(counts.max()), 1)
@@ -325,10 +408,11 @@ class ShardedBandedSystem:
         remap, deltas, n_sends, sends = build_halo_exchange(fcols, per, n_dev)
         lv.deltas, lv.n_sends = deltas, n_sends
         lv.nnz_far_per = nnz_per
-        dev = ell.data_i.device
-        mine = torch.as_tensor(np.where(owner == rank)[0], device=dev)
-        fdata = ell.far_data.new_zeros((nnz_per,) + ell.far_data.shape[1:])
-        fdata[:mine.numel()] = ell.far_data[mine]
+        dev = pl_["data_i"].device
+        mine = np.where(owner == rank)[0]
+        fdata = pl_["data_i"].new_zeros((nnz_per, lv.nb, lv.nb))
+        if mine.size:
+            fdata[:mine.size] = blocks_of(mine)
         pl_["fdata"] = fdata
         pl_["flrows"] = torch.as_tensor(flrows[rank], device=dev)
         pl_["fcols"] = torch.as_tensor(remap[rank].astype(np.int64),
@@ -336,6 +420,172 @@ class ShardedBandedSystem:
         for t, send in enumerate(sends):
             pl_[f"fsend{t}"] = torch.as_tensor(send[rank].astype(np.int64),
                                                device=dev)
+
+    @classmethod
+    def setup_local(cls, handlers: list, parents: list, group=None, *,
+                    device, grid_shapes: list | None = None,
+                    dtype=torch.float64, precond_dtype=None,
+                    chebyshev_degree: int | tuple = 3,
+                    n_smooth: int | tuple = 5, smoothing_range: float = 20.0,
+                    coarse_solver: str = "lu", rhs=None
+                    ) -> "ShardedBandedSystem":
+        """This rank's share of the system that ``from_multigrid`` makes of
+        ``build_multigrid(handlers, parents, A_fine, level_assembly=
+        "banded", ...)`` with these arguments (the fine level assembled as
+        the coarser ones are), built shard-locally: the sharded levels
+        (chosen by the same rule, from the face tables, the pack plans and
+        the transfers' shapes) only as this rank's lane slabs -- tables and
+        bands through K3-K5 on the lanes the slab needs
+        (``build_banded_groups(lanes=)``; each level's ``last_setup_stats``
+        kept in ``setup_stats``), packs from the host plan's oid
+        columns of the slab, Jacobi diagonals, bf16 band copies where
+        ``precond_dtype`` asks for them, transfer blocks of the slab, and
+        each level's largest eigenvalue by a sharded power iteration from
+        the slice of ``Multigrid.setup``'s start vector.  The levels below
+        are a whole ``Multigrid`` on every rank.  ``rhs=(f_fn, g_fn)``
+        assembles this rank's part of the fine rhs on its slab tables
+        (kept as ``b_local``, flat)."""
+        n_dev = 1 if group is None else dist.get_world_size(group)
+        rank = 0 if group is None else dist.get_rank(group)
+        n_lv = len(handlers)
+        deg_s = _schedule(chebyshev_degree, n_lv, "chebyshev_degree")
+        ns_s = _schedule(n_smooth, n_lv, "n_smooth")
+        offs = [band_offsets(h) for h in handlers]
+        # the coarsest level stays banded (its direct solve needs to_dense)
+        packs = [None] + [level_pack(h, offs[l])
+                          for l, h in enumerate(handlers) if l > 0]
+        ready, tiles = {}, {}
+
+        def tile_of(l, per):
+            if packs[l] is None:
+                T = max(int(np.abs(offs[l]).max()) if offs[l].size else 1,
+                        1)
+            else:
+                ready[l] = _repacked_plan(handlers[l], packs[l], per)
+                T = max(abs(o) for o in ready[l][0].offsets)
+            tiles[l] = T if T <= per else None
+            return tiles[l]
+
+        def transfer_of(l):
+            return (uniform_children(parents[l - 1], handlers[l - 1].n_poly),
+                    None if grid_shapes is None else grid_shapes[l - 1])
+
+        sharded = _sharded_prefix(n_lv, n_dev, 4 * n_dev,
+                                  lambda l: handlers[l].n_poly, tile_of,
+                                  transfer_of)
+        if not sharded:
+            raise ValueError(
+                "no level is shardable over this group (need banded/packed "
+                "levels with n_dev-divisible lane counts)")
+        k0 = sharded[0]
+
+        levels, params, stats, b_local = [], [], [], None
+        for l in sharded:
+            h = handlers[l]
+            per = h.n_poly // n_dev
+            lanes = (rank * per, (rank + 1) * per)
+            C, gshape = transfer_of(l)
+            lv = _SLevel(kind="banded" if packs[l] is None else "packed",
+                         per=per, T=tiles[l], lo=0.0, hi=0.0,
+                         nb=h.n_basis, uniform_C=C, deg=(
+                             deg_s[l] if isinstance(deg_s, tuple)
+                             else deg_s),
+                         ns=ns_s[l] if isinstance(ns_s, tuple) else ns_s)
+            tables = build_banded_groups(h, offs[l], dtype, device=device,
+                                         lanes=lanes)
+            stats.append(dict(last_setup_stats))
+            if rhs is not None and l == n_lv - 1:
+                b_local = assemble_rhs_direct(h, tables, *rhs)
+            if lv.kind == "banded":
+                lv.offsets = tuple(int(o) for o in offs[l])
+                band = assemble_sipg_banded_direct(h, tables, offs[l],
+                                                   layout="imajor")
+                del tables
+                pl_ = {"offsets_t": band.offsets_t, "data_i": band.data_i}
+                diag_t = band.diagonal_t()
+            else:
+                pieces = banded_pieces(h, tables, offs[l])
+                del tables
+                by_off = {int(o): pc for o, pc in zip(offs[l], pieces)}
+                plan, oid, frows, fcols = ready[l]
+                lv.plan = plan
+                oid_loc = torch.as_tensor(
+                    np.ascontiguousarray(oid[:, lanes[0]:lanes[1]]),
+                    device=device)
+                pk = BlockPacked(pack_blocks(by_off.__getitem__, plan,
+                                             oid_loc), oid_loc, plan)
+                pl_ = {"offsets_t": pk.offsets_t, "data_i": pk.data_i,
+                       "oid": pk.oid}
+                diag_t = pk.diagonal_t()
+                if frows.size:
+                    lv.has_far = True
+                    cls._build_far(lv, pl_, frows, fcols, lambda idx: (
+                        far_blocks(by_off.__getitem__, frows[idx] - lanes[0],
+                                   fcols[idx] - lanes[0])),
+                        per, n_dev, rank)
+                del pieces, by_off
+            pl_["dinv"] = 1.0 / diag_t
+            if precond_dtype is not None and lv.kind == "banded" and (
+                    precond_dtype != pl_["data_i"].dtype):
+                pl_["lo_data_i"] = pl_["data_i"].to(precond_dtype)
+                lv.has_lo = True
+            # the transfer into this level, localized to the slab
+            if gshape is not None:
+                lv.grid_shape_loc = (gshape[0] // n_dev,) + tuple(gshape[1:])
+                lv.uniform_C = 0
+            pl_["Et"] = build_embedding(
+                handlers[l - 1], h, parents[l - 1], dtype=dtype,
+                device=device, lanes=lanes).permute(1, 2, 0).contiguous()
+            levels.append(lv)
+            params.append(pl_)
+
+        # the replicated bottom, built as build_multigrid builds it
+        mats = banded_direct_levels(handlers[:k0], dtype, device=device)
+        transfers = level_transfers(
+            handlers, parents,
+            [build_embedding(handlers[l], handlers[l + 1], parents[l],
+                             dtype=dtype, device=device)
+             for l in range(k0 - 1)], grid_shapes)
+
+        def bottom(v):
+            return v[:k0] if isinstance(v, tuple) else v
+
+        rep = Multigrid.setup(mats, transfers,
+                              chebyshev_degree=bottom(deg_s),
+                              n_smooth=bottom(ns_s),
+                              smoothing_range=smoothing_range,
+                              precond_dtype=precond_dtype,
+                              coarse_solver=coarse_solver)
+        ss = cls(group, levels, params, rep, nb=handlers[-1].n_basis,
+                 n_true_rows=handlers[-1].n_poly)
+        for li, lv in enumerate(levels):
+            lam = ss.lambda_max(li)
+            lv.lo, lv.hi = lam / smoothing_range, 1.2 * lam
+        ss.b_local, ss.setup_stats = b_local, stats
+        return ss
+
+    def lambda_max(self, li: int, iters: int = 25) -> float:
+        """The largest eigenvalue of D^-1 A on sharded level ``li`` (an
+        index into ``levels``) by the power iteration of
+        ``solvers/chebyshev.estimate_lambda_max``: its ``sin`` start vector
+        (this rank's slice of it) and iteration count, the products through
+        the slab's halo SpMV on the full-precision band, the norms and the
+        last dot all-reduced."""
+        lv, pl_ = self.levels[li], self.params[li]
+        dinv = pl_["dinv"]
+        k0 = self.rank * lv.per * lv.nb
+        v = torch.sin(torch.arange(k0 + 1, k0 + lv.per * lv.nb + 1,
+                                   dtype=dinv.dtype, device=dinv.device))
+        v = v.reshape(lv.per, lv.nb).T.contiguous()
+
+        def norm(u):
+            return torch.sqrt(self._dot(u, u))
+
+        v = v / norm(v)
+        for _ in range(iters):
+            w = dinv * self._matvec(lv, pl_, v)
+            v = w / norm(w)
+        return float(self._dot(v, dinv * self._matvec(lv, pl_, v)))
 
     # ------------------------------------------------------------------
     def comm_bytes_per_spmv(self, dtype_bytes: int = 4) -> list:
@@ -351,16 +601,6 @@ class ShardedBandedSystem:
         return out
 
     # ---- per-shard primitives (tensors below are this rank's slabs) ----
-    def _exchange(self, pairs) -> None:
-        """One batch of point-to-point transfers: (send tensor, destination
-        rank, receive tensor, source rank, tag) each."""
-        ops = []
-        for send, dst, recv, src, tag in pairs:
-            ops.append(dist.P2POp(dist.isend, send, dst, self.group, tag))
-            ops.append(dist.P2POp(dist.irecv, recv, src, self.group, tag))
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
-
     def _halo_x(self, lv: _SLevel, x_loc):
         """x_ext [nb, per + 2T]: the slab with its ring neighbours' T lanes
         on each side."""
@@ -372,7 +612,7 @@ class ShardedBandedSystem:
             r = self.rank
             lh = x_loc.new_empty((x_loc.shape[0], T))
             rh = x_loc.new_empty((x_loc.shape[0], T))
-            self._exchange([
+            exchange(self.group, [
                 (x_loc[:, per - T:].contiguous(), (r + 1) % n, lh,
                  (r - 1) % n, 0),
                 (x_loc[:, :T].contiguous(), (r - 1) % n, rh, (r + 1) % n,
@@ -422,8 +662,8 @@ class ShardedBandedSystem:
         for t, delta in enumerate(lv.deltas):
             buf = xb[pl_[f"fsend{t}"]].contiguous()
             recv = torch.empty_like(buf)
-            self._exchange([(buf, (r + delta) % n, recv, (r - delta) % n,
-                             t)])
+            exchange(self.group, [(buf, (r + delta) % n, recv,
+                                   (r - delta) % n, t)])
             segs.append(recv)
         xg = torch.cat(segs, dim=0)
         fdata = pl_["fdata"]

@@ -59,8 +59,13 @@ __all__ = [
     "build_structured_hierarchy",
     "MatrixFreeLevel",
     "Multigrid",
+    "band_offsets",
     "level_pack_plan",
+    "level_pack",
     "maybe_pack_level",
+    "uniform_children",
+    "banded_direct_levels",
+    "level_transfers",
     "build_multigrid",
     "build_field_block_multigrid",
 ]
@@ -89,10 +94,12 @@ def build_embedding(
     dtype=torch.float64,
     *,
     device,
+    lanes=None,
 ) -> torch.Tensor:
     """E [n_fine_poly, n_b, n_b]: coefficients of each coarse basis
     function expressed in the child's basis (exact polynomial embedding);
-    prolong: u_f[c] = E[c] @ u_c[parent[c]].
+    prolong: u_f[c] = E[c] @ u_c[parent[c]].  ``lanes=(lo, hi)``: the
+    blocks of fine polytopes [lo, hi) only (a shard's slab).
 
     The reference-cell mass matrix of the child basis is geometry-
     independent, so it is inverted once on the host in f64 (a batched
@@ -107,11 +114,12 @@ def build_embedding(
         return torch.as_tensor(a, dtype=dtype, device=device)
 
     pts, wts = dev(pts_np), dev(wts_np)
+    idx = np.arange(fine.n_poly) if lanes is None else np.arange(*lanes)
+    par = np.asarray(parent)[idx]
     # affine child-unit -> parent-unit map
-    s = dev(fine.extents[np.arange(fine.n_poly)]
-            / coarse.extents[parent])  # [Pf, dim]
-    o = dev((fine.bbox_lo - coarse.bbox_lo[parent])
-            / coarse.extents[parent])
+    s = dev(fine.extents[idx] / coarse.extents[par])  # [Pf, dim]
+    o = dev((fine.bbox_lo[idx] - coarse.bbox_lo[par])
+            / coarse.extents[par])
     parent_pts = o[:, None, :] + s[:, None, :] * pts[None, :, :]
 
     B_child = basis.eval(pts)  # [Q, nb]
@@ -132,6 +140,17 @@ def galerkin_coarsen(A_fine: BlockMatrix, E: torch.Tensor, parent: np.ndarray,
     data_c = torch.einsum("kia,kij,kjb->kab", E[r], A_fine.data, E[c])
     return BlockMatrix.from_blocks(parent[A_fine.rows], parent[A_fine.cols],
                                    data_c, n_coarse)
+
+
+def uniform_children(parent: np.ndarray, n_coarse: int) -> int:
+    """C when every coarse polytope has C contiguous children (parent ==
+    arange // C), else 0: the transfer's broadcast/reshape-sum path."""
+    parent = np.asarray(parent)
+    _, counts = padded_group_lists(parent, n_coarse)
+    C = int(counts[0]) if counts.size else 0
+    uniform = (C > 0 and (counts == C).all() and np.array_equal(
+        parent, np.arange(parent.shape[0]) // C))
+    return C if uniform else 0
 
 
 @dataclass
@@ -160,12 +179,10 @@ class Transfer:
 
     def __post_init__(self):
         parent = np.asarray(self.parent)
-        ch, counts = padded_group_lists(parent, self.n_coarse)
+        ch, _ = padded_group_lists(parent, self.n_coarse)
         self.children = ch
-        C = int(counts[0]) if counts.size else 0
-        uniform = (C > 0 and (counts == C).all() and np.array_equal(
-            parent, np.arange(parent.shape[0]) // C))
-        self._uniform_C = C if uniform else 0
+        self._uniform_C = uniform_children(parent, self.n_coarse)
+        uniform = self._uniform_C > 0
         self._Et = self.E.permute(1, 2, 0).contiguous()
         if not uniform and self.grid_shape is None:
             dev = self.E.device
@@ -749,39 +766,103 @@ class Multigrid:
                         maxiter=maxiter)
 
 
+def band_offsets(h: AgglomerationHandler) -> np.ndarray:
+    """The sorted band offsets of a level (poly_out - poly_in of its
+    interior faces, both signs, and 0), from its face table."""
+    ft = h.faces
+    interior = ~ft.is_boundary
+    diffs = (ft.poly_out - ft.poly_in)[interior].astype(np.int64)
+    return np.unique(np.concatenate([diffs, -diffs,
+                                     np.zeros(1, dtype=np.int64)]))
+
+
 def level_pack_plan(h: AgglomerationHandler, offsets):
-    """(plan, oid) of the level's packed format when it pays, else None;
-    the one rule for every level (the fine one included) on every device.
+    """(plan, oid) of the level's packed format when it pays (the rule of
+    :func:`level_pack` with ``pack=None``), else None."""
+    pp = level_pack(h, offsets)
+    return None if pp is None else pp[:2]
+
+
+def level_pack(h: AgglomerationHandler, offsets, pack: bool | None = None,
+               near_limit: int | None = None):
+    """(plan, oid, far_rows, far_cols) of the level's packed format when it
+    is to be packed, else None; the one rule for every level (the fine one
+    included) on every device.
 
     An ordering without the relabel gives ~6 dim band offsets while each
     lane touches <= 2 dim + 1, so the dense band streams ~n_off/K times
-    the data a product needs.  A level is packed when it has at least
-    :data:`PACK_MIN_P` polytopes, more than 2 dim + 3 offsets (checked
-    before any plan is built) and a plan of K + 2 < n_off slots.  The plan
-    colours every offset into the slots (``near_limit=-1``): the kernels
-    load x at any offset, so there is no far tail."""
+    the data a product needs.  With ``pack=None`` a level is packed when it
+    has at least :data:`PACK_MIN_P` polytopes, more than 2 dim + 3 offsets
+    (checked before any plan is built) and a plan of K + 2 < n_off slots.
+    ``pack=True`` packs every level whose polytope count is a multiple of
+    128 (the JAX package's forced rule), ``pack=False`` none.  The plan
+    colours every offset into the slots (``near_limit=None``: the kernels
+    load x at any offset, so there is no far tail); a ``near_limit`` splits
+    the offsets beyond it off into a far block-COO tail."""
     n_off = len(offsets)
-    if h.n_poly < PACK_MIN_P or n_off <= 2 * h.dim + 3:
+    if pack is False:
+        return None
+    if pack is None and (h.n_poly < PACK_MIN_P or n_off <= 2 * h.dim + 3):
+        return None
+    if pack and h.n_poly % 128 != 0:
         return None
     ft = h.faces
     interior = ~ft.is_boundary
-    plan, oid, _, _ = build_pack_plan(
+    plan, oid, frows, fcols = build_pack_plan(
         ft.poly_in[interior], ft.poly_out[interior], h.n_poly, h.n_basis,
-        offsets=offsets, near_limit=-1)
-    if plan.K + 2 >= n_off:
+        offsets=offsets, near_limit=-1 if near_limit is None else near_limit)
+    if pack is None and plan.K + 2 >= n_off:
         return None  # the lanes touch most offsets: the band is as tight
-    return plan, oid
+    return plan, oid, frows, fcols
 
 
-def maybe_pack_level(h: AgglomerationHandler, A):
+def maybe_pack_level(h: AgglomerationHandler, A, pack: bool | None = None,
+                     near_limit: int | None = None):
     """The level's band in the packed format (``sparse.BlockPacked``) where
     :func:`level_pack_plan` says so; anything else passes through."""
-    pp = (level_pack_plan(h, A.offsets) if isinstance(A, BlockBanded)
-          else None)
+    pp = (level_pack(h, A.offsets, pack, near_limit)
+          if isinstance(A, BlockBanded) else None)
     if pp is None:
         return A
-    plan, oid = pp
-    return A.to_packed(plan, torch.as_tensor(oid, device=A.data.device))
+    plan, oid, frows, fcols = pp
+    return A.to_packed(plan, torch.as_tensor(oid, device=A.data.device),
+                       frows if frows.size else None,
+                       fcols if fcols.size else None)
+
+
+def banded_direct_levels(handlers: list, dtype=torch.float64, *, device,
+                         pack: bool | None = None,
+                         pack_near_limit: int | None = None) -> list:
+    """The levels of ``handlers`` (coarsest first) assembled straight into
+    the band through K3-K5, every one but the coarsest through
+    :func:`maybe_pack_level` with ``pack`` and ``pack_near_limit``: the
+    coarse levels of :func:`build_multigrid` with
+    ``level_assembly='banded'``."""
+    from polydeal_tpu_torch.assembly.sipg import (
+        assemble_sipg_banded_direct,
+        build_banded_groups,
+    )
+
+    matrices = []
+    for li, h in enumerate(handlers):
+        offs = band_offsets(h)
+        groups = build_banded_groups(h, offs, dtype, device=device)
+        A_l = assemble_sipg_banded_direct(h, groups, offsets=offs)
+        del groups
+        # the coarsest level stays banded: its direct solve needs to_dense
+        matrices.append(A_l if li == 0 else maybe_pack_level(
+            h, A_l, pack, pack_near_limit))
+    return matrices
+
+
+def level_transfers(handlers: list, parents: list, Es: list,
+                    grid_shapes: list | None = None) -> list:
+    """The ``Transfer`` into each level from the one below, from the
+    embeddings ``Es`` (one a level pair, coarsest first)."""
+    return [Transfer(E=E, parent=parents[l], n_coarse=handlers[l].n_poly,
+                     grid_shape=None if grid_shapes is None
+                     else grid_shapes[l])
+            for l, E in enumerate(Es)]
 
 
 def build_multigrid(
@@ -799,6 +880,8 @@ def build_multigrid(
     level_assembly: str = "tables",
     coarse_solver: str = "lu",
     matfree_fine: bool = False,
+    pack: bool | None = None,
+    pack_near_limit: int | None = None,
     *,
     device,
 ) -> Multigrid:
@@ -817,15 +900,12 @@ def build_multigrid(
     BlockMatrix (``level_assembly='tables'``; ``A_fine`` a BlockMatrix,
     every level banded or block-ELL by ``Multigrid.setup``), or straight
     into the band through K3-K5 (``'banded'``; ``A_fine`` a band or pack,
-    every level but the coarsest through :func:`maybe_pack_level`, the
-    fine level's o-major copy dropped where it runs the kernels).
+    every level but the coarsest through :func:`maybe_pack_level` with
+    ``pack`` and ``pack_near_limit``, the fine level's o-major copy dropped
+    where it runs the kernels).
     ``mode='galerkin'`` coarsens the BlockMatrix ``A_fine`` algebraically,
     A_l = P^T A_{l+1} P (the reference's AmgProjector scheme)."""
-    from polydeal_tpu_torch.assembly.sipg import (
-        assemble_sipg_banded_direct,
-        assemble_sipg_matrix,
-        build_banded_groups,
-    )
+    from polydeal_tpu_torch.assembly.sipg import assemble_sipg_matrix
 
     fine_op = None
     if matfree_fine:
@@ -838,24 +918,15 @@ def build_multigrid(
                           dtype=dtype, device=device)
           for l in range(len(handlers) - 1)]
     if mode == "direct" and level_assembly == "banded":
-        matrices = []
-        for li, h in enumerate(handlers[:-1]):
-            ft = h.faces
-            interior = ~ft.is_boundary
-            diffs = (ft.poly_out - ft.poly_in)[interior].astype(np.int64)
-            offs = np.unique(np.concatenate(
-                [diffs, -diffs, np.zeros(1, dtype=np.int64)]))
-            groups = build_banded_groups(h, offs, dtype, device=device)
-            A_l = assemble_sipg_banded_direct(h, groups, offsets=offs)
-            del groups
-            # the coarsest level stays banded: its direct solve needs
-            # to_dense
-            matrices.append(A_l if li == 0 else maybe_pack_level(h, A_l))
+        matrices = banded_direct_levels(handlers[:-1], dtype, device=device,
+                                        pack=pack,
+                                        pack_near_limit=pack_near_limit)
         # the fine level is read only through the kernels' layout when it
         # has one, so its o-major copy goes
         if fine_op is None:
             matrices.append(_with_imajor_if_big(
-                maybe_pack_level(handlers[-1], A_fine), drop_omajor=True))
+                maybe_pack_level(handlers[-1], A_fine, pack,
+                                 pack_near_limit), drop_omajor=True))
     elif mode == "direct" and level_assembly == "tables":
         matrices = [assemble_sipg_matrix(h, dtype=dtype, device=device)
                     for h in handlers[:-1]]
@@ -871,12 +942,8 @@ def build_multigrid(
                                                 handlers[l].n_poly))
     else:
         raise ValueError(f"unknown multigrid mode: {mode}")
-    transfers = [
-        Transfer(E=Es[l], parent=parents[l], n_coarse=handlers[l].n_poly,
-                 grid_shape=None if grid_shapes is None else grid_shapes[l])
-        for l in range(len(handlers) - 1)
-    ]
-    return Multigrid.setup(matrices, transfers,
+    return Multigrid.setup(matrices,
+                           level_transfers(handlers, parents, Es, grid_shapes),
                            chebyshev_degree=chebyshev_degree,
                            n_smooth=n_smooth, smoothing_range=smoothing_range,
                            precond_dtype=precond_dtype,

@@ -276,6 +276,15 @@ class BlockELL:
         d = torch.diagonal(self.data, dim1=2, dim2=3)  # [P, K, nb]
         return (is_diag[:, :, None] * d).sum(dim=1).reshape(-1)
 
+    def to_block_matrix(self) -> "BlockMatrix":
+        """The block-COO matrix of the blocks that are not all zero (the
+        zero padding blocks drop out)."""
+        P, K = self.cols.shape
+        return _coo_of(self.data.reshape((P * K,) + self.data.shape[2:]),
+                       np.repeat(np.arange(P), K),
+                       np.asarray(self.cols, dtype=np.int64).reshape(-1),
+                       P, self.n_block_cols)
+
 
 def _vec(v, dtype):
     """A smoother vector in the iterate's dtype, contiguous; as it is where
@@ -283,6 +292,21 @@ def _vec(v, dtype):
     if v is None:
         return None
     return (v if v.dtype == dtype else v.to(dtype)).contiguous()
+
+
+def _coo_of(blocks: torch.Tensor, rows: np.ndarray, cols: np.ndarray,
+            n_block_rows: int, n_block_cols: int) -> "BlockMatrix":
+    """The BlockMatrix of candidate blocks ``blocks`` [n, nb, nb] at
+    (``rows``, ``cols``) (host, distinct pairs): the blocks that are not
+    all zero, sorted by (row, col)."""
+    nz = (blocks != 0).flatten(1).any(dim=1).cpu().numpy()
+    rows, cols = rows[nz], cols[nz]
+    order = np.argsort(rows * n_block_cols + cols, kind="stable")
+    keep = np.flatnonzero(nz)[order]
+    return BlockMatrix(
+        data=blocks[torch.as_tensor(keep, device=blocks.device)],
+        rows=rows[order].astype(np.int64), cols=cols[order].astype(np.int64),
+        n_block_rows=n_block_rows, n_block_cols=n_block_cols)
 
 
 @dataclass
@@ -455,6 +479,34 @@ class BlockBanded:
             blk = self.data_i.reshape(nb, R_pad, P)
             return blk[:, k0 * nb:(k0 + 1) * nb].permute(2, 0, 1)
         return self.data[k0].permute(2, 0, 1)
+
+    def _offset_blocks(self) -> torch.Tensor:
+        """[n_off, nb, nb, P]: the o-major band, or its view in the i-major
+        copy where the o-major one was dropped."""
+        if not self._omajor_dropped():
+            return self.data
+        nb, P, n_off = self.n_basis, self.n_block_rows, len(self.offsets)
+        R_pad = self.data_i.shape[0] // nb
+        return self.data_i.reshape(nb, R_pad, P)[:, :n_off * nb].reshape(
+            nb, n_off, nb, P).permute(1, 0, 2, 3)
+
+    def to_block_matrix(self) -> "BlockMatrix":
+        """The block-COO matrix of the band's blocks that are not all zero
+        (the zero blocks at rows lacking an offset drop out), read from
+        whichever copy the band keeps."""
+        D = self._offset_blocks()
+        P, Pc = self.n_block_rows, self.n_block_cols
+        lane = np.arange(P)
+        ks, ps = [], []
+        for k, o in enumerate(self.offsets.tolist()):
+            live = lane[(lane + o >= 0) & (lane + o < Pc)]
+            ks.append(np.full(live.shape[0], k))
+            ps.append(live)
+        ks, ps = np.concatenate(ks), np.concatenate(ps)
+        dev = D.device
+        blocks = D[torch.as_tensor(ks, device=dev), :, :,
+                   torch.as_tensor(ps, device=dev)]  # [n, nb, nb]
+        return _coo_of(blocks, ps, ps + self.offsets[ks], P, Pc)
 
     def add_to_diagonal_band(self, blocks_t: torch.Tensor) -> "BlockBanded":
         """New BlockBanded with ``blocks_t`` [nb, nb, P] added to the
@@ -687,6 +739,26 @@ class BlockPacked:
         return BlockBanded(data=torch.stack(rows, dim=0),
                            offsets=np.asarray(plan.offsets, dtype=np.int64),
                            n_block_cols=self.n_block_cols)
+
+    def to_block_matrix(self) -> "BlockMatrix":
+        """The block-COO matrix of the pack's blocks that are not all zero:
+        every active slot, and the far tail."""
+        oid = self.oid.cpu().numpy()
+        offs = np.asarray(self.plan.offsets, dtype=np.int64)
+        ks, ps = np.nonzero(oid >= 0)
+        nb, P = self.n_basis, self.n_block_rows
+        dev = self.data_i.device
+        D = self.data_i.reshape(nb, self.plan.R_pad, P)[:, :self.plan.K * nb]
+        D = D.reshape(nb, self.plan.K, nb, P)
+        blocks = D[:, torch.as_tensor(ks, device=dev), :,
+                   torch.as_tensor(ps, device=dev)]  # [n, nb, nb]
+        rows, cols = ps, ps + offs[oid[ks, ps]]
+        if self._has_far():
+            blocks = torch.cat([blocks, self.far_data.to(blocks.dtype)])
+            rows = np.concatenate([rows, np.asarray(self.far_rows)])
+            cols = np.concatenate([cols, np.asarray(self.far_cols)])
+        return _coo_of(blocks, rows.astype(np.int64), cols.astype(np.int64),
+                       P, self.n_block_cols)
 
     def sparsity_pairs(self):
         """(src, dst) directed block pairs of this pack (host numpy),
