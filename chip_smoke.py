@@ -134,6 +134,23 @@ Phases (each must pass; nothing falls back to the CPU):
      assemble_sipg_banded_gather at n=64 p=1 against the direct band (f64
      1e-12, f32 1e-5 relative), seconds and peak device MB; (e)
      chained_cost of K1 on the lex fine band beside its CUDA-event time.
+ 13. the captured solves (solvers/graphs: CUDA graphs replayed, the
+     default on the card) against the eager loop (capture=False), on the
+     systems phases 5-8 built, in those phases: the lex flagship (phase
+     5), relabel=None (phase 6) and its world-size-1 sharded system
+     (solve_cg_async), the monodomain's 20 BDF2 steps through steps_scan
+     (phase 7), the structured sharded system (phase 8, solve_cg_async).
+     Per arm: both solves' iterations (must be equal), the max-norm
+     relative difference of the solutions (1e-6) and of the graph f32
+     solution against the phase's f64 one (1e-4; the monodomain's not
+     gated, as phase 7's), warm host-clock medians over 11 calls in turns
+     with their range, one traced call of each (device busy over the span,
+     idle share; the graph trace must hold records of the port's kernels),
+     masked iterations and host reads per call, capture seconds and the
+     graph pool's MB; the monodomain's integrals of u and u^2 within 1e-6
+     of the eager ones.  Phases 5-12 solve through the graphs wherever a
+     hierarchy admits them (Multigrid.graph_ok), so their launch counts
+     include replays (each replay adds its program's launches).
 K0 (o-major banded SpMV) and fused K0 (its Chebyshev step/residual, all
 three modes) are held against their plain versions on the real bands of
 phases 5-7 once each exists (phase 3's check, on real bands): the
@@ -1088,6 +1105,7 @@ def phase7(torch, dev, k0, k2):
     u32 = (u if MONO_STEPS_F64 == MONO_STEPS
            else mono_steps(ms, MONO_STEPS_F64)[0])
     m32 = integrals(ms, u32)
+    mono_row = mono_arm(torch, ms)
     for e in ms.mg.ells[1:4]:  # 64, 512 and 4096 lanes: K0's levels
         check_k0(torch, f"monodomain {e.n_block_rows}-lane", e, k0)
     check_k0(torch, "monodomain fine (block-Jacobi operator)", ms.A, k0,
@@ -1117,6 +1135,14 @@ def phase7(torch, dev, k0, k2):
         f"{float(u64.abs().max()):.3e})")
     if not max(rel) <= 1e-3:
         fail(f"monodomain f32 integrals differ from the f64 run by {rel}")
+    # phase 13's monodomain arm against the same f64 run (not gated, as
+    # above)
+    mono_row["diff_f32_f64"] = float(
+        (mono_row.pop("u_graph").double() - u64).abs().max()) / float(
+            u64.abs().max())
+    log(f"  phase 13, monodomain: graph u after {MONO_STEPS} BDF2 steps "
+        f"against the f64 run: {mono_row['diff_f32_f64']:.3e} (max norm, "
+        f"relative)")
     small_mono_check(torch, dev)
     return counts
 
@@ -1461,6 +1487,8 @@ def phase8(torch, dev, group, rows):
         r64.x.abs().max())
     log(f"  f64 unsharded solve: {r64.iterations} iterations; max "
         f"|x_sharded_f32 - x_f64| / max |x_f64| = {diff:.3e}")
+    sharded_arm(torch, "structured sharded (world size 1)", ss, fst.b,
+                r64.x, lambda x: x.double())
     del ref, r64
     torch.cuda.empty_cache()
     if not diff <= 1e-4:
@@ -2795,6 +2823,171 @@ def phase12(torch, dev, group, keep, keep9, kres):
     log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 13: the captured (CUDA graph) solves against the eager ones, per
+# arm, in the phases whose systems they reuse; REPS13 warm solves each
+REPS13 = 11
+ARMS = {}
+
+
+def xi(res):
+    """(x, iterations) of a CGResult."""
+    return res.x, res.iterations
+
+
+def mono_arm(torch, ms):
+    """Phase 13's monodomain arm: MONO_STEPS BDF2 steps through
+    ``steps_scan`` from one BDF1 state, eager and captured; the integrals
+    of u and u^2 within 1e-6 of the eager ones.  Returns its row, with the
+    graph's u (``u_graph``) for phase 7's f64 comparison."""
+    cfg = ms.cfg
+    u, w = ms.initial_state()
+    u1, w1, _ = ms.step(u, u, w, 0.0, True)
+    last = {}
+
+    def run(capture):
+        uf, _, _, its = ms.steps_scan(u1, u, w1, cfg.dt, MONO_STEPS,
+                                      capture=capture)
+        last[capture] = uf
+        return uf, its
+
+    def extra(xe, xg):
+        me, mg_ = integrals(ms, xe), integrals(ms, xg)
+        return {"int_u_rel": abs(mg_[0] - me[0]) / abs(me[0]),
+                "int_u2_rel": abs(mg_[1] - me[1]) / abs(me[1])}
+
+    row = graph_arm(torch, f"monodomain ({MONO_STEPS} BDF2 steps)",
+                    lambda: run(False), lambda: run(None),
+                    ms.mg.cg_loop(cfg.solver.rtol, cfg.solver.max_iterations,
+                                  torch.float32), extra=extra)
+    if not all(i == 3 for i in row["iterations_graph"]):
+        log(f"  (monodomain graph iterations per step "
+            f"{row['iterations_graph']}, not 3 each)")
+    if not max(row["int_u_rel"], row["int_u2_rel"]) <= 1e-6:
+        fail(f"phase 13, monodomain: graph integrals differ from the eager "
+             f"ones by {row['int_u_rel']:.3e}, {row['int_u2_rel']:.3e}")
+    row["u_graph"] = last[None]
+    return row
+
+
+def sharded_arm(torch, label, ss, b, x64, to64):
+    """Phase 13's arm of a ShardedBandedSystem at world size 1: the eager
+    ``solve_cg_local`` against ``solve_cg_async`` (captured), its x slab
+    flattened for the comparisons."""
+    flat = lambda x: x.T.reshape(-1)
+
+    def graph():
+        x, k, _ = ss.solve_cg_async(b, rtol=1e-8, maxiter=100)
+        return flat(x), int(k)
+
+    def eager():
+        x, k, _ = ss.solve_cg_local(b, rtol=1e-8, maxiter=100,
+                                    capture=False)
+        return flat(x), k
+
+    return graph_arm(torch, label, eager, graph,
+                     ss._compiled(1e-8, 100, True, b.dtype)[0], x64=x64,
+                     to64=to64)
+
+
+def graph_arm(torch, label, eager, graph, loop, x64=None, to64=None,
+              extra=None):
+    """Phase 13, one arm: ``eager()`` and ``graph()`` each solve the same
+    system and return (x, iterations: an int or a list per step), ``loop``
+    is the graph path's ``solvers/graphs.CGLoop``.  After a cold call of
+    each, REPS13 warm calls in turns on the host clock (synchronised), then
+    one traced call of each (device busy time over the traced span).  The
+    graph solve must take the eager iterations to a solution within 1e-6
+    (max norm, relative), and within 1e-4 of ``x64`` (``to64(x)`` where
+    given: an f64 solution of the same system); its trace must hold kernel
+    records.  ``extra(x_eager, x_graph)`` adds numbers to the row."""
+    import statistics
+
+    from polydeal_tpu_torch.models.profile_flagship import _traced
+
+    def sync_call(fn):
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+
+    xe, ie = sync_call(eager)
+    xg, ig = sync_call(graph)  # the capture, where not already made
+    times = {"eager": [], "graph": []}
+    before = dict(loop.total)
+    for _ in range(REPS13):
+        for name, fn in (("eager", eager), ("graph", graph)):
+            t0 = time.perf_counter()
+            out = sync_call(fn)
+            times[name].append(time.perf_counter() - t0)
+            if name == "eager":
+                xe, ie = out
+            else:
+                xg, ig = out
+    per = {k: (loop.total[k] - before[k]) / REPS13
+           for k in ("runs", "iterations", "masked", "host_reads")}
+    traced = {}
+    for name, fn in (("eager", eager), ("graph", graph)):
+        span, busy, n_ops, ops = _traced(fn, top=8)
+        traced[name] = dict(span_ms=span, busy_ms=busy,
+                            idle_share=1.0 - busy / span, device_ops=n_ops,
+                            kernel_records=sum(
+                                o["count"] for o in ops
+                                if "banded" in o["name"]
+                                or "packed" in o["name"]))
+    n_it = sum(ie) if isinstance(ie, list) else ie
+    row = dict(
+        iterations_eager=ie, iterations_graph=ig,
+        diff_graph_eager=float((xg.double() - xe.double()).abs().max())
+        / float(xe.double().abs().max()),
+        **{f"{k}_s": dict(median=statistics.median(v), min=min(v),
+                          max=max(v)) for k, v in times.items()},
+        traced=traced,
+        cg_runs_per_call=per["runs"], masked_per_call=per["masked"],
+        host_reads_graph_per_call=per["host_reads"],
+        # cg_solve reads its loop condition once an iteration, once more
+        # to stop, and k once at the end
+        host_reads_eager_per_call=n_it + 2 * per["runs"],
+        capture_s=sum(p.seconds for p in loop.captured),
+        pool_mb=sum(p.pool_bytes for p in loop.captured) / 2**20)
+    if x64 is not None:
+        row["diff_f32_f64"] = float(
+            ((to64(xg) if to64 else xg.double()) - x64).abs().max()) / float(
+                x64.abs().max())
+    ext = extra(xe, xg) if extra is not None else {}
+    row.update(ext)
+    ARMS[label] = row
+    med = {k: row[f"{k}_s"]["median"] for k in times}
+    log(f"  phase 13, {label}: iterations eager {ie}, graph {ig}; max |x_g "
+        f"- x_e| / max |x_e| = {row['diff_graph_eager']:.3e}"
+        + (f", f32 vs f64 {row['diff_f32_f64']:.3e}" if x64 is not None
+           else ""))
+    log(f"    warm host-clock s over {REPS13}: eager median {med['eager']:.5f}"
+        f" ({row['eager_s']['min']:.5f}-{row['eager_s']['max']:.5f}), graph "
+        f"median {med['graph']:.5f} ({row['graph_s']['min']:.5f}-"
+        f"{row['graph_s']['max']:.5f})")
+    for name, t in traced.items():
+        log(f"    traced {name}: busy {t['busy_ms']:.3f} ms of "
+            f"{t['span_ms']:.3f} ms, idle share {t['idle_share']:.1%}, "
+            f"{t['device_ops']} device operations, {t['kernel_records']} "
+            f"records of the port's kernels")
+    log(f"    per call: {per['runs']:.0f} CG run(s), masked iterations "
+        f"{per['masked']:.2f}, host reads graph {per['host_reads']:.1f} "
+        f"eager {row['host_reads_eager_per_call']:.1f}; capture "
+        f"{row['capture_s']:.3f} s, graph pool {row['pool_mb']:.1f} MB"
+        + "".join(f"; {k} {v:.3e}" for k, v in ext.items()))
+    if ig != ie:
+        fail(f"phase 13, {label}: graph iterations {ig}, eager {ie}")
+    if not row["diff_graph_eager"] <= 1e-6:
+        fail(f"phase 13, {label}: graph solution differs from the eager one "
+             f"by {row['diff_graph_eager']:.3e}")
+    if x64 is not None and not row["diff_f32_f64"] <= 1e-4:
+        fail(f"phase 13, {label}: graph f32 solution differs from the f64 "
+             f"one by {row['diff_f32_f64']:.3e}")
+    if traced["graph"]["kernel_records"] <= 0:
+        fail(f"phase 13, {label}: the graph solve's trace holds no record "
+             f"of the port's kernels")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2900,6 +3093,10 @@ def main() -> int:
         fail(f"f64 reference true relative residual {true64:.3e} > 1e-8")
     if not diff <= 1e-4:
         fail(f"f32 flagship solution differs from the f64 one by {diff:.3e}")
+    graph_arm(torch, "lex flagship",
+              lambda: xi(solve_flagship(fs, capture=False)),
+              lambda: xi(solve_flagship(fs)),
+              fs.mg.cg_loop(1e-8, 100, torch.float32), x64=res64.x)
     # phase 6 holds the packed solve to the same f64 solution, by cell
     x64_cells = cell_order(torch, ref, res64.x)
     # phase 11 reuses phase 5's system: its hierarchy, rhs, fine bands
@@ -2968,6 +3165,11 @@ def main() -> int:
         f"{dp:.3e}")
     if not dp <= 1e-4:
         fail(f"packed f32 solution differs from the f64 lex one by {dp:.3e}")
+    graph_arm(torch, "relabel=None flagship",
+              lambda: xi(solve_flagship(fsp, capture=False)),
+              lambda: xi(solve_flagship(fsp)),
+              fsp.mg.cg_loop(1e-8, 100, torch.float32), x64=x64_cells,
+              to64=lambda x: cell_order(torch, fsp, x))
     for name in ("volume_blocks", "face_group_blocks", "boundary_blocks",
                  "packed_matvec", "packed_fused_cheb"):
         if counts6[name] <= 0:
@@ -2975,6 +3177,8 @@ def main() -> int:
     log("phase 8 on phase 6's system: the relabel=None flagship sharded")
     ssp, counts6s = shard_flagship(torch, "relabel=None flagship", fsp,
                                    group, x64_cells, by_cell=True)
+    sharded_arm(torch, "relabel=None sharded (world size 1)", ssp, fsp.b,
+                x64_cells, lambda x: cell_order(torch, fsp, x))
     for name in ("packed_matvec_halo", "packed_fused_halo"):
         if counts6s[name] <= 0:
             fail(f"kernel {name} was never launched on the sharded packed "
@@ -3004,6 +3208,8 @@ def main() -> int:
     counts11, rows11 = phase11(torch, dev, group, keep)
     phase12(torch, dev, group, keep, keep9, kres)
     del keep, keep9
+    log("phase 13: captured solves against eager ones (arms run in phases "
+        "5-8): " + json.dumps(ARMS))
     torch.distributed.destroy_process_group()
     shutil.rmtree(store_dir, ignore_errors=True)
     kres.update(halo_rows)

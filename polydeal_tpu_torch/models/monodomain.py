@@ -12,9 +12,11 @@ mass_coeff*M (the mass in the diagonal band row) through the SIPG block
 kernels K3-K5, and each step solves with R3MG-preconditioned CG from a
 zero start.  On the card the levels below ``multigrid.IMAJOR_MIN_P``
 polytopes smooth through fused K0, the larger ones through K2 (K1 for the
-CG operator).  The JAX
-package's ``lax.scan`` time loop is a Python loop of :meth:`step` here;
-each CG iteration syncs with the host once, for its norm test.
+CG operator).  On the card each step runs as captured programs (the
+JAX package's jitted ``step1``/``step2``, ``solvers/graphs``) and
+:meth:`MonodomainSolver.steps_scan` replays them with the time and the
+iteration counts on the device (its ``lax.scan``); the CG loop reads one
+flag a CG iteration on the host, behind the queued work.
 
 Usage::
 
@@ -54,6 +56,7 @@ from polydeal_tpu_torch.solvers.cg import (
     block_jacobi_preconditioner,
     cg_solve,
 )
+from polydeal_tpu_torch.solvers import graphs
 from polydeal_tpu_torch.sparse import BlockBanded
 
 __all__ = ["MonodomainSolver", "run_monodomain", "bench_config",
@@ -158,6 +161,9 @@ class MonodomainSolver:
     # and, before them and in none of them, kernel_load and cuda_init
     # (ops/_build.prepare_device; 0.0 off CUDA)
     setup_phases: dict = field(default_factory=dict)
+    # the captured step (_StepGraphs), made at the first captured step
+    _graphs: object = field(default=None, init=False, repr=False,
+                            compare=False)
 
     @classmethod
     def build(cls, cfg: MonodomainConfig, dtype=torch.float32, mesh=None,
@@ -261,13 +267,11 @@ class MonodomainSolver:
         ut = u.reshape(ah.n_poly, ah.n_basis).T  # [nb, P]
         return torch.einsum("cqip,ip->cqp", self.B_t, ut)
 
-    def step(self, u_n, u_nm1, w, t: float, first_step: bool):
-        """One IMEX BDF step at time ``t`` (a float); returns (u_np1,
-        w_np1, CG iterations)."""
+    def _rhs_t(self, u_n, u_nm1, w, t, bdf2: bool):
+        """(rhs [nb, P], w_np1) of one IMEX step at the device time ``t``
+        (f64, 0-dim): the gating update and the right-hand side."""
         cfg, p = self.cfg, self.cfg.ionic
         dt = cfg.dt
-        bdf2 = cfg.time_stepping_scheme == "BDF2" and not first_step
-
         uq_n = self.u_at_quad(u_n)
         uq_nm1 = self.u_at_quad(u_nm1) if bdf2 else None
         u_star = 2.0 * uq_n - uq_nm1 if bdf2 else uq_n  # BDF2 extrapolation
@@ -278,42 +282,104 @@ class MonodomainSolver:
         w_np1 = w + dt * ((b - a) * w + a * winf)
 
         i_ion = ionic_current_t(u_star, w_np1, p)
-        stim = cfg.applied_current if t < cfg.end_time_current else 0.0
+        # the stimulus switch on the device, as the JAX package's jnp.where
+        stim = torch.where(t < cfg.end_time_current, cfg.applied_current,
+                           0.0)
         i_app = stim * self.stim_t
 
         u_hist = (2.0 * uq_n - 0.5 * uq_nm1) if bdf2 else uq_n
         integrand = (p.chi * p.Cm / dt) * u_hist - p.chi * i_ion + i_app
         # rhs directly in the transposed layout: no scatters, no gathers
         r_t = torch.einsum("cqip,cqp,cqp->ip", self.B_t, self.w_t, integrand)
-        rhs = r_t.T.reshape(-1)
+        return r_t.contiguous(), w_np1
 
+    def _bdf2(self, first_step: bool) -> bool:
+        return self.cfg.time_stepping_scheme == "BDF2" and not first_step
+
+    def _capture(self, capture, u) -> bool:
+        """The step's path (see :meth:`step`)."""
+        ok = self.mg is not None and self.mg.graph_ok()
+        if capture is None:
+            return u.device.type == "cuda" and ok
+        if capture and not ok:
+            raise ValueError("captured steps need the multigrid path on a "
+                             "banded or packed hierarchy")
+        return capture
+
+    def step(self, u_n, u_nm1, w, t, first_step: bool,
+             capture: bool | None = None):
+        """One IMEX BDF step at time ``t`` (a float or a 0-dim tensor);
+        returns (u_np1, w_np1, CG iterations).
+
+        On the card the multigrid path runs the step as captured programs
+        (``solvers/graphs``; the JAX package's jitted ``step1``/``step2``):
+        the gating update, the right-hand side and the CG start as one
+        program for the BDF1 step and one for the BDF2 step, then the
+        hierarchy's captured CG iteration.  ``capture=False`` runs it
+        eagerly; the block-Jacobi path and the CPU always do."""
+        cfg = self.cfg
+        bdf2 = self._bdf2(first_step)
+        if self._capture(capture, u_n):
+            g = self._step_graphs()
+            g.load(u_n, u_nm1, w, t)
+            n = g.loop.run(g.start(bdf2))
+            return g.u_next(), g.w_next.clone(), n
+        t = torch.as_tensor(t, dtype=torch.float64, device=u_n.device)
+        r_t, w_np1 = self._rhs_t(u_n, u_nm1, w, t, bdf2)
+        rhs = r_t.T.reshape(-1)
         if self.mg is not None:
             res = self.mg.solve_cg(rhs, rtol=cfg.solver.rtol,
-                                   maxiter=cfg.solver.max_iterations)
+                                   maxiter=cfg.solver.max_iterations,
+                                   capture=False)
         else:
             res = cg_solve(self.A.matvec, rhs, M=self.jacobi,
                            rtol=cfg.solver.rtol,
                            maxiter=cfg.solver.max_iterations)
         return res.x, w_np1, res.iterations
 
-    def steps_scan(self, u, u_prev, w, t0: float, n_steps: int):
+    def _step_graphs(self) -> "_StepGraphs":
+        if self._graphs is None:
+            self._graphs = _StepGraphs(self)
+        return self._graphs
+
+    def steps_scan(self, u, u_prev, w, t0, n_steps: int,
+                   capture: bool | None = None):
         """``n_steps`` BDF steps from time ``t0`` (the JAX package's
-        ``lax.scan`` loop, as a Python loop).  Returns (u, u_prev, w,
-        iterations per step)."""
+        ``lax.scan`` loop).  Returns (u, u_prev, w, iterations per step).
+
+        Captured (as :meth:`step`): the state stays in the step programs'
+        buffers, the time advances on the device (t0 + k dt), each step
+        replays the BDF2 program, the CG iterations and a program that
+        moves the state on, and the iterations per step go to a device
+        tensor read once at the end."""
+        if self._capture(capture, u):
+            g = self._step_graphs()
+            g.load(u, u_prev, w, t0)
+            start = g.start(True)
+            iters = torch.zeros(n_steps, dtype=torch.int32, device=u.device)
+            for k in range(n_steps):
+                g.loop.run(start)
+                iters[k].copy_(g.loop.state.k)
+                g.advance().replay()
+            return (g.u_n.clone(), g.u_nm1.clone(), g.w.clone(),
+                    iters.tolist())
         dt = self.cfg.dt
         iters = []
         for k in range(n_steps):
-            u_new, w, it = self.step(u, u_prev, w, t0 + k * dt, False)
+            u_new, w, it = self.step(u, u_prev, w, t0 + k * dt, False,
+                                     capture=False)
             u_prev, u = u, u_new
             iters.append(it)
         return u, u_prev, w, iters
 
     def run(self, n_steps=None, callback=None, checkpoint_dir=None,
-            checkpoint_every=0, resume=False):
+            checkpoint_every=0, resume=False, capture: bool | None = None):
         """Time loop with optional checkpoint/resume (``checkpoint.py``):
         a checkpoint holds the full BDF2 history (u, u_prev, w), so a
-        resumed run replays the uninterrupted one bitwise.  Returns (u, w,
-        iterations per step)."""
+        resumed run replays the uninterrupted one bitwise.  Each step is
+        :meth:`step` (``capture`` as there), the callbacks and checkpoints
+        on the host between them.  Returns (u, w, iterations per
+        step)."""
         cfg = self.cfg
         if n_steps is None:
             n_steps = int(round(cfg.final_time / cfg.dt))
@@ -329,7 +395,8 @@ class MonodomainSolver:
         iters = []
         for k in range(start, n_steps):
             t = k * cfg.dt
-            u_new, w, it = self.step(u, u_prev, w, t, k == 0)
+            u_new, w, it = self.step(u, u_prev, w, t, k == 0,
+                                     capture=capture)
             u_prev, u = u, u_new
             iters.append(it)
             if callback is not None and (k + 1) % cfg.output_frequency == 0:
@@ -339,6 +406,73 @@ class MonodomainSolver:
                 save_checkpoint(checkpoint_dir, k + 1,
                                 dict(u=u, u_prev=u_prev, w=w))
         return u, w, iters
+
+
+class _StepGraphs:
+    """The monodomain step as captured programs on static buffers: the
+    state (u_n, u_nm1, w), the time t0 + k dt (t0 f64 and k int64 on the
+    device), one start program per BDF order (the gating update, the
+    right-hand side and ``cg_init`` into the hierarchy's ``CGLoop``, whose
+    iteration program the steps share) and one program that moves the
+    state on by a step (:meth:`MonodomainSolver.steps_scan`)."""
+
+    def __init__(self, solver: "MonodomainSolver"):
+        cfg = solver.cfg
+        self.solver = solver
+        u, w = solver.initial_state()
+        self.loop = solver.mg.cg_loop(cfg.solver.rtol,
+                                      cfg.solver.max_iterations, u.dtype)
+        self.u_n, self.u_nm1, self.w = u, torch.zeros_like(u), w
+        self.w_next = torch.zeros_like(w)
+        self.t0 = torch.zeros((), dtype=torch.float64, device=u.device)
+        self.k = torch.zeros((), dtype=torch.int64, device=u.device)
+        self._starts = {}
+        self._advance = None
+
+    def load(self, u_n, u_nm1, w, t) -> None:
+        self.u_n.copy_(u_n)
+        self.u_nm1.copy_(u_nm1)
+        self.w.copy_(w)
+        if isinstance(t, torch.Tensor):
+            self.t0.copy_(t)
+        else:
+            self.t0.fill_(float(t))
+        self.k.zero_()
+
+    def start(self, bdf2: bool):
+        if bdf2 not in self._starts:
+            s = self.solver
+
+            def rhs():
+                t = self.t0 + self.k.to(torch.float64) * s.cfg.dt
+                r_t, w_np1 = s._rhs_t(self.u_n, self.u_nm1, self.w, t, bdf2)
+                self.w_next.copy_(w_np1)
+                return r_t
+
+            self._starts[bdf2] = self.loop.start_program(rhs)
+        return self._starts[bdf2]
+
+    def u_next(self) -> torch.Tensor:
+        """The CG solution as a new flat vector."""
+        return self.loop.state.x.T.clone(
+            memory_format=torch.contiguous_format).reshape(-1)
+
+    def advance(self):
+        """The program u_nm1 <- u_n <- x, w <- w_next, k += 1."""
+        if self._advance is None:
+            nb = self.solver.handler.n_basis
+
+            def commit(_):
+                self.u_nm1.copy_(self.u_n)
+                self.u_n.view(-1, nb).copy_(self.loop.state.x.T)
+                self.w.copy_(self.w_next)
+                self.k.add_(1)
+
+            self._advance = graphs.capture(None, commit,
+                                           device=self.u_n.device,
+                                           pool=self.loop.pool)
+            self.loop.captured.append(self._advance)
+        return self._advance
 
 
 def bench_config(n_refinements: int = 6,

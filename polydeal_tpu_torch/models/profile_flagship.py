@@ -8,31 +8,36 @@ Run from the root of a checkout, on a machine with a CUDA card::
 
 Sets the flagship (n=64, p=1) up on ``cuda:0`` -- with ``--relabel none``
 without the lex relabel, so the fine level and levels 4096 and 32768 are
-packed and run K6/K7 -- and measures, in one process:
+packed and run K6/K7 -- and measures, in one process, each solve both
+ways: through the eager loop (``capture=False``) and as captured programs
+(``solvers/graphs``, the default on the card):
 
-* warm solves on the host clock (synchronised): two warm-ups, then
-  five timed solves;
+* warm solves on the host clock (synchronised): two warm-ups each, then
+  11 timed solves each, in turns (median and range);
+* the captured loop's cost: masked iterations and host reads of the last
+  solve, capture seconds, the graph pool's MB;
 * parts by CUDA events, 20 calls each: one V-cycle (the CG
   preconditioner), one fine-level SpMV (the CG operator), one FMG guess;
   and, 5 calls, the warm fine-level band assembly from its f32 tables
   (K3-K5 and the lane rolls and concatenations around them);
-* one traced warm solve under ``torch.profiler``: the device's busy time
-  (the union of its kernel, copy and fill intervals) over the solve's span
-  in the same trace, hence the busy and idle shares; the number of device
-  operations (launches, copies and fills); and the device operations by
-  total time (K2's name carries its lanes per thread, so the fine and the
-  32768-lane level read apart).  The profiler slows the host's dispatch, so
-  the traced solve is slower than the untimed ones and its idle share is
-  an upper bound for them;
+* one traced warm solve each under ``torch.profiler``: the device's busy
+  time (the union of its kernel, copy and fill intervals) over the solve's
+  span in the same trace, hence the busy and idle shares; the number of
+  device operations (launches, copies and fills); and the device
+  operations by total time (K2's name carries its lanes per thread, so
+  the fine and the 32768-lane level read apart).  The profiler slows the
+  host's dispatch, so a traced eager solve is slower than the untimed ones
+  and its idle share is an upper bound for them;
 * one traced warm fine-level band assembly (straight into the packed
   format when the fine level is packed), read the same way.
 
 With ``--model monodomain`` it sets up ``bench.py``'s bench_monodomain
 configuration (n_refinements=6, 1,048,576 DoF, lex relabel) instead and
-measures: the 20 warm BDF2 steps after the BDF1 one on the host clock
-(synchronised; one warm-up pass, then five timed) with the CG iterations
-of every step; one V-cycle and one fine-level SpMV by CUDA events; and
-one traced warm BDF2 step, read as the traced solve above.
+measures, both ways: the 20 warm BDF2 steps after the BDF1 one through
+``steps_scan`` on the host clock (synchronised; two warm-up passes, then
+11 timed, in turns) with the CG iterations of every step; one traced warm
+BDF2 step, read as the traced solve above; and one V-cycle and one
+fine-level SpMV by CUDA events.
 
 Prints the card and a table, and last one JSON object with every number.
 """
@@ -53,7 +58,10 @@ __all__ = ["busy_us", "traced_span", "device_intervals", "main",
 _LABEL = "flagship_solve"  # the traced range's record_function label
 N = 64
 N_STEPS = 20  # monodomain BDF2 steps per timed pass (bench.py's)
-REPEATS = 5
+REPEATS = 11
+# (name, capture) of the two solve paths: the eager loop and the captured
+# programs (solvers/graphs), the default on the card
+MODES = (("eager", False), ("graph", None))
 
 
 def busy_us(intervals, lo: float, hi: float) -> float:
@@ -142,6 +150,39 @@ def _print_ops(tables) -> None:
                   f"{d['share']:6.1%}")
 
 
+def _modes(run, reps: int = REPEATS) -> dict:
+    """Host-clock seconds of ``run(capture)`` (synchronised) for the eager
+    loop (capture=False) and the captured programs (capture=None), after
+    two warm-up calls each, ``reps`` calls each in turns."""
+    for _, capture in MODES:
+        for _ in range(2):
+            run(capture)
+    walls = {"eager": [], "graph": []}
+    for _ in range(reps):
+        for name, capture in MODES:
+            t0 = time.perf_counter()
+            run(capture)
+            walls[name].append(time.perf_counter() - t0)
+    return walls
+
+
+def _spread(walls) -> dict:
+    return dict(median=statistics.median(walls), min=min(walls),
+                max=max(walls))
+
+
+def _traced_modes(run, top: int) -> dict:
+    """One traced call of ``run(capture)`` per mode: span, busy time, busy
+    and idle shares, device operations and the ``top`` ones by time."""
+    out = {}
+    for name, capture in MODES:
+        span, busy, n_ops, ops = _traced(lambda: run(capture), top=top)
+        out[name] = dict(span_ms=span, busy_ms=busy, busy_share=busy / span,
+                         idle_share=1.0 - busy / span, device_ops=n_ops,
+                         top_ops=ops)
+    return out
+
+
 def profile_monodomain(dev, smi: str) -> dict:
     """The monodomain's numbers (see the module docstring)."""
     from polydeal_tpu_torch.models.monodomain import (MonodomainSolver,
@@ -152,36 +193,36 @@ def profile_monodomain(dev, smi: str) -> dict:
     dt = cfg.dt
     u, w = s.initial_state()
     u1, w1, it1 = s.step(u, u, w, 0.0, True)
+    iters = {}
 
-    def steps():
-        out = s.steps_scan(u1, u, w1, dt, N_STEPS)
+    def steps(capture):
+        out = s.steps_scan(u1, u, w1, dt, N_STEPS, capture=capture)
         torch.cuda.synchronize()
+        iters[capture] = out[3]
         return out
 
-    steps()
-    walls = []
-    for _ in range(REPEATS):
-        t0 = time.perf_counter()
-        _, _, _, iters = steps()
-        walls.append(time.perf_counter() - t0)
+    walls = _modes(steps)
     mg = s.mg
     parts = dict(v_cycle_ms=_cuda_ms(lambda: mg.v_cycle(u1)),
                  fine_spmv_ms=_cuda_ms(lambda: mg.ells[-1].matvec(u1)))
-    span, busy, n_ops, ops = _traced(lambda: s.step(u1, u, w1, dt, False),
-                                     top=15)
-    med = statistics.median(walls)
-    _print_ops([("one BDF2 step", ops)])
+    traced = _traced_modes(lambda capture: s.step(u1, u, w1, dt, False,
+                                                  capture=capture), top=15)
+    _print_ops([(f"one BDF2 step, {m}", traced[m]["top_ops"])
+                for m, _ in MODES])
+    med = {m: statistics.median(v) for m, v in walls.items()}
     return dict(
         card=smi, model="monodomain", n_dofs=s.handler.n_dofs,
         levels=[e.n_block_rows for e in mg.ells], relabel="lex",
-        n_steps=N_STEPS, iterations_per_step=[it1] + list(iters),
-        cg_iters_per_step=sum(iters) / N_STEPS,
-        setup_phases_s=s.setup_phases, warm_steps_s=walls,
-        warm_steps_median_s=med, steps_per_s=N_STEPS / med,
-        dof_steps_per_s=s.handler.n_dofs * N_STEPS / med, **parts,
-        traced_step_ms=span, traced_busy_ms=busy,
-        traced_busy_share=busy / span, traced_idle_share=1.0 - busy / span,
-        traced_device_ops=n_ops, device_ops=ops)
+        n_steps=N_STEPS, iterations_per_step=[it1] + list(iters[None]),
+        iterations_per_step_eager=[it1] + list(iters[False]),
+        cg_iters_per_step=sum(iters[None]) / N_STEPS,
+        setup_phases_s=s.setup_phases,
+        warm_steps_s={m: _spread(v) for m, v in walls.items()},
+        step_ms={m: v / N_STEPS * 1e3 for m, v in med.items()},
+        steps_per_s={m: N_STEPS / v for m, v in med.items()},
+        dof_steps_per_s={m: s.handler.n_dofs * N_STEPS / v
+                         for m, v in med.items()},
+        **parts, traced_step=traced)
 
 
 def profile_flagship(dev, smi: str, relabel) -> dict:
@@ -196,18 +237,20 @@ def profile_flagship(dev, smi: str, relabel) -> dict:
     nb = mg.ells[-1].n_basis
     bt = fs.b.reshape(-1, nb).T.contiguous()
 
-    def solve():
-        res = solve_flagship(fs)
+    iters = {}
+
+    def solve(capture):
+        res = solve_flagship(fs, capture=capture)
         torch.cuda.synchronize()
+        iters[capture] = res.iterations
         return res
 
-    for _ in range(2):
-        solve()
-    walls = []
-    for _ in range(REPEATS):
-        t0 = time.perf_counter()
-        res = solve()
-        walls.append(time.perf_counter() - t0)
+    walls = _modes(solve)
+    loop = mg.cg_loop(1e-8, 100, fs.b.dtype)
+    graph_cost = dict(loop.last, capture_s=sum(p.seconds
+                                               for p in loop.captured),
+                      pool_mb=sum(p.pool_bytes
+                                  for p in loop.captured) / 2**20)
     parts = dict(v_cycle_ms=_cuda_ms(lambda: mg.v_cycle(fs.b)),
                  fine_spmv_ms=_cuda_ms(lambda: mg.ells[-1].matvec_t(bt)),
                  fmg_ms=_cuda_ms(lambda: mg.fmg_guess(bt)))
@@ -223,21 +266,20 @@ def profile_flagship(dev, smi: str, relabel) -> dict:
     band_span, band_busy, _, band_ops = _traced(band, top=8)
     del tabs
 
-    span, busy, n_ops, ops = _traced(solve, top=15)
+    traced = _traced_modes(solve, top=15)
 
-    _print_ops([("solve", ops), ("fine band assembly", band_ops)])
+    _print_ops([(f"solve, {m}", traced[m]["top_ops"]) for m, _ in MODES]
+               + [("fine band assembly", band_ops)])
     return dict(
         card=smi, model="flagship", n=N, n_dofs=fs.n_dofs,
         levels=fs.level_sizes,
         relabel=fs.relabel, fine_format=fs.format,
-        iterations=res.iterations,
+        iterations=iters[None], iterations_eager=iters[False],
         setup_phases_s=fs.setup_phases,
-        warm_solve_s=walls, warm_solve_median_s=statistics.median(walls),
-        **parts,
-        traced_solve_ms=span, traced_busy_ms=busy,
-        traced_busy_share=busy / span, traced_idle_share=1.0 - busy / span,
-        traced_device_ops=n_ops, device_ops=ops, traced_band_ms=band_span,
-        traced_band_busy_ms=band_busy, band_device_ops=band_ops)
+        warm_solve_s={m: _spread(v) for m, v in walls.items()},
+        graph_cost=graph_cost, **parts, traced_solve=traced,
+        traced_band_ms=band_span, traced_band_busy_ms=band_busy,
+        band_device_ops=band_ops)
 
 
 def main(argv=None) -> int:

@@ -90,7 +90,8 @@ from polydeal_tpu_torch.ops.packed import (
     packed_matvec_t_halo,
 )
 from polydeal_tpu_torch.parallel.sharding import build_halo_exchange, exchange
-from polydeal_tpu_torch.solvers.cg import cg_solve
+from polydeal_tpu_torch.solvers.cg import cg_finish, cg_solve
+from polydeal_tpu_torch.solvers.graphs import CGLoop
 from polydeal_tpu_torch.solvers.chebyshev import ChebyshevSmoother
 from polydeal_tpu_torch.solvers.multigrid import (
     Multigrid,
@@ -266,6 +267,9 @@ class ShardedBandedSystem:
         # slab build made, where setup_local built the system
         self.b_local = None
         self.setup_stats = None
+        # captured solves (_compiled), by (rtol, maxiter, precondition,
+        # dtype)
+        self._run_cache = {}
 
     # ------------------------------------------------------------------
     @classmethod
@@ -827,24 +831,103 @@ class ShardedBandedSystem:
         return self._gather(y.to(b_loc.dtype))
 
     def solve_cg(self, b, rtol: float = 1e-9, maxiter: int = 100,
-                 precondition: bool = True):
+                 precondition: bool = True, capture: bool | None = None):
         """SPMD MG-CG from zero on a flat rhs (global, or this rank's local
         part).  Returns (x flat global on every rank, iterations,
         residual)."""
-        x_loc, k, res = self.solve_cg_local(b, rtol, maxiter, precondition)
+        x_loc, k, res = self.solve_cg_local(b, rtol, maxiter, precondition,
+                                            capture)
         return self._gather(x_loc), k, float(res)
 
-    def solve_cg_local(self, b, rtol: float = 1e-9, maxiter: int = 100,
+    def graph_ok(self, b) -> bool:
+        """Whether a solve of ``b`` runs as captured programs
+        (:meth:`_compiled`): a CUDA vector at world size 1, f32 or f64
+        smoothing vectors and a replicated bottom that ``Multigrid
+        .graph_ok`` admits.  At world size 1 ``_halo_x`` and ``_dot``
+        call no collective, so the programs hold the halo kernels only;
+        NCCL collectives are not captured (ROADMAP Queue 1), so more
+        ranks on the card keep the eager loop, as the CPU (gloo) does."""
+        return (b.device.type == "cuda" and self.n_dev == 1
+                and self.lo_vec in (None, torch.float32, torch.float64)
+                and self.rep_mg.graph_ok())
+
+    def _compiled(self, rtol, maxiter, precondition, dtype):
+        """(CGLoop, start program, rhs buffer [nb, per]) of the captured
+        solve for ``(rtol, maxiter, precondition)`` and vectors of
+        ``dtype``, made at first use: the counterpart of the JAX package's
+        cache of jitted ``shard_map`` programs.  CG itself stays
+        full-precision."""
+        key = (rtol, maxiter, precondition, dtype)
+        if key not in self._run_cache:
+            fine, fine_pl = self.levels[-1], self.params[-1]
+            like = torch.zeros((self.nb, fine.per), dtype=dtype,
+                               device=fine_pl["dinv"].device)
+            top = len(self.levels) - 1
+            M = ((lambda r: self._cycle(top, r).to(r.dtype)) if precondition
+                 else None)
+            loop = CGLoop(lambda p: self._matvec(fine, fine_pl, p), M, like,
+                          rtol=rtol, maxiter=maxiter, dot=self._dot)
+            b_in = torch.zeros_like(like)
+            self._run_cache[key] = (loop, loop.start_program(lambda: b_in),
+                                    b_in)
+        return self._run_cache[key]
+
+    def _solve_captured(self, b_loc, rtol, maxiter, precondition):
+        """(x_loc, k, |r|, iterations) of the captured solve; the tensors
+        new, on the device."""
+        if not self.graph_ok(b_loc):
+            raise ValueError(
+                "captured sharded solves need a CUDA rhs at world size 1 "
+                "with f32 or f64 smoothing vectors: NCCL collectives are not "
+                f"captured (world size {self.n_dev}, {b_loc.device}, "
+                f"smoothing vectors {self.lo_vec})")
+        loop, start, b_in = self._compiled(rtol, maxiter, precondition,
+                                           b_loc.dtype)
+        b_in.copy_(b_loc)
+        n = loop.run(start)
+        x, res = cg_finish(loop.state, self._dot)
+        return x.clone(), loop.state.k.clone(), res, n
+
+    def solve_cg_async(self, b, rtol: float = 1e-9, maxiter: int = 100,
                        precondition: bool = True):
+        """Like :meth:`solve_cg_local`, but the iterations too as a device
+        tensor: (this rank's slab of x [nb, per], k int32, |r|), 0-dim
+        tensors on the vectors' device, with no host read of x or |r|
+        (the JAX package's timing path).  On the card it runs the
+        captured solve (:meth:`_compiled`), whose CG loop reads only its
+        flags on the host, and raises where :meth:`graph_ok` refuses (more
+        than one rank); on the CPU it runs the eager loop."""
+        b_loc = self._local(b)
+        if b_loc.device.type == "cuda":
+            return self._solve_captured(b_loc, rtol, maxiter,
+                                        precondition)[:3]
+        x, k, res = self._solve_eager(b_loc, rtol, maxiter, precondition)
+        return x, torch.tensor(k, dtype=torch.int32), res
+
+    def solve_cg_local(self, b, rtol: float = 1e-9, maxiter: int = 100,
+                       precondition: bool = True,
+                       capture: bool | None = None):
         """Like :meth:`solve_cg` with no gather: (this rank's slab of x
-        [nb, per], iterations, |r| as a 0-dim device tensor): the port's
-        ``cg_solve`` on the slab with the all-reduced dot, its norm test
-        the one host synchronisation an iteration."""
+        [nb, per], iterations, |r| as a 0-dim device tensor).  Where
+        :meth:`graph_ok` admits the solve it runs captured
+        (:meth:`solve_cg_async`'s path; ``capture=False`` runs it
+        eagerly, ``capture=True`` raises where it cannot be captured),
+        else the port's ``cg_solve`` on the slab with the all-reduced dot,
+        its loop condition the one host read an iteration."""
+        b_loc = self._local(b)
+        if capture is None:
+            capture = self.graph_ok(b_loc)
+        if capture:
+            x, _, res, n = self._solve_captured(b_loc, rtol, maxiter,
+                                                precondition)
+            return x, n, res
+        return self._solve_eager(b_loc, rtol, maxiter, precondition)
+
+    def _solve_eager(self, b_loc, rtol, maxiter, precondition):
         fine, fine_pl = self.levels[-1], self.params[-1]
         top = len(self.levels) - 1
         # CG itself stays full-precision
         M = ((lambda r: self._cycle(top, r).to(r.dtype)) if precondition
              else None)
-        return cg_solve(lambda p: self._matvec(fine, fine_pl, p),
-                        self._local(b), M=M, rtol=rtol, maxiter=maxiter,
-                        dot=self._dot)
+        return cg_solve(lambda p: self._matvec(fine, fine_pl, p), b_loc, M=M,
+                        rtol=rtol, maxiter=maxiter, dot=self._dot)

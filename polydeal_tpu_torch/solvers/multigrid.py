@@ -32,7 +32,8 @@ import torch
 
 from polydeal_tpu_torch.fem.quadrature import tensor_gauss
 from polydeal_tpu_torch.handler import AgglomerationHandler
-from polydeal_tpu_torch.solvers.cg import CGResult, cg_solve
+from polydeal_tpu_torch.solvers.cg import CGResult, cg_finish, cg_solve
+from polydeal_tpu_torch.solvers.graphs import CGLoop
 from polydeal_tpu_torch.solvers.chebyshev import (
     ChebyshevSmoother,
     estimate_lambda_max,
@@ -511,6 +512,15 @@ class Multigrid:
     # rhs to it
     lo_ells: list | None = None
     lo_dinvs: list | None = None
+    # captured solves (solvers/graphs): CGLoops by (rtol, maxiter, dtype),
+    # (start program, its flat rhs buffer) by (rtol, maxiter, dtype, fmg);
+    # the levels, transfers
+    # and smoothing intervals are baked into them, so they hold only while
+    # those stay as they are
+    _loops: dict = field(default_factory=dict, init=False, repr=False,
+                         compare=False)
+    _starts: dict = field(default_factory=dict, init=False, repr=False,
+                          compare=False)
 
     @classmethod
     def setup(
@@ -746,13 +756,74 @@ class Multigrid:
                 b.dtype).T.reshape(-1)
         return self._cycle(top, b).to(b.dtype)
 
+    def graph_ok(self) -> bool:
+        """Whether :meth:`solve_cg` on the card runs as captured programs
+        (``solvers/graphs``): every level and smoother copy a
+        ``BlockBanded`` or ``BlockPacked`` (a ``BlockMatrix`` level that
+        :meth:`setup` banded counts), the fine one in the transposed
+        layout (which such a level has), an explicit-inverse or LU coarse
+        solve, and f32 or f64
+        smoothing vectors.  Block-ELL and matrix-free levels and bf16
+        sweeps keep the eager loop (ROADMAP Queue 1)."""
+        ops = list(self.ells) + list(self.lo_ells or [])
+        return (all(isinstance(e, (BlockBanded, BlockPacked)) for e in ops)
+                and len(self.coarse_lu) in (1, 2)
+                and all(d.dtype in _VECTOR_DTYPES
+                        for d in (self.lo_dinvs or [None])[1:]))
+
+    def cg_loop(self, rtol: float, maxiter: int, dtype) -> CGLoop:
+        """The captured CG of this hierarchy for ``(rtol, maxiter,
+        dtype)`` (made at first use): the fine operator, one V-cycle as M,
+        in the [nb, P] layout.  Callers with their own right-hand side
+        (the monodomain step) add start programs to it."""
+        key = (rtol, maxiter, dtype)
+        loop = self._loops.get(key)
+        if loop is None:
+            if not self.graph_ok():
+                raise ValueError("this hierarchy's levels are not all "
+                                 "banded or packed: no captured solve")
+            top = self.n_levels - 1
+            A = self.ells[top]
+            like = torch.zeros((A.n_basis, A.n_block_rows), dtype=dtype,
+                               device=A.offsets_t.device)
+            loop = self._loops[key] = CGLoop(
+                A.matvec_t, lambda r: self._cycle(top, r).to(r.dtype), like,
+                rtol=rtol, maxiter=maxiter)
+        return loop
+
     def solve_cg(self, b: torch.Tensor, rtol: float = 1e-9,
-                 maxiter: int = 200, fmg: bool = False) -> CGResult:
+                 maxiter: int = 200, fmg: bool = False,
+                 capture: bool | None = None) -> CGResult:
         """MG-preconditioned CG on the flat rhs ``b``, in the [nb, P]
         layout where the fine level has it; ``fmg=True`` starts from
-        :meth:`fmg_guess`."""
+        :meth:`fmg_guess`.
+
+        On the card a hierarchy that :meth:`graph_ok` admits solves as
+        captured programs (the counterpart of the JAX package's one
+        jitted program): the FMG start and ``cg_init`` as one, a CG
+        iteration with one V-cycle as another, cached by ``(rtol,
+        maxiter, b.dtype)`` and ``fmg``.  ``capture=False`` runs the eager
+        loop instead (the comparison and per-kernel profiling);
+        ``capture=True`` raises where graphs cannot run.  Other
+        hierarchies, and the CPU, run the eager loop."""
         top = self.n_levels - 1
         A = self.ells[top]
+        if capture is None:
+            capture = b.device.type == "cuda" and self.graph_ok()
+        if capture:
+            loop = self.cg_loop(rtol, maxiter, b.dtype)
+            key = (rtol, maxiter, b.dtype, fmg)
+            if key not in self._starts:
+                b_in = torch.zeros_like(b)
+                self._starts[key] = (loop.start_program(
+                    lambda: self._to_t(top, b_in),
+                    self.fmg_guess if fmg else None), b_in)
+            start, b_in = self._starts[key]
+            b_in.copy_(b)
+            n = loop.run(start)
+            x, res = cg_finish(loop.state)
+            return CGResult(x=x.T.clone(memory_format=torch.contiguous_format)
+                            .reshape(-1), iterations=n, residual=res)
         if self._is_t(top):
             bt = self._to_t(top, b)
             x0 = self.fmg_guess(bt) if fmg else None

@@ -396,6 +396,9 @@ class BlockBanded:
         y = self.matvec_t(xt)
         return y.T.reshape(-1) if x.dim() == 1 else y.T
 
+    def __matmul__(self, x):
+        return self.matvec(x)
+
     def fused_cheb_ok(self) -> bool:
         """Every band smooths fused: K2 on the i-major copy, fused K0 on
         the o-major band."""
@@ -679,6 +682,9 @@ class BlockPacked:
         xt = x.reshape(self.n_block_rows, self.n_basis).T
         y = self.matvec_t(xt)
         return y.T.reshape(-1) if x.dim() == 1 else y.T
+
+    def __matmul__(self, x):
+        return self.matvec(x)
 
     def fused_cheb_ok(self) -> bool:
         """Fused smoothing (K7) covers full-colouring packs only: a far
