@@ -148,9 +148,26 @@ Phases (each must pass; nothing falls back to the CPU):
      idle share; the graph trace must hold records of the port's kernels),
      masked iterations and host reads per call, capture seconds and the
      graph pool's MB; the monodomain's integrals of u and u^2 within 1e-6
-     of the eager ones.  Phases 5-12 solve through the graphs wherever a
-     hierarchy admits them (Multigrid.graph_ok), so their launch counts
-     include replays (each replay adds its program's launches).
+     of the eager ones.  Phases 4-12 solve through the graphs (CG over
+     every hierarchy Multigrid.graph_ok admits, SA-AMG's CG, GMRES), so
+     their launch counts include replays (each replay adds its
+     program's launches).
+ 14. the remaining one-program solves (solvers/graphs.GMRESLoop, SA-AMG's
+     captured CG, and CG over block-ELL, matrix-free and bf16-vector
+     hierarchies) against the eager loops, as phase 13 holds its arms, on
+     the systems of phases 10 and 11: darcy_stokes MG-GMRES at n=64 and
+     n=128, its block-Jacobi GMRES at n=32 (at its 12000-step cap), oseen
+     MG-GMRES at n=64, SA-AMG on phase 10's n=64 COO Poisson system, the
+     matrix-free composition and the bf16-vector lex flagship of phase
+     11; and a 2D n=32 R-tree hierarchy whose permuted fine level is
+     block-ELL.  Per arm: equal iterations, solutions within 1e-12 (f64)
+     or 1e-6 (f32) of each other, the MG-GMRES ones within 1e-6 of the
+     dense solve (phase 10's checks hold on the captured path too), warm
+     medians (range; one warm call each where an eager solve takes
+     seconds), one traced captured solve (idle share; records of the
+     port's kernels, or any device operation where the arm has none) and
+     the eager one where its launches are few enough to trace, masked
+     steps, host reads, capture seconds and the graph pool's MB.
 K0 (o-major banded SpMV) and fused K0 (its Chebyshev step/residual, all
 three modes) are held against their plain versions on the real bands of
 phases 5-7 once each exists (phase 3's check, on real bands): the
@@ -1958,6 +1975,15 @@ def phase10(torch, dev):
     if not float(ra.residual) <= 1e-9 * float(b.norm()) * 1.01 or \
             not dx <= 1e-7:
         fail(f"AMG n=64 disagrees with R3MG: {dx:.3e}")
+    # phase 14: the same AMG solve eager against captured (no kernel of
+    # the port: the trace's device operations are BlockMatrix gathers,
+    # products and sums)
+    graph_arm(torch, "SA-AMG 3D p=1 n=64",
+              lambda: xi(amg.solve_cg(b, rtol=1e-9, capture=False)),
+              lambda: xi(amg.solve_cg(b, rtol=1e-9)),
+              amg._loops[(1e-9, 300, b.dtype)][0], reps=1, tol=1e-12,
+              trace_eager=False, cold_eager=False, records=any_op,
+              phase="14", store=ARMS14)
     del rm, A, b, ah, amg, ra
     torch.cuda.empty_cache()
     for n in (16, 32):
@@ -2001,7 +2027,8 @@ def phase10(torch, dev):
         dx = float((r.x - xd).abs().max()) / float(xd.abs().max())
         log(f"  (b) darcy n={n} ({s.space.n_dofs} DoF): MG-GMRES "
             f"{r.iterations} iterations (recorded "
-            f"{DARCY_ITS.get(n, '-')}), {t_mg:.3f} s setup + solve; dense "
+            f"{DARCY_ITS.get(n, '-')}), {t_mg:.3f} s setup + solve "
+            f"(setup {r.setup_s:.3f}, captured solve {r.solve_s:.3f}); dense "
             f"build + solve {t_dense:.3f} s; max |x_mg - x_dense| / max "
             f"|x_dense| = {dx:.3e}; errors {e}")
         if n in DARCY_ITS and abs(r.iterations - DARCY_ITS[n]) > 2:
@@ -2010,13 +2037,29 @@ def phase10(torch, dev):
         if not dx <= 1e-6:
             fail(f"darcy n={n}: MG-GMRES differs from the dense solve by "
                  f"{dx:.3e}")
-        if n == 64:
+        if n == 32:
+            # phase 14: block-Jacobi GMRES(60) at solve_darcy_stokes_
+            # iterative's rtol, cut to 20 restarts: it meets no rtol 1e-10
+            # within its default 200 either (12000 steps, ~50 s eager), so
+            # both paths run every step to the cap
+            gmres_arm(torch, "darcy n=32 block-Jacobi GMRES (20 restarts)",
+                      ds._regularized(s), s.op.block_jacobi(), s.rhs,
+                      dict(restart=60, rtol=1e-10, max_restarts=20), xd,
+                      reps=1, trace_eager=False, cold_eager=False,
+                      gate_dense=False, records=any_op)
+        if n in (64, 128):
             M = ds.mg_block_preconditioner(s, mesh, n, 2,
                                            ps_mode="mass+stab",
                                            structure="tri")
-            bands["darcy u"] = M.mgs["u"].ells[-1]
-            bands["darcy pD"] = M.mgs["pD"].ells[-1]
-            log(f"  (b) darcy n=64 launches over MG setup + solve: {counts}")
+            gmres_arm(torch, f"darcy n={n} MG-GMRES", ds._regularized(s), M,
+                      s.rhs, dict(restart=200, rtol=COUPLED_RTOL,
+                                  max_restarts=40), xd,
+                      reps=1, trace_eager=n == 64)
+            if n == 64:
+                bands["darcy u"] = M.mgs["u"].ells[-1]
+                bands["darcy pD"] = M.mgs["pD"].ells[-1]
+                log(f"  (b) darcy n=64 launches over MG setup + solve: "
+                    f"{counts}")
             del M
         del s, xd, r
         torch.cuda.empty_cache()
@@ -2046,7 +2089,8 @@ def phase10(torch, dev):
         dx = float((r.x - xd).abs().max()) / float(xd.abs().max())
         jits = JAX_COUPLED.get(f"oseen_n{n}", {}).get("mg_iterations", "-")
         log(f"  (c) oseen n={n} ({space.n_dofs} DoF): MG-GMRES "
-            f"{r.iterations} iterations (JAX {jits}), {t_mg:.3f} s; max "
+            f"{r.iterations} iterations (JAX {jits}), {t_mg:.3f} s (setup "
+            f"{r.setup_s:.3f}, captured solve {r.solve_s:.3f}); max "
             f"|x_mg - x_dense| / max |x_dense| = {dx:.3e}; errors {e}")
         if not dx <= 1e-6:
             fail(f"oseen n={n}: MG-GMRES differs from the dense solve by "
@@ -2058,6 +2102,10 @@ def phase10(torch, dev):
                 f"{oseen_counts}")
             M = os_.oseen_mg_preconditioner(space, op, meta, mesh, n, 2)
             bands["oseen proxy"] = M.mgs[2].ells[-1]
+            gmres_arm(torch, "oseen n=64 MG-GMRES",
+                      os_._regularized(space, op, meta), M, rhs,
+                      dict(restart=200, rtol=COUPLED_RTOL, max_restarts=40),
+                      xd, reps=1, trace_eager=False, cold_eager=False)
             del M
         del space, xd, meta, op, rhs, r
         torch.cuda.empty_cache()
@@ -2243,8 +2291,10 @@ def matfree_check(torch, dev, keep):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     b = keep["b"]
-    res = mg.solve_cg(b, rtol=1e-8, fmg=True)  # cold
-    # the warm solve counts its matrix-free applies
+    res = mg.solve_cg(b, rtol=1e-8, fmg=True)  # the capture and a solve
+    counts = dict(_build.launches)
+    # an eager solve counts its matrix-free applies (a replay runs no
+    # Python)
     fine_op, n_apply = mg.ells[-1].op, [0]
     apply0 = fine_op.apply
 
@@ -2253,13 +2303,8 @@ def matfree_check(torch, dev, keep):
         return apply0(u)
 
     fine_op.apply = counted
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    res = mg.solve_cg(b, rtol=1e-8, fmg=True)
-    torch.cuda.synchronize()
-    solve_s = time.perf_counter() - t1
+    mg.solve_cg(b, rtol=1e-8, fmg=True, capture=False)
     fine_op.apply = apply0
-    counts = dict(_build.launches)
     peak, resident = peak_mb(torch, base)
     x = res.x
     bnorm = float(b.norm())
@@ -2269,11 +2314,12 @@ def matfree_check(torch, dev, keep):
     kinds = [type(e).__name__ for e in mg.ells]
     p5, r5 = keep["mem5"]
     log(f"  matrix-free fine level over assembled coarse levels {kinds}: "
-        f"setup {setup_s:.3f} s, warm solve {solve_s:.4f} s with "
-        f"{n_apply[0]} matrix-free applies, "
+        f"setup {setup_s:.3f} s (warm solves: phase 14's arm below; "
+        f"{n_apply[0]} matrix-free applies in an eager one), "
         f"{res.iterations} iterations (assembled: {keep['its']}), relative "
         f"residual {rel:.3e}; max |x - x_f64| / max |x_f64| = {diff:.3e}")
-    log(f"  device memory above the baseline, setup + 2 solves: matrix-free "
+    log(f"  device memory above the baseline, setup + 2 solves (one "
+        f"captured, one eager): matrix-free "
         f"composition peak {peak:.1f} MB, resident {resident:.1f} MB; "
         f"assembled (phase 5) peak {p5:.1f} MB, resident {r5:.1f} MB")
     log(f"  launches over setup + 2 solves: {counts}")
@@ -2300,6 +2346,15 @@ def matfree_check(torch, dev, keep):
         if counts[name] <= 0:
             fail(f"kernel {name} was never launched on the matrix-free "
                  f"composition")
+    # phase 14: eager against captured (f32; the eager solve is ~250
+    # applies at ~28 ms and was run above, so one warm call each)
+    graph_arm(torch, "matrix-free flagship composition n=64",
+              lambda: xi(mg.solve_cg(b, rtol=1e-8, fmg=True,
+                                     capture=False)),
+              lambda: xi(mg.solve_cg(b, rtol=1e-8, fmg=True)),
+              mg.cg_loop(1e-8, 200, torch.float32), x64=keep["x64"],
+              reps=1, trace_eager=False, cold_eager=False, phase="14",
+              store=ARMS14)
     del mg, res, x, fine_op
     torch.cuda.empty_cache()
     return counts
@@ -2345,6 +2400,14 @@ def bf16_flagship(torch, dev, relabel, keep):
              f"residual {rel:.3e})")
     if not diff <= 1e-4:
         fail(f"{label}: f32 solution differs from the f64 one by {diff:.3e}")
+    if relabel == "lex":
+        # phase 14: eager against captured (f32 vectors' tolerance)
+        graph_arm(torch, "bf16-vector lex flagship n=64",
+                  lambda: xi(solve_flagship(fs, maxiter=200,
+                                            capture=False)),
+                  lambda: xi(solve_flagship(fs, maxiter=200)),
+                  fs.mg.cg_loop(1e-8, 200, torch.float32), x64=keep["x64"],
+                  phase="14", store=ARMS14)
     return fs, counts
 
 
@@ -2890,30 +2953,43 @@ def sharded_arm(torch, label, ss, b, x64, to64):
 
 
 def graph_arm(torch, label, eager, graph, loop, x64=None, to64=None,
-              extra=None):
-    """Phase 13, one arm: ``eager()`` and ``graph()`` each solve the same
-    system and return (x, iterations: an int or a list per step), ``loop``
-    is the graph path's ``solvers/graphs.CGLoop``.  After a cold call of
-    each, REPS13 warm calls in turns on the host clock (synchronised), then
-    one traced call of each (device busy time over the traced span).  The
-    graph solve must take the eager iterations to a solution within 1e-6
-    (max norm, relative), and within 1e-4 of ``x64`` (``to64(x)`` where
-    given: an f64 solution of the same system); its trace must hold kernel
-    records.  ``extra(x_eager, x_graph)`` adds numbers to the row."""
+              extra=None, reps=REPS13, tol=1e-6, trace_eager=True,
+              cold_eager=True, eager_reads=None, records=None, phase="13",
+              store=None):
+    """Phase 13 (or 14), one arm: ``eager()`` and ``graph()`` each solve
+    the same system and return (x, iterations: an int or a list per step),
+    ``loop`` is the graph path's ``solvers/graphs`` loop (``CGLoop`` or
+    ``GMRESLoop``).  After a cold call of each (of the graph only without
+    ``cold_eager``: an eager solve of seconds that has nothing to warm),
+    ``reps`` warm calls in turns on the host clock (synchronised), then
+    one traced call of the graph (and, with ``trace_eager``, of the eager)
+    solve (device busy time over the traced span).  The graph solve must
+    take the eager iterations to a solution within ``tol`` (max norm,
+    relative), and within 1e-4 of ``x64`` (``to64(x)`` where given: an
+    f64 solution of the same system); its trace must hold records of the
+    port's kernels
+    (``records(name)`` picks them; by default the banded and packed
+    kernels').  ``eager_reads(per, iterations)`` counts the eager solve's
+    host reads (default: CG's).  ``extra(x_eager, x_graph)`` adds numbers
+    to the row, which goes to ``store`` (default ``ARMS``)."""
     import statistics
 
     from polydeal_tpu_torch.models.profile_flagship import _traced
+
+    if records is None:
+        records = lambda name: "banded" in name or "packed" in name
 
     def sync_call(fn):
         out = fn()
         torch.cuda.synchronize()
         return out
 
-    xe, ie = sync_call(eager)
+    if cold_eager:
+        sync_call(eager)
     xg, ig = sync_call(graph)  # the capture, where not already made
     times = {"eager": [], "graph": []}
     before = dict(loop.total)
-    for _ in range(REPS13):
+    for _ in range(reps):
         for name, fn in (("eager", eager), ("graph", graph)):
             t0 = time.perf_counter()
             out = sync_call(fn)
@@ -2922,45 +2998,48 @@ def graph_arm(torch, label, eager, graph, loop, x64=None, to64=None,
                 xe, ie = out
             else:
                 xg, ig = out
-    per = {k: (loop.total[k] - before[k]) / REPS13
-           for k in ("runs", "iterations", "masked", "host_reads")}
+    per = {k: (loop.total[k] - before[k]) / reps for k in before}
     traced = {}
     for name, fn in (("eager", eager), ("graph", graph)):
-        span, busy, n_ops, ops = _traced(fn, top=8)
+        if name == "eager" and not trace_eager:
+            continue
+        span, busy, n_ops, ops = _traced(fn, top=None)
         traced[name] = dict(span_ms=span, busy_ms=busy,
                             idle_share=1.0 - busy / span, device_ops=n_ops,
-                            kernel_records=sum(
-                                o["count"] for o in ops
-                                if "banded" in o["name"]
-                                or "packed" in o["name"]))
+                            kernel_records=sum(o["count"] for o in ops
+                                               if records(o["name"])))
     n_it = sum(ie) if isinstance(ie, list) else ie
+    # cg_solve reads its loop condition once an iteration, once more to
+    # stop, and k once at the end
+    reads = (eager_reads or (lambda p, n: n + 2 * p["runs"]))(per, n_it)
     row = dict(
         iterations_eager=ie, iterations_graph=ig,
         diff_graph_eager=float((xg.double() - xe.double()).abs().max())
         / float(xe.double().abs().max()),
         **{f"{k}_s": dict(median=statistics.median(v), min=min(v),
                           max=max(v)) for k, v in times.items()},
-        traced=traced,
-        cg_runs_per_call=per["runs"], masked_per_call=per["masked"],
+        traced=traced, reps=reps,
+        runs_per_call=per["runs"], masked_per_call=per["masked"],
         host_reads_graph_per_call=per["host_reads"],
-        # cg_solve reads its loop condition once an iteration, once more
-        # to stop, and k once at the end
-        host_reads_eager_per_call=n_it + 2 * per["runs"],
+        host_reads_eager_per_call=reads,
         capture_s=sum(p.seconds for p in loop.captured),
         pool_mb=sum(p.pool_bytes for p in loop.captured) / 2**20)
+    if "cycles" in per:
+        row["cycles_per_call"] = per["cycles"]
     if x64 is not None:
         row["diff_f32_f64"] = float(
             ((to64(xg) if to64 else xg.double()) - x64).abs().max()) / float(
                 x64.abs().max())
     ext = extra(xe, xg) if extra is not None else {}
     row.update(ext)
-    ARMS[label] = row
+    (ARMS if store is None else store)[label] = row
     med = {k: row[f"{k}_s"]["median"] for k in times}
-    log(f"  phase 13, {label}: iterations eager {ie}, graph {ig}; max |x_g "
-        f"- x_e| / max |x_e| = {row['diff_graph_eager']:.3e}"
+    tag = f"phase {phase}, {label}"
+    log(f"  {tag}: iterations eager {ie}, graph {ig}; max |x_g - x_e| / "
+        f"max |x_e| = {row['diff_graph_eager']:.3e}"
         + (f", f32 vs f64 {row['diff_f32_f64']:.3e}" if x64 is not None
            else ""))
-    log(f"    warm host-clock s over {REPS13}: eager median {med['eager']:.5f}"
+    log(f"    warm host-clock s over {reps}: eager median {med['eager']:.5f}"
         f" ({row['eager_s']['min']:.5f}-{row['eager_s']['max']:.5f}), graph "
         f"median {med['graph']:.5f} ({row['graph_s']['min']:.5f}-"
         f"{row['graph_s']['max']:.5f})")
@@ -2969,23 +3048,115 @@ def graph_arm(torch, label, eager, graph, loop, x64=None, to64=None,
             f"{t['span_ms']:.3f} ms, idle share {t['idle_share']:.1%}, "
             f"{t['device_ops']} device operations, {t['kernel_records']} "
             f"records of the port's kernels")
-    log(f"    per call: {per['runs']:.0f} CG run(s), masked iterations "
-        f"{per['masked']:.2f}, host reads graph {per['host_reads']:.1f} "
-        f"eager {row['host_reads_eager_per_call']:.1f}; capture "
+    log(f"    per call: {per['runs']:.0f} run(s)"
+        + (f", {per['cycles']:.1f} cycle(s)" if "cycles" in per else "")
+        + f", masked {per['masked']:.2f}, host reads graph "
+        f"{per['host_reads']:.1f} eager {reads:.1f}; capture "
         f"{row['capture_s']:.3f} s, graph pool {row['pool_mb']:.1f} MB"
         + "".join(f"; {k} {v:.3e}" for k, v in ext.items()))
     if ig != ie:
-        fail(f"phase 13, {label}: graph iterations {ig}, eager {ie}")
-    if not row["diff_graph_eager"] <= 1e-6:
-        fail(f"phase 13, {label}: graph solution differs from the eager one "
-             f"by {row['diff_graph_eager']:.3e}")
+        fail(f"{tag}: graph iterations {ig}, eager {ie}")
+    if not row["diff_graph_eager"] <= tol:
+        fail(f"{tag}: graph solution differs from the eager one by "
+             f"{row['diff_graph_eager']:.3e} > {tol:g}")
     if x64 is not None and not row["diff_f32_f64"] <= 1e-4:
-        fail(f"phase 13, {label}: graph f32 solution differs from the f64 "
-             f"one by {row['diff_f32_f64']:.3e}")
+        fail(f"{tag}: graph f32 solution differs from the f64 one by "
+             f"{row['diff_f32_f64']:.3e}")
     if traced["graph"]["kernel_records"] <= 0:
-        fail(f"phase 13, {label}: the graph solve's trace holds no record "
-             f"of the port's kernels")
+        fail(f"{tag}: the graph solve's trace holds no record of the "
+             f"port's kernels")
     return row
+
+
+# phase 14: the remaining one-program solves (GMRES, SA-AMG's CG, the
+# block-ELL, matrix-free and bf16-vector hierarchies), captured against
+# eager, per arm, in the phases whose systems they reuse
+ARMS14 = {}
+
+
+def any_op(name):
+    """Every device operation counts as a record (the arms that run no
+    kernel of the port)."""
+    return True
+
+
+def gmres_arm(torch, label, A, M, b, kw, x_dense, reps, trace_eager=True,
+              cold_eager=True, gate_dense=True, records=None):
+    """Phase 14, one GMRES arm: ``gmres_solve(capture=False)`` against a
+    ``GMRESLoop`` on the same (A, M, b), through :func:`graph_arm` (f64:
+    1e-12); the graph solution against the dense one (1e-6, MG-GMRES's
+    phase-10 check, where ``gate_dense``)."""
+    from polydeal_tpu_torch.solvers.gmres import gmres_solve
+    from polydeal_tpu_torch.solvers.graphs import GMRESLoop
+
+    loop = GMRESLoop(A, M, b, **kw)
+
+    def eager():
+        r = gmres_solve(A, b, M=M, capture=False, **kw)
+        return r.x, r.iterations
+
+    def graph():
+        r = loop.solve(b)
+        return r.x, r.iterations
+
+    def extra(xe, xg):
+        return {"diff_graph_dense": float((xg - x_dense).abs().max())
+                / float(x_dense.abs().max())}
+
+    # gmres_solve reads active once a step and once more a cycle, go once
+    # a cycle and once more, then the total and the residual
+    row = graph_arm(torch, label, eager, graph, loop, extra=extra,
+                    reps=reps, tol=1e-12, trace_eager=trace_eager,
+                    cold_eager=cold_eager,
+                    eager_reads=lambda p, n: n + 2 * p["cycles"] + 3,
+                    records=records, phase="14", store=ARMS14)
+    if gate_dense and not row["diff_graph_dense"] <= 1e-6:
+        fail(f"phase 14, {label}: the graph solution differs from the "
+             f"dense solve by {row['diff_graph_dense']:.3e}")
+    return row
+
+
+def ell_arm(torch, dev, n=32):
+    """Phase 14's block-ELL arm: the 2D R-tree hierarchy at ``n`` (levels
+    from extraction level 2) with its fine polytopes renumbered by a
+    seeded permutation (tests/test_torch_coo_multigrid.py's, there at
+    n=16), so the fine level has more than 96 band offsets and goes to
+    block-ELL, run flat; f64 R3MG-CG to rtol 1e-9, eager against
+    captured."""
+    import math
+
+    import numpy as np
+
+    import polydeal_tpu_torch as tpd
+    from polydeal_tpu_torch.agglomeration import RTreeAgglomerator
+    from polydeal_tpu_torch.assembly import sipg as tsipg
+    from polydeal_tpu_torch.solvers import multigrid as tmg
+    from polydeal_tpu_torch.sparse import BlockELL
+
+    m = tpd.hyper_cube(2, n)
+    agg = RTreeAgglomerator.build(m.cell_centers())
+    hs, ps = tmg.build_rtree_hierarchy(m, agg, list(range(2, agg.n_levels
+                                                          - 1)), degree=1)
+    perm = np.random.default_rng(3).permutation(hs[-1].n_poly)
+    hs = hs[:-1] + [tpd.AgglomerationHandler(m, perm[hs[-1].cell2poly],
+                                             degree=1)]
+    ps = ps[:-1] + [np.asarray(ps[-1])[np.argsort(perm)]]
+    u = lambda x: torch.prod(torch.sin(math.pi * x), dim=-1)
+    A = tsipg.assemble_sipg_matrix(hs[-1], device=dev)
+    b = tsipg.assemble_rhs(hs[-1], lambda x: 2 * math.pi**2 * u(x), u,
+                           device=dev)
+    mg = tmg.build_multigrid(hs, ps, A, device=dev)
+    kinds = [type(e).__name__ for e in mg.ells]
+    log(f"  phase 14, block-ELL arm: 2D n={n} permuted R-tree hierarchy, "
+        f"levels {[h.n_poly for h in hs]} {kinds}, {hs[-1].n_dofs} DoF")
+    if not isinstance(mg.ells[-1], BlockELL) or not mg.graph_ok():
+        fail(f"phase 14: the permuted fine level is {kinds[-1]}, graph_ok "
+             f"{mg.graph_ok()}")
+    graph_arm(torch, f"ELL-level COO 2D n={n}",
+              lambda: xi(mg.solve_cg(b, capture=False)),
+              lambda: xi(mg.solve_cg(b)),
+              mg.cg_loop(1e-9, 200, torch.float64), tol=1e-12, phase="14",
+              store=ARMS14)
 
 
 def main() -> int:
@@ -3210,6 +3381,9 @@ def main() -> int:
     del keep, keep9
     log("phase 13: captured solves against eager ones (arms run in phases "
         "5-8): " + json.dumps(ARMS))
+    ell_arm(torch, dev)
+    log("phase 14: the remaining one-program solves against eager ones "
+        "(arms run in phases 10, 11 and here): " + json.dumps(ARMS14))
     torch.distributed.destroy_process_group()
     shutil.rmtree(store_dir, ignore_errors=True)
     kres.update(halo_rows)

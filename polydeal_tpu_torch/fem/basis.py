@@ -22,6 +22,20 @@ import torch
 __all__ = ["LegendreDGP", "TensorDGQ", "make_basis"]
 
 
+_CONSTS: dict = {}
+
+
+def _const(key: tuple, make, dtype, device) -> torch.Tensor:
+    """The host table ``make()`` as a ``dtype`` tensor on ``device``, made
+    once a key: an evaluation then copies nothing from the host, which a
+    captured CUDA graph could not hold."""
+    k = key + (dtype, torch.device(device))
+    t = _CONSTS.get(k)
+    if t is None:
+        t = _CONSTS[k] = torch.as_tensor(make(), dtype=dtype, device=device)
+    return t
+
+
 def _legendre_1d_all(x: torch.Tensor, degree: int):
     """Orthonormal shifted Legendre values/derivatives on [0,1].
 
@@ -39,8 +53,9 @@ def _legendre_1d_all(x: torch.Tensor, degree: int):
         vals.append(((2 * k + 1) * t * vals[k] - k * vals[k - 1]) / (k + 1))
         # P'_{k+1}(t) = P'_{k-1}(t) + (2k+1) P_k(t)
         ders.append(ders[k - 1] + (2 * k + 1) * vals[k])
-    scale = torch.as_tensor(np.sqrt(2.0 * np.arange(degree + 1) + 1.0),
-                            dtype=x.dtype, device=x.device)
+    scale = _const(("legendre_scale", degree),
+                   lambda: np.sqrt(2.0 * np.arange(degree + 1) + 1.0),
+                   x.dtype, x.device)
     V = torch.stack(vals, dim=-1) * scale
     # d/dx = 2 d/dt
     D = torch.stack(ders, dim=-1) * (2.0 * scale)
@@ -80,8 +95,8 @@ class LegendreDGP:
         return comb(self.degree + self.dim, self.dim)
 
     def _index(self, d: int, device) -> torch.Tensor:
-        return torch.as_tensor(self.exponents[:, d], dtype=torch.long,
-                               device=device)
+        return _const((type(self).__name__, self.dim, self.degree, d),
+                      lambda: self.exponents[:, d], torch.long, device)
 
     def eval(self, points: torch.Tensor) -> torch.Tensor:
         """points [..., dim] -> values [..., n_basis]."""
@@ -202,12 +217,13 @@ class TensorDGQ:
         dpowers = torch.stack(
             [k * x ** max(k - 1, 0) if k > 0 else torch.zeros_like(x)
              for k in range(n)], dim=-1)
-        C = torch.as_tensor(self._coeffs, dtype=x.dtype, device=x.device)
+        C = _const(("dgq_coeffs", self.degree), lambda: self._coeffs,
+                   x.dtype, x.device)
         return powers @ C, dpowers @ C
 
     def _index(self, d: int, device) -> torch.Tensor:
-        return torch.as_tensor(self.exponents[:, d], dtype=torch.long,
-                               device=device)
+        return _const((type(self).__name__, self.dim, self.degree, d),
+                      lambda: self.exponents[:, d], torch.long, device)
 
     def eval(self, points: torch.Tensor) -> torch.Tensor:
         """points [..., dim] -> values [..., n_basis]."""

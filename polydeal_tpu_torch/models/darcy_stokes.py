@@ -357,14 +357,17 @@ def solve_darcy_stokes_dense(sys: StokesDarcySystem) -> torch.Tensor:
 
 
 def solve_darcy_stokes_iterative(sys: StokesDarcySystem, rtol: float = 1e-10,
-                                 restart: int = 60, max_restarts: int = 200):
+                                 restart: int = 60, max_restarts: int = 200,
+                                 capture: bool | None = None):
     """GMRES(restart) on the coupled operator (+ the rank-1 zero-mean
-    term) with field-wise block-Jacobi."""
-    from polydeal_tpu_torch.solvers.gmres import gmres_solve
+    term) with field-wise block-Jacobi; ``capture`` as in
+    ``gmres_solve`` (on the card: captured programs), the result's
+    ``setup_s`` the block inversions'."""
+    from polydeal_tpu_torch.solvers.gmres import timed_gmres
 
-    return gmres_solve(_regularized(sys), sys.rhs, M=sys.op.block_jacobi(),
-                       restart=restart,
-                       rtol=rtol, max_restarts=max_restarts)
+    return timed_gmres(_regularized(sys), sys.rhs, sys.op.block_jacobi,
+                       restart=restart, rtol=rtol,
+                       max_restarts=max_restarts, capture=capture)
 
 
 def block_hierarchy(mesh, n: int, block: int, degree: int):
@@ -566,17 +569,23 @@ def mg_block_preconditioner(sys: StokesDarcySystem, mesh, n: int,
 def solve_darcy_stokes_mg(sys: StokesDarcySystem, mesh, n: int, block: int,
                           rtol: float = 1e-10, restart: int = 200,
                           max_restarts: int = 40, ps_mode: str = "mass+stab",
-                          structure: str = "tri"):
+                          structure: str = "tri",
+                          capture: bool | None = None):
     """GMRES with the field-wise R3MG preconditioner, block-triangular by
     default (velocity V-cycle, stabilized pressure-Schur pS block, pD
-    V-cycle): mesh-robust iteration counts."""
-    from polydeal_tpu_torch.solvers.gmres import gmres_solve
+    V-cycle): mesh-robust iteration counts.  ``capture`` as in
+    ``gmres_solve`` (on the card: the cycle's start, a step with the
+    field V-cycles and the cycle's end as captured programs); the
+    result's ``setup_s`` is the preconditioner's (the level systems and
+    multigrids), ``solve_s`` the solve's."""
+    from polydeal_tpu_torch.solvers.gmres import timed_gmres
 
-    M = mg_block_preconditioner(sys, mesh, n, block, ps_mode=ps_mode,
-                                structure=structure)
-    return gmres_solve(_regularized(sys), sys.rhs, M=M, restart=restart,
-                       rtol=rtol,
-                       max_restarts=max_restarts)
+    return timed_gmres(
+        _regularized(sys), sys.rhs,
+        lambda: mg_block_preconditioner(sys, mesh, n, block, ps_mode=ps_mode,
+                                        structure=structure),
+        restart=restart, rtol=rtol, max_restarts=max_restarts,
+        capture=capture)
 
 
 def errors(sys: StokesDarcySystem, x: torch.Tensor):

@@ -36,7 +36,8 @@ def solve_diffusion_reaction(
 ) -> dict:
     """Solve -Laplace u + c u = f, u = prod sin(pi x), on ``device``;
     returns n_dofs, iterations and l2 (the JAX package's keys) and the
-    solution ``x``."""
+    solution ``x``.  The multigrid and SA-AMG solves run on the card as
+    captured programs."""
     from polydeal_tpu_torch.agglomeration import (
         RTreeAgglomerator,
         agglomerate_by_partition,

@@ -24,6 +24,11 @@ V-cycle's smoothing vectors in bf16 (``Multigrid.setup``), at 2-3x the CG
 iterations in the JAX package's measurements, so ``solve_flagship`` may
 need a larger ``maxiter``.
 
+Every arm solves on the card as captured programs (``solve_flagship``:
+``Multigrid.solve_cg``), bf16 smoothing vectors included, as does the
+matrix-free composition (``build_multigrid(matfree_fine=True)`` on this
+hierarchy, ``chip_smoke.py`` phase 11).
+
 ``relabel=None`` is ``bench.py``'s ``BENCH_RELABEL=none`` arm: every level
 keeps the R-tree's leaf-rank numbering, so the fine band has many offsets
 (37 at n=64) while a lane touches at most 7.  Every level but the

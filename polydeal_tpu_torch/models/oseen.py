@@ -278,14 +278,16 @@ def solve_oseen_dense(space, op, rhs, meta) -> torch.Tensor:
 
 
 def solve_oseen_iterative(space, op, rhs, meta, rtol: float = 1e-10,
-                          restart: int = 60, max_restarts: int = 200):
+                          restart: int = 60, max_restarts: int = 200,
+                          capture: bool | None = None):
     """GMRES(restart) with field-wise block-Jacobi on the coupled operator
-    (+ the rank-1 zero-mean term)."""
-    from polydeal_tpu_torch.solvers.gmres import gmres_solve
+    (+ the rank-1 zero-mean term); ``capture`` as in ``gmres_solve``, the
+    result's ``setup_s`` the block inversions'."""
+    from polydeal_tpu_torch.solvers.gmres import timed_gmres
 
-    return gmres_solve(_regularized(space, op, meta), rhs,
-                       M=op.block_jacobi(), restart=restart, rtol=rtol,
-                       max_restarts=max_restarts)
+    return timed_gmres(_regularized(space, op, meta), rhs, op.block_jacobi,
+                       restart=restart, rtol=rtol,
+                       max_restarts=max_restarts, capture=capture)
 
 
 def oseen_block_hierarchy(mesh, n: int, block: int, degree: int):
@@ -401,18 +403,24 @@ def oseen_mg_preconditioner(space, op, meta, mesh, n: int, block: int,
 
 def solve_oseen_mg(space, op, rhs, meta, mesh, n: int, block: int,
                    rtol: float = 1e-10, restart: int = 200,
-                   max_restarts: int = 40, structure: str = "diag"):
+                   max_restarts: int = 40, structure: str = "diag",
+                   capture: bool | None = None):
     """GMRES with a field-wise R3MG preconditioner: each space's velocity
     block gets a penalty-matched scalar SIPG V-cycle per component
     (scaled by 1/nu), the pressures keep the stabilization block-Jacobi
     (``structure='diag'``, the default) or, block-lower-triangularly,
     stabilized mass-Schur blocks (``'tri'``: measured worse in the JAX
-    package, kept for study)."""
-    from polydeal_tpu_torch.solvers.gmres import gmres_solve
+    package, kept for study).  ``capture`` as in ``gmres_solve``; the
+    result's ``setup_s`` is the preconditioner's, ``solve_s`` the
+    solve's."""
+    from polydeal_tpu_torch.solvers.gmres import timed_gmres
 
-    M = oseen_mg_preconditioner(space, op, meta, mesh, n, block, structure)
-    return gmres_solve(_regularized(space, op, meta), rhs, M=M,
-                       restart=restart, rtol=rtol, max_restarts=max_restarts)
+    return timed_gmres(
+        _regularized(space, op, meta), rhs,
+        lambda: oseen_mg_preconditioner(space, op, meta, mesh, n, block,
+                                        structure),
+        restart=restart, rtol=rtol, max_restarts=max_restarts,
+        capture=capture)
 
 
 def oseen_errors(space, x, meta):

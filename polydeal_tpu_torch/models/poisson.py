@@ -67,10 +67,13 @@ def solve_poisson(
     CG, on an R-tree hierarchy), 'cg' (block-Jacobi CG; also what 'mg'
     runs without a hierarchy) or 'amg' (CG preconditioned by SA-AMG on the
     assembled matrix, ``solvers/amg.py``; its setup runs on the host).
+    The 'mg' and 'amg' solves run on the card as captured programs.
 
     Returns the JAX package's keys (n_cells, n_poly, n_dofs, iterations,
     residual, l2, h1, t_setup, t_assembly, t_solve: host seconds, read
-    after a device synchronise on CUDA) plus ``x`` (the solution),
+    after a device synchronise on CUDA) plus ``t_precond`` (the part of
+    t_solve that built the multigrid or SA-AMG hierarchy, else 0.0),
+    ``x`` (the solution),
     ``handlers`` (the fine handler last), ``A`` (the fine BlockMatrix),
     ``b``, ``mg`` (None without multigrid), ``amg`` (the SA-AMG
     hierarchy of the 'amg' arm, else None) and ``levels``
@@ -158,14 +161,19 @@ def solve_poisson(
 
     t0 = time.perf_counter()
     mg = amg = None
+    t_precond = 0.0
     if solver == "mg" and handlers is not None and len(handlers) > 1:
         mg = build_multigrid(handlers, parents, A, dtype=dtype, device=device)
+        sync()
+        t_precond = time.perf_counter() - t0
         res = mg.solve_cg(b, rtol=rtol)
     elif solver == "amg":
         # the reference's Trilinos-AMG comparison arm
         # (examples/agglo_amg.cc:1473-1530), as smoothed aggregation on the
         # assembled matrix
         amg = build_amg(A, nullspace=block_nullspace(ah))
+        sync()
+        t_precond = time.perf_counter() - t0
         res = amg.solve_cg(b, rtol=rtol)
     else:
         res = cg_solve(A.matvec, b,
@@ -192,6 +200,7 @@ def solve_poisson(
         t_setup=t_setup,
         t_assembly=t_asm,
         t_solve=t_solve,
+        t_precond=t_precond,
         x=res.x,
         handlers=handlers or [ah],
         A=A,

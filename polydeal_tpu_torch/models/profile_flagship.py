@@ -5,6 +5,8 @@ Run from the root of a checkout, on a machine with a CUDA card::
 
     python -m polydeal_tpu_torch.models.profile_flagship [--relabel none]
     python -m polydeal_tpu_torch.models.profile_flagship --model monodomain
+    python -m polydeal_tpu_torch.models.profile_flagship --model oseen
+    python -m polydeal_tpu_torch.models.profile_flagship --model amg
 
 Sets the flagship (n=64, p=1) up on ``cuda:0`` -- with ``--relabel none``
 without the lex relabel, so the fine level and levels 4096 and 32768 are
@@ -39,6 +41,18 @@ measures, both ways: the 20 warm BDF2 steps after the BDF1 one through
 BDF2 step, read as the traced solve above; and one V-cycle and one
 fine-level SpMV by CUDA events.
 
+With ``--model oseen`` it sets up the Oseen (Kovasznay) system at n=64
+and its field-wise R3MG preconditioner (``models/oseen.py``, the
+MG-GMRES of ``chip_smoke.py`` phase 10, rtol 1e-11) and measures the
+GMRES solve both ways (``gmres_solve(capture=False)`` against one
+``solvers/graphs.GMRESLoop``); with ``--model amg`` the SA-AMG CG solve
+(``AMG.solve_cg``) of the n=64 3D p=1 COO Poisson system (1,048,576 DoF,
+phase 9's; its host setup ~20 s).  Each: the preconditioner's setup
+seconds, warm solves on the host clock (one warm-up each, then
+``REPEATS_SLOW`` in turns), the captured loop's cost, one preconditioner
+application and one operator application by CUDA events, and one traced
+warm solve each.
+
 Prints the card and a table, and last one JSON object with every number.
 """
 
@@ -53,12 +67,14 @@ import time
 import torch
 
 __all__ = ["busy_us", "traced_span", "device_intervals", "main",
-           "profile_flagship", "profile_monodomain"]
+           "profile_flagship", "profile_monodomain", "profile_oseen",
+           "profile_amg"]
 
 _LABEL = "flagship_solve"  # the traced range's record_function label
 N = 64
 N_STEPS = 20  # monodomain BDF2 steps per timed pass (bench.py's)
 REPEATS = 11
+REPEATS_SLOW = 5  # the oseen and amg solves (seconds each, eager)
 # (name, capture) of the two solve paths: the eager loop and the captured
 # programs (solvers/graphs), the default on the card
 MODES = (("eager", False), ("graph", None))
@@ -84,12 +100,14 @@ def busy_us(intervals, lo: float, hi: float) -> float:
 
 def traced_span(events, label: str) -> tuple:
     """(start_us, end_us) of the host-side ``record_function`` range
-    ``label`` in a profiler trace; it must occur once."""
-    span = [e for e in events if e.name == label
-            and e.device_type == torch.autograd.DeviceType.CPU]
+    ``label`` in a profiler trace's events (``kineto_results.events()``,
+    read as they are: a solve of a million launches makes no Python event
+    tree); it must occur once."""
+    span = [e for e in events if e.name() == label
+            and e.device_type() == torch.autograd.DeviceType.CPU]
     if len(span) != 1:
         raise RuntimeError(f"{len(span)} ranges {label!r} in the trace")
-    return span[0].time_range.start, span[0].time_range.end
+    return span[0].start_ns() / 1e3, span[0].end_ns() / 1e3
 
 
 def device_intervals(events, label: str):
@@ -97,8 +115,8 @@ def device_intervals(events, label: str):
     trace (kernels, copies, fills), leaving out the device-side copy of
     the ``record_function`` range ``label``, which spans them all."""
     cuda = torch.autograd.DeviceType.CUDA
-    return [(e.name, e.time_range.start, e.time_range.end)
-            for e in events if e.device_type == cuda and e.name != label]
+    return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in events if e.device_type() == cuda and e.name() != label]
 
 
 def _cuda_ms(fn, reps: int = 20) -> float:
@@ -114,17 +132,18 @@ def _cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _traced(fn, top: int):
+def _traced(fn, top: int | None):
     """Trace one call of ``fn`` under ``torch.profiler``: (span_ms,
     busy_ms, device operations (launches, copies and fills), the ``top``
-    device operations by total time as dicts)."""
+    device operations by total time as dicts; every one with
+    ``top=None``)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         with torch.profiler.record_function(_LABEL):
             fn()
             torch.cuda.synchronize()  # the range spans fn's device work
-    events = prof.events()
+    events = prof.profiler.kineto_results.events()
     lo, hi = traced_span(events, _LABEL)
     dev_ev = device_intervals(events, _LABEL)
     if not dev_ev:
@@ -150,12 +169,12 @@ def _print_ops(tables) -> None:
                   f"{d['share']:6.1%}")
 
 
-def _modes(run, reps: int = REPEATS) -> dict:
+def _modes(run, reps: int = REPEATS, warm: int = 2) -> dict:
     """Host-clock seconds of ``run(capture)`` (synchronised) for the eager
     loop (capture=False) and the captured programs (capture=None), after
-    two warm-up calls each, ``reps`` calls each in turns."""
+    ``warm`` warm-up calls each, ``reps`` calls each in turns."""
     for _, capture in MODES:
-        for _ in range(2):
+        for _ in range(warm):
             run(capture)
     walls = {"eager": [], "graph": []}
     for _ in range(reps):
@@ -225,6 +244,82 @@ def profile_monodomain(dev, smi: str) -> dict:
         **parts, traced_step=traced)
 
 
+def _graph_cost(loop) -> dict:
+    """A captured loop's last solve and its programs' capture seconds and
+    pool MB."""
+    return dict(loop.last, capture_s=sum(p.seconds for p in loop.captured),
+                pool_mb=sum(p.pool_bytes for p in loop.captured) / 2**20)
+
+
+def _solve_modes(solve, loop, setup_s, parts, extra) -> dict:
+    """The numbers of a solve measured both ways: ``solve(capture)``
+    returns its iterations; ``loop`` serves the captured solves."""
+    iters = {}
+
+    def run(capture):
+        iters[capture] = solve(capture)
+        torch.cuda.synchronize()
+
+    walls = _modes(run, reps=REPEATS_SLOW, warm=1)
+    cost = _graph_cost(loop)
+    traced = _traced_modes(run, top=15)
+    _print_ops([(f"solve, {m}", traced[m]["top_ops"]) for m, _ in MODES])
+    return dict(extra, iterations=iters[None], iterations_eager=iters[False],
+                setup_s=setup_s,
+                warm_solve_s={m: _spread(v) for m, v in walls.items()},
+                graph_cost=cost, **parts, traced_solve=traced)
+
+
+def profile_oseen(dev, smi: str, n: int = N) -> dict:
+    """The oseen MG-GMRES numbers (see the module docstring)."""
+    from polydeal_tpu_torch.models import oseen as os_
+    from polydeal_tpu_torch.solvers.gmres import gmres_solve
+    from polydeal_tpu_torch.solvers.graphs import GMRESLoop
+
+    space, _, meta = os_.run(n, 2, device=dev)
+    op, rhs = meta["system"]
+    A = os_._regularized(space, op, meta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M = os_.oseen_mg_preconditioner(space, op, meta, os_._rectangle(n), n,
+                                    2)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kw = dict(restart=200, rtol=1e-11, max_restarts=40)
+    loop = GMRESLoop(A, M, rhs, **kw)
+
+    def solve(capture):
+        if capture is None:
+            return loop.solve(rhs).iterations
+        return gmres_solve(A, rhs, M=M, capture=False, **kw).iterations
+
+    parts = dict(precond_ms=_cuda_ms(lambda: M(rhs)),
+                 operator_ms=_cuda_ms(lambda: A(rhs)))
+    return _solve_modes(solve, loop, setup_s, parts, dict(
+        card=smi, model="oseen", n=n, n_dofs=space.n_dofs,
+        levels={deg: [e.n_block_rows for e in mg.ells]
+                for deg, mg in M.mgs.items()}))
+
+
+def profile_amg(dev, smi: str, n: int = N) -> dict:
+    """The SA-AMG CG numbers (see the module docstring)."""
+    from polydeal_tpu_torch.models.poisson import solve_poisson
+
+    rp = solve_poisson(dim=3, n=n, degree=1, solver="amg", device=dev,
+                       verbose=False)  # a captured solve: the loop exists
+    A, b, amg = rp["A"], rp["b"], rp["amg"]
+    loop = amg._loops[(1e-9, 300, b.dtype)][0]
+
+    def solve(capture):
+        return amg.solve_cg(b, rtol=1e-9, capture=capture).iterations
+
+    parts = dict(v_cycle_ms=_cuda_ms(lambda: amg.v_cycle(b)),
+                 fine_spmv_ms=_cuda_ms(lambda: A.matvec(b)))
+    return _solve_modes(solve, loop, rp["t_precond"], parts, dict(
+        card=smi, model="amg", n=n, n_dofs=int(b.shape[0]),
+        levels=[m.shape[0] for m in amg.As]))
+
+
 def profile_flagship(dev, smi: str, relabel) -> dict:
     """The flagship's numbers (see the module docstring)."""
     from polydeal_tpu_torch.assembly.sipg import (
@@ -246,11 +341,7 @@ def profile_flagship(dev, smi: str, relabel) -> dict:
         return res
 
     walls = _modes(solve)
-    loop = mg.cg_loop(1e-8, 100, fs.b.dtype)
-    graph_cost = dict(loop.last, capture_s=sum(p.seconds
-                                               for p in loop.captured),
-                      pool_mb=sum(p.pool_bytes
-                                  for p in loop.captured) / 2**20)
+    graph_cost = _graph_cost(mg.cg_loop(1e-8, 100, fs.b.dtype))
     parts = dict(v_cycle_ms=_cuda_ms(lambda: mg.v_cycle(fs.b)),
                  fine_spmv_ms=_cuda_ms(lambda: mg.ells[-1].matvec_t(bt)),
                  fmg_ms=_cuda_ms(lambda: mg.fmg_guess(bt)))
@@ -284,8 +375,8 @@ def profile_flagship(dev, smi: str, relabel) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("flagship", "monodomain"),
-                    default="flagship")
+    ap.add_argument("--model", choices=("flagship", "monodomain", "oseen",
+                                        "amg"), default="flagship")
     ap.add_argument("--relabel", choices=("lex", "none"), default="lex",
                     help="the flagship hierarchy's numbering (none: packed "
                          "levels)")
@@ -300,13 +391,18 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     if args.model == "monodomain":
         out = profile_monodomain(dev, smi)
+    elif args.model == "oseen":
+        out = profile_oseen(dev, smi)
+    elif args.model == "amg":
+        out = profile_amg(dev, smi)
     else:
         out = profile_flagship(dev, smi,
                                None if args.relabel == "none" else "lex")
-    ph = out["setup_phases_s"]
-    print(f"first use, before and outside the setup phases (s): kernel_load "
-          f"{ph['kernel_load']:.3f}, cuda_init {ph['cuda_init']:.3f}",
-          flush=True)
+    ph = out.get("setup_phases_s")
+    if ph is not None:
+        print(f"first use, before and outside the setup phases (s): "
+              f"kernel_load {ph['kernel_load']:.3f}, cuda_init "
+              f"{ph['cuda_init']:.3f}", flush=True)
     print(json.dumps(out), flush=True)
     return 0
 

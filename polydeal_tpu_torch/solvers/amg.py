@@ -18,18 +18,21 @@ alone.
   and a deterministic segment sum; no kernel, as in the JAX package, where
   these are XLA gathers and segment sums), smoothing is the shared
   :class:`ChebyshevSmoother` with point Jacobi, the coarse solve an
-  explicit dense inverse, and CG runs around the V-cycle.
+  explicit dense inverse, and CG runs around the V-cycle: on the card as
+  captured programs (``solvers/graphs.CGLoop``), the counterpart of the
+  JAX package's jitted ``_amg_solve_cg``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from polydeal_tpu_torch.solvers.cg import CGResult, cg_solve
+from polydeal_tpu_torch.solvers.cg import CGResult, cg_finish, cg_solve
 from polydeal_tpu_torch.solvers.chebyshev import ChebyshevSmoother
+from polydeal_tpu_torch.solvers.graphs import CGLoop
 from polydeal_tpu_torch.sparse import BlockMatrix
 
 __all__ = ["AMG", "build_amg", "constant_nullspace", "block_nullspace"]
@@ -169,6 +172,10 @@ class AMG:
     coarse_inv: torch.Tensor
     chebyshev_degree: int = 3
     n_smooth: int = 1
+    # captured solves: (CGLoop, start program, its rhs buffer) by (rtol,
+    # maxiter, dtype); the levels are baked into them
+    _loops: dict = field(default_factory=dict, init=False, repr=False,
+                         compare=False)
 
     @property
     def n_levels(self) -> int:
@@ -199,9 +206,31 @@ class AMG:
         return self._cycle(self.n_levels - 1, b)
 
     def solve_cg(self, b: torch.Tensor, rtol: float = 1e-9,
-                 maxiter: int = 300) -> CGResult:
-        return cg_solve(self.As[-1].matvec, b, M=self.v_cycle, rtol=rtol,
-                        maxiter=maxiter)
+                 maxiter: int = 300,
+                 capture: bool | None = None) -> CGResult:
+        """CG preconditioned by one V-cycle (the JAX package's jitted
+        ``_amg_solve_cg``).  On the card (``capture=None``) as captured
+        programs (``solvers/graphs.CGLoop``: the start and one iteration,
+        made at the first solve of each ``(rtol, maxiter, dtype)`` and
+        replayed by later ones); ``capture=False`` runs the eager loop,
+        ``capture=True`` off CUDA raises."""
+        if capture is None:
+            capture = b.device.type == "cuda"
+        if not capture:
+            return cg_solve(self.As[-1].matvec, b, M=self.v_cycle,
+                            rtol=rtol, maxiter=maxiter)
+        key = (rtol, maxiter, b.dtype)
+        if key not in self._loops:
+            loop = CGLoop(self.As[-1].matvec, self.v_cycle, b, rtol=rtol,
+                          maxiter=maxiter)
+            b_in = torch.zeros_like(b)
+            self._loops[key] = (loop, loop.start_program(lambda: b_in),
+                                b_in)
+        loop, start, b_in = self._loops[key]
+        b_in.copy_(b)
+        n = loop.run(start)
+        x, res = cg_finish(loop.state)
+        return CGResult(x=x.clone(), iterations=n, residual=res)
 
 
 def build_amg(

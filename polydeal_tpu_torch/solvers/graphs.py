@@ -28,6 +28,12 @@ is a few ``torch.cuda.CUDAGraph``s over static buffers:
   keeps one body ahead.  Bodies queued after convergence are masked:
   no-ops on the state that still cost device time, counted in
   ``last["masked"]``.
+* :class:`GMRESLoop` is GMRES (``solvers/gmres``) as three captured
+  programs on one static ``GMRESState``: a restart cycle's start, one
+  masked Arnoldi step and the cycle's end.  :meth:`GMRESLoop.solve` queues
+  the steps of a cycle as :meth:`CGLoop.run` queues bodies (as many as the
+  same cycle of the previous solve took, then one ahead), and reads the
+  outer loop's condition once a cycle, after the cycle's end.
 
 CUDA's conditional WHILE nodes would be the exact counterpart of
 ``while_loop`` (no host read at all); they are not used yet.
@@ -43,8 +49,16 @@ import torch
 
 from polydeal_tpu_torch.ops import _build
 from polydeal_tpu_torch.solvers.cg import CGState, cg_body, cg_init
+from polydeal_tpu_torch.solvers.gmres import (
+    GMRESResult,
+    gmres_cycle_end,
+    gmres_cycle_start,
+    gmres_init,
+    gmres_reset,
+    gmres_step,
+)
 
-__all__ = ["Program", "capture", "CGLoop"]
+__all__ = ["Program", "capture", "CGLoop", "GMRESLoop"]
 
 
 class Program:
@@ -214,3 +228,114 @@ class CGLoop:
         for k, v in self.last.items():
             self.total[k] += v
         return n
+
+
+class GMRESLoop:
+    """GMRES(``restart``) (``solvers/gmres``) on static buffers as captured
+    programs: the cycle's start, one masked Arnoldi step and the cycle's
+    end, all three captured at the first solve, before it resets the
+    state (their warm-ups run on that state), in one shared pool.
+
+    ``A`` and ``M`` act on vectors like ``like``; ``rtol`` and
+    ``max_restarts`` are fixed as in :func:`gmres_solve`.  After a solve,
+    ``last`` holds what it cost: ``iterations``, ``replays`` (steps
+    queued), ``masked`` (``replays - iterations``), ``cycles`` and
+    ``host_reads`` (event waits: each queued step's condition that the
+    host needed, and the outer condition after the reset and after each
+    cycle); ``total`` sums them over every solve, with ``runs``."""
+
+    def __init__(self, A: Callable, M: Callable | None, like: torch.Tensor,
+                 *, restart: int, rtol: float, max_restarts: int):
+        if like.device.type != "cuda":
+            raise ValueError(f"captured programs need a CUDA tensor, not "
+                             f"one on {like.device}")
+        self.A, self.M = A, M
+        self.restart, self.rtol, self.max_restarts = (restart, rtol,
+                                                      max_restarts)
+        self.device = like.device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.b = torch.zeros_like(like)
+        self.state = gmres_init(like, restart)
+        self.programs = None  # (cycle start, step, cycle end)
+        self.captured = []
+        # flags[j]: the cycle's active after j steps (0: after its start)
+        self._flags = torch.zeros(restart + 1, dtype=torch.bool,
+                                  pin_memory=True)
+        self._events = [torch.cuda.Event() for _ in range(restart + 1)]
+        self._go = torch.zeros((), dtype=torch.bool, pin_memory=True)
+        self._res = torch.zeros((), dtype=like.dtype, pin_memory=True)
+        self._end = torch.cuda.Event()
+        self.pred = []  # the steps of each cycle of the previous solve
+        self.last = {}
+        self.total = dict.fromkeys(("runs", "iterations", "replays",
+                                    "masked", "cycles", "host_reads"), 0)
+
+    def _capture(self) -> None:
+        st = self.state
+        self.programs = [
+            capture(fn, lambda _: None, device=self.device, pool=self.pool)
+            for fn in (lambda: gmres_cycle_start(self.A, self.b, st),
+                       lambda: gmres_step(self.A, self.M, st),
+                       lambda: gmres_cycle_end(st, self.max_restarts))]
+        self.captured.extend(self.programs)
+
+    def _read_go(self) -> bool:
+        self._go.copy_(self.state.go, non_blocking=True)
+        self._res.copy_(self.state.res, non_blocking=True)
+        self._end.record()
+        self._end.synchronize()
+        return bool(self._go)
+
+    def solve(self, b: torch.Tensor,
+              x0: torch.Tensor | None = None) -> GMRESResult:
+        """GMRES on A x = b from ``x0`` (zero when None); ``x`` of the
+        result is a copy (the next solve overwrites the state)."""
+        if self.programs is None:
+            self._capture()
+        start, step, end = self.programs
+        st, m = self.state, self.restart
+        with torch.cuda.device(self.device):
+            self.b.copy_(b)
+            gmres_reset(st, self.b, x0, self.rtol, self.max_restarts)
+            go, reads, replays, cycles = self._read_go(), 1, 0, []
+            while go:
+                start.replay()
+                self._flags[0].copy_(st.active, non_blocking=True)
+                self._events[0].record()
+                c = len(cycles)
+                pred = min(self.pred[c] if c < len(self.pred) else 0, m)
+                queued, n = 0, 0
+
+                def queue_to(k):
+                    nonlocal queued
+                    while queued < min(k, m):
+                        queued += 1
+                        step.replay()
+                        self._flags[queued].copy_(st.active,
+                                                  non_blocking=True)
+                        self._events[queued].record()
+
+                queue_to(pred)
+                while True:
+                    self._events[n].synchronize()
+                    reads += 1
+                    if not bool(self._flags[n]):
+                        break
+                    n += 1
+                    # step n is needed; past the prediction keep one ahead
+                    queue_to(n + 1 if n > pred else n)
+                end.replay()
+                go = self._read_go()
+                reads += 1
+                cycles.append(n)
+                replays += queued
+        self.pred = cycles
+        its = sum(cycles)
+        self.last = dict(iterations=its, replays=replays,
+                         masked=replays - its, cycles=len(cycles),
+                         host_reads=reads)
+        self.total["runs"] += 1
+        for k, v in self.last.items():
+            self.total[k] += v
+        return GMRESResult(x=st.x.clone(), iterations=its,
+                           residual=float(self._res))

@@ -758,45 +758,55 @@ class Multigrid:
 
     def graph_ok(self) -> bool:
         """Whether :meth:`solve_cg` on the card runs as captured programs
-        (``solvers/graphs``): every level and smoother copy a
-        ``BlockBanded`` or ``BlockPacked`` (a ``BlockMatrix`` level that
-        :meth:`setup` banded counts), the fine one in the transposed
-        layout (which such a level has), an explicit-inverse or LU coarse
-        solve, and f32 or f64
-        smoothing vectors.  Block-ELL and matrix-free levels and bf16
-        sweeps keep the eager loop (ROADMAP Queue 1)."""
+        (``solvers/graphs``): every level and smoother copy one of the
+        solver layouts (``BlockBanded``, ``BlockPacked``, ``BlockELL``, a
+        ``BlockMatrix``, a ``MatrixFreeLevel``), an explicit-inverse or LU
+        coarse solve, and bf16, f32 or f64 smoothing vectors."""
+        kinds = (BlockBanded, BlockPacked, BlockELL, BlockMatrix,
+                 MatrixFreeLevel)
         ops = list(self.ells) + list(self.lo_ells or [])
-        return (all(isinstance(e, (BlockBanded, BlockPacked)) for e in ops)
+        return (all(isinstance(e, kinds) for e in ops)
                 and len(self.coarse_lu) in (1, 2)
-                and all(d.dtype in _VECTOR_DTYPES
+                and all(d.dtype in _VECTOR_DTYPES + (torch.bfloat16,)
                         for d in (self.lo_dinvs or [None])[1:]))
+
+    def _fine_layout(self):
+        """(operator, preconditioner, in, out) of the CG this hierarchy
+        preconditions: in the [nb, P] layout where the fine level has it
+        (``in``/``out`` map a flat vector to it and back), else flat."""
+        top = self.n_levels - 1
+        M = lambda r: self._cycle(top, r).to(r.dtype)
+        if self._is_t(top):
+            return (self.ells[top].matvec_t, M,
+                    lambda v: self._to_t(top, v),
+                    lambda x: x.T.reshape(-1))
+        return self.ells[top].matvec, M, lambda v: v, lambda x: x
 
     def cg_loop(self, rtol: float, maxiter: int, dtype) -> CGLoop:
         """The captured CG of this hierarchy for ``(rtol, maxiter,
         dtype)`` (made at first use): the fine operator, one V-cycle as M,
-        in the [nb, P] layout.  Callers with their own right-hand side
-        (the monodomain step) add start programs to it."""
+        in the fine level's layout (:meth:`_fine_layout`).  Callers with
+        their own right-hand side (the monodomain step) add start programs
+        to it."""
         key = (rtol, maxiter, dtype)
         loop = self._loops.get(key)
         if loop is None:
             if not self.graph_ok():
-                raise ValueError("this hierarchy's levels are not all "
-                                 "banded or packed: no captured solve")
-            top = self.n_levels - 1
-            A = self.ells[top]
-            like = torch.zeros((A.n_basis, A.n_block_rows), dtype=dtype,
-                               device=A.offsets_t.device)
-            loop = self._loops[key] = CGLoop(
-                A.matvec_t, lambda r: self._cycle(top, r).to(r.dtype), like,
-                rtol=rtol, maxiter=maxiter)
+                raise ValueError("this hierarchy's levels are not all in "
+                                 "the solver layouts: no captured solve")
+            A, M, to_in, _ = self._fine_layout()
+            like = to_in(torch.zeros(self.ells[-1].shape[0], dtype=dtype,
+                                     device=self.coarse_lu[0].device))
+            loop = self._loops[key] = CGLoop(A, M, like, rtol=rtol,
+                                             maxiter=maxiter)
         return loop
 
     def solve_cg(self, b: torch.Tensor, rtol: float = 1e-9,
                  maxiter: int = 200, fmg: bool = False,
                  capture: bool | None = None) -> CGResult:
         """MG-preconditioned CG on the flat rhs ``b``, in the [nb, P]
-        layout where the fine level has it; ``fmg=True`` starts from
-        :meth:`fmg_guess`.
+        layout where the fine level has it (:meth:`_fine_layout`);
+        ``fmg=True`` starts from :meth:`fmg_guess`.
 
         On the card a hierarchy that :meth:`graph_ok` admits solves as
         captured programs (the counterpart of the JAX package's one
@@ -804,37 +814,29 @@ class Multigrid:
         iteration with one V-cycle as another, cached by ``(rtol,
         maxiter, b.dtype)`` and ``fmg``.  ``capture=False`` runs the eager
         loop instead (the comparison and per-kernel profiling);
-        ``capture=True`` raises where graphs cannot run.  Other
-        hierarchies, and the CPU, run the eager loop."""
-        top = self.n_levels - 1
-        A = self.ells[top]
+        ``capture=True`` raises where graphs cannot run.  The CPU runs
+        the eager loop."""
         if capture is None:
             capture = b.device.type == "cuda" and self.graph_ok()
+        A, M, to_in, to_out = self._fine_layout()
         if capture:
             loop = self.cg_loop(rtol, maxiter, b.dtype)
             key = (rtol, maxiter, b.dtype, fmg)
             if key not in self._starts:
                 b_in = torch.zeros_like(b)
                 self._starts[key] = (loop.start_program(
-                    lambda: self._to_t(top, b_in),
-                    self.fmg_guess if fmg else None), b_in)
+                    lambda: to_in(b_in), self.fmg_guess if fmg else None),
+                    b_in)
             start, b_in = self._starts[key]
             b_in.copy_(b)
             n = loop.run(start)
             x, res = cg_finish(loop.state)
-            return CGResult(x=x.T.clone(memory_format=torch.contiguous_format)
-                            .reshape(-1), iterations=n, residual=res)
-        if self._is_t(top):
-            bt = self._to_t(top, b)
-            x0 = self.fmg_guess(bt) if fmg else None
-            res = cg_solve(A.matvec_t, bt, x0=x0,
-                           M=lambda r: self._cycle(top, r).to(r.dtype),
-                           rtol=rtol, maxiter=maxiter)
-            return CGResult(x=res.x.T.reshape(-1), iterations=res.iterations,
-                            residual=res.residual)
-        x0 = self.fmg_guess(b) if fmg else None
-        return cg_solve(A.matvec, b, x0=x0, M=self.v_cycle, rtol=rtol,
-                        maxiter=maxiter)
+            return CGResult(x=to_out(x).clone(), iterations=n, residual=res)
+        bt = to_in(b)
+        res = cg_solve(A, bt, x0=self.fmg_guess(bt) if fmg else None, M=M,
+                       rtol=rtol, maxiter=maxiter)
+        return CGResult(x=to_out(res.x), iterations=res.iterations,
+                        residual=res.residual)
 
 
 def band_offsets(h: AgglomerationHandler) -> np.ndarray:

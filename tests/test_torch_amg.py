@@ -6,7 +6,10 @@ x to 1e-10); ``build_amg`` end to end (the same iterations); the
 reference's R3MG-beats-AMG comparison on the port; the two model arms
 (``solve_poisson(solver="amg")``, diffusion-reaction's partition arm) at
 the JAX tests' sizes (the same iterations, L2/H1 to 1e-8 relative); input
-validation.  The JAX side shares one problem per file."""
+validation; ``solve_cg(capture=False)``, the eager loop that the captured
+solve is held to on a card, against the JAX package's jitted solve, with
+CG bodies after the stop leaving the state bitwise unchanged.  The JAX
+side shares one problem per file."""
 
 import math
 
@@ -34,6 +37,7 @@ from polydeal_tpu_torch.assembly import sipg as tsipg  # noqa: E402
 from polydeal_tpu_torch.models import diffusion_reaction as tdr  # noqa: E402
 from polydeal_tpu_torch.models import poisson as tpoisson  # noqa: E402
 from polydeal_tpu_torch.solvers import amg as tamg  # noqa: E402
+from polydeal_tpu_torch.solvers.cg import cg_body, cg_init  # noqa: E402
 from polydeal_tpu_torch.solvers import multigrid as tmg  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -197,6 +201,36 @@ def test_diffusion_reaction_partition_arm_matches_jax(n):
                                      verbose=False, device=CPU)
     assert a["n_dofs"] == b["n_dofs"] and a["iterations"] == b["iterations"]
     assert _rel(a["l2"], b["l2"]) <= TOL
+
+
+def test_solve_cg_capture_false_matches_jax(problem):
+    """``AMG.solve_cg(capture=False)`` against the JAX package's jitted
+    ``_amg_solve_cg``: its iterations, x to 1e-10; the CPU's default path
+    is the same loop (bitwise), ``capture=True`` raises off CUDA; CG bodies
+    through the V-cycle after the stop leave the state bitwise as it
+    was, as a captured loop's masked replays need."""
+    amg_t = tamg.build_amg(problem["At"],
+                           nullspace=tamg.block_nullspace(problem["hb"][-1]),
+                           coarse_max=100)
+    bt = problem["bt"]
+    ra = problem["amg_j"].solve_cg(problem["bj"], rtol=1e-9)
+    rb = amg_t.solve_cg(bt, rtol=1e-9, capture=False)
+    assert rb.iterations == int(ra.iterations) > 1
+    xa = np.asarray(ra.x)
+    assert np.abs(rb.x.numpy() - xa).max() <= 1e-10 * np.abs(xa).max()
+    rd = amg_t.solve_cg(bt, rtol=1e-9)
+    assert rd.iterations == rb.iterations and torch.equal(rd.x, rb.x)
+    with pytest.raises(ValueError):
+        amg_t.solve_cg(bt, rtol=1e-9, capture=True)
+    A, M = amg_t.As[-1].matvec, amg_t.v_cycle
+    st, tol = cg_init(A, bt, None, M, 1e-9, maxiter=300)
+    while bool(st.active):
+        st = cg_body(A, M, st, tol, 300)
+    for _ in range(3):
+        nxt = cg_body(A, M, st, tol, 300)
+        assert all(torch.equal(p, q) for p, q in zip(nxt, st))
+        st = nxt
+    assert int(st.k) == rb.iterations and torch.equal(st.x, rb.x)
 
 
 def test_amg_input_validation(problem):

@@ -285,9 +285,11 @@ def test_port_never_imports_jax():
     packed one without the relabel, two monodomain steps, a sharded solve
     (one shard, structured hierarchy), the COO path's Poisson solves (R3MG
     and block-Jacobi CG), a diffusion-reaction convergence study, the
-    matrix-free fine level's MG-CG, a bf16-vector flagship solve and the
-    io, accessor and gmsh modules leave jax and the JAX package out of
-    sys.modules."""
+    matrix-free fine level's MG-CG, a bf16-vector flagship solve, the io,
+    accessor and gmsh modules, the device-state GMRES and its captured
+    loop's module (darcy_stokes' block-Jacobi GMRES and oseen's MG-GMRES
+    at n=4 through the eager loop) and SA-AMG's CG leave jax and the JAX
+    package out of sys.modules."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -348,6 +350,21 @@ def test_port_never_imports_jax():
         "fs = setup_flagship(n=4, device=cpu,\n"
         "                    vector_dtype=torch.bfloat16)\n"
         "assert solve_flagship(fs, maxiter=200).iterations > 0\n"
+        "import polydeal_tpu_torch.solvers.graphs\n"
+        "import polydeal_tpu_torch.solvers.gmres\n"
+        "import polydeal_tpu_torch.fem.basis, polydeal_tpu_torch.fem.system\n"
+        "import polydeal_tpu_torch.assembly.mixed\n"
+        "from polydeal_tpu_torch.models import darcy_stokes, oseen\n"
+        "s, _ = darcy_stokes.run(4, 2, device=cpu)\n"
+        "assert darcy_stokes.solve_darcy_stokes_iterative(\n"
+        "    s, capture=False).iterations > 0\n"
+        "sp, _, meta = oseen.run(4, 2, device=cpu)\n"
+        "op, rhs = meta['system']\n"
+        "assert oseen.solve_oseen_mg(sp, op, rhs, meta, oseen._rectangle(4),\n"
+        "                            4, 2).iterations > 0\n"
+        "r = solve_poisson(dim=2, n=8, solver='amg', verbose=False,\n"
+        "                  device=cpu)\n"
+        "assert r['amg'].solve_cg(r['b'], capture=False).iterations > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'polydeal_tpu')]\n"
         "print('BAD', bad)\n"

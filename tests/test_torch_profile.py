@@ -31,7 +31,7 @@ def test_trace_reading_on_cpu():
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with torch.profiler.record_function(pf._LABEL):
             torch.ones(64, 64) @ torch.ones(64, 64)
-    events = prof.events()
+    events = prof.profiler.kineto_results.events()
     lo, hi = pf.traced_span(events, pf._LABEL)
     assert hi > lo
     assert pf.device_intervals(events, pf._LABEL) == []
@@ -40,7 +40,8 @@ def test_trace_reading_on_cpu():
 
 
 @pytest.mark.parametrize("argv", [[], ["--relabel", "none"],
-                                  ["--model", "monodomain"]])
+                                  ["--model", "monodomain"],
+                                  ["--model", "oseen"], ["--model", "amg"]])
 def test_profile_needs_a_card(argv, monkeypatch):
     """No CUDA device: every model's profile exits with a message and
     measures nothing on the CPU."""
