@@ -168,6 +168,20 @@ Phases (each must pass; nothing falls back to the CPU):
      port's kernels, or any device operation where the arm has none) and
      the eager one where its launches are few enough to trace, masked
      steps, host reads, capture seconds and the graph pool's MB.
+ 15. the sharded solves as one device program: (a) in phase 12, the flat
+     block-COO ShardedSystem on phase 9's n=64 COO system captured (the
+     default on the card) against its eager solve, as phase 13 holds its
+     arms (equal iterations, x within 1e-12, whether bitwise, 3 warm
+     calls each, one traced captured solve); (b) one captured program on
+     the world-size-1 NCCL group holding an exchange to self, an
+     all_reduce (PreMulSum by 2, so that it changes its input at one rank)
+     and an all_gather_into_tensor, replayed on new input, held bitwise to
+     the same calls run eagerly and to what each collective writes, its
+     traced device operations listed; (c) with two or more cards visible,
+     tools/nccl_capture_probe.py at min(4, count) ranks (both sharded
+     systems captured across the cards against their eager solves),
+     which fails the run on a mismatch or a timeout; on one card a line
+     says it needs two.
 K0 (o-major banded SpMV) and fused K0 (its Chebyshev step/residual, all
 three modes) are held against their plain versions on the real bands of
 phases 5-7 once each exists (phase 3's check, on real bands): the
@@ -2572,10 +2586,12 @@ def flat_sharded_check(torch, group, keep9, smi):
     ss = ShardedSystem.from_multigrid(mg, group)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    x, k, res = ss.solve_cg(b, rtol=1e-9, maxiter=100)  # cold
+    # eager (phase 15 (a) below holds the captured solve to this one)
+    eager = lambda: ss.solve_cg(b, rtol=1e-9, maxiter=100, capture=False)
+    x, k, res = eager()  # cold
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    x, k, res = ss.solve_cg(b, rtol=1e-9, maxiter=100)  # warm
+    x, k, res = eager()  # warm
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t1
     fine, pl = ss.levels[-1], ss.params[-1]
@@ -2587,7 +2603,7 @@ def flat_sharded_check(torch, group, keep9, smi):
         f"the fine ShardedMatrix {nnz} blocks a shard ({nbytes / 1e6:.1f} "
         f"MB), halo rows {sum(fine.n_sends)}, nested transfers "
         f"{[lv.nested_transfer for lv in ss.levels[1:]]}; setup "
-        f"{setup_s:.3f} s, warm solve {solve_s:.4f} s, {k} iterations "
+        f"{setup_s:.3f} s, warm eager solve {solve_s:.4f} s, {k} iterations "
         f"(unsharded {keep9['iterations']}), relative residual "
         f"{res / bnorm:.3e}; max |x_flat - x_unsharded| = {diff:.3e} "
         f"[{smi}]")
@@ -2603,6 +2619,16 @@ def flat_sharded_check(torch, group, keep9, smi):
     if not diff <= 1e-8:
         fail(f"flat sharded solution differs from the unsharded one by "
              f"{diff:.3e}")
+    # phase 15 (a): the same solve captured (the default on the card)
+    # against the eager one: equal iterations, x bitwise equal where no
+    # product picks another cuBLAS algorithm in the graph, else 1e-12
+    graph_arm(torch, "flat ShardedSystem n=64 COO (world size 1)",
+              lambda: eager()[:2],
+              lambda: ss.solve_cg(b, rtol=1e-9, maxiter=100)[:2],
+              ss._compiled(1e-9, 100, True, b.dtype)[0], reps=3, tol=1e-12,
+              trace_eager=False, cold_eager=False, records=any_op,
+              extra=lambda xe, xg: {"bitwise": float(torch.equal(xe, xg))},
+              phase="15", store=ARMS15)
 
 
 def sipg_plans(torch, tables, degree, dim):
@@ -3159,6 +3185,121 @@ def ell_arm(torch, dev, n=32):
               store=ARMS14)
 
 
+# phase 15: the sharded solves as one device program, NCCL inside the
+# captures; (a) runs in phase 12 on phase 9's system
+ARMS15 = {}
+
+
+def nccl_capture_check(torch, dev, group, smi):
+    """(b) of phase 15: one captured program (``solvers/graphs.capture``)
+    on the world-size-1 NCCL group that runs the three operations the
+    sharded solves put into their programs -- an ``exchange`` to self (one
+    batched send/receive pair), an ``all_reduce`` and an
+    ``all_gather_into_tensor`` -- replayed on new input and held bitwise
+    to the same calls run eagerly; one traced replay lists its device
+    operations.  Each result lands where only its collective writes: the
+    exchange and the all-gather fill fresh buffers, and the all-reduce
+    (at one rank a sum is the identity) pre-multiplies by 2 (NCCL's
+    PreMulSum), so its result is twice its input only if the replay ran
+    it."""
+    import torch.distributed as dist
+
+    from polydeal_tpu_torch.models.profile_flagship import _traced
+    from polydeal_tpu_torch.parallel.sharding import exchange
+    from polydeal_tpu_torch.solvers.graphs import capture
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn((4096, 4), generator=gen, dtype=torch.float64,
+                    device=dev)
+    n = dist.get_world_size(group)
+
+    def compute():
+        send, recv = 2.0 * x, torch.empty_like(x)
+        exchange(group, [(send, 0, recv, 0, 0)])
+        s = (x * x).sum().reshape(1)
+        dist.all_reduce(s, op=dist._make_nccl_premul_sum(2.0), group=group)
+        g = x.new_empty((n * x.shape[0], x.shape[1]))
+        dist.all_gather_into_tensor(g, x + 1.0, group=group)
+        return recv, s, g
+
+    outs = [torch.zeros_like(t) for t in compute()]
+
+    def commit(res):
+        for o, t in zip(outs, res):
+            o.copy_(t)
+
+    prog = capture(compute, commit, device=dev,
+                   pool=torch.cuda.graph_pool_handle())
+    x.copy_(torch.randn(x.shape, generator=gen, dtype=x.dtype, device=dev))
+    prog.replay()
+    torch.cuda.synchronize()
+    want = compute()
+    torch.cuda.synchronize()
+    same = [torch.equal(o, w) for o, w in zip(outs, want)]
+    # what the replayed collectives wrote: 2x received, x . x doubled on
+    # each of the n ranks and summed, x + 1 gathered
+    ran = [torch.equal(outs[0], 2.0 * x),
+           torch.equal(outs[1], 2.0 * n * (x * x).sum().reshape(1)),
+           torch.equal(outs[2], (x + 1.0).repeat(n, 1))]
+    # the device operations of 5 replays; a trace that comes back without
+    # device records is taken again, up to three times
+    names = None
+    for _ in range(3):
+        TRACES["taken"] += 1
+        try:
+            _, _, n_ops, ops = _traced(
+                lambda: [prog.replay() for _ in range(5)], top=None)
+            names = sorted({o["name"][:60] for o in ops})
+            break
+        except RuntimeError:
+            TRACES["empty"] += 1
+    log(f"  (b) NCCL inside a capture at world size 1: exchange to self, "
+        f"all_reduce, all_gather_into_tensor replayed on new input, bitwise "
+        f"equal to the eager calls {same}, each the collective's own result "
+        f"{ran}; capture {prog.seconds:.3f} s, "
+        f"pool {prog.pool_bytes / 2**20:.1f} MB; 5 traced replays: "
+        + (f"{n_ops} device operations: {names}" if names is not None
+           else "3 traces held no device record") + f" [{smi}]")
+    if not all(same) or not all(ran):
+        fail(f"phase 15 (b): the captured collectives differ from the eager "
+             f"ones {same} or from their own results {ran}")
+    return dict(bitwise=same, ran=ran, capture_s=prog.seconds,
+                device_ops=names)
+
+
+def cross_gpu_check(torch, smi):
+    """(c) of phase 15: with two or more cards visible, the probe
+    ``tools/nccl_capture_probe.py`` at min(4, count) ranks (both sharded
+    systems captured across the cards, held to their eager solves); it
+    fails the run on a mismatch or a timeout.  With one card nothing runs."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"  (c) the cross-GPU check needs two cards ({count} visible): "
+            f"not run; PERF.md holds the 4-GPU run of "
+            f"tools/nccl_capture_probe.py --nproc 4")
+        return None
+    nproc = min(4, count)
+    r = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "nccl_capture_probe.py"),
+         "--nproc", str(nproc), "--n", "64", "--timeout", "600"],
+        capture_output=True, text=True, timeout=900, cwd=ROOT)
+    lines = r.stdout.strip().splitlines()
+    log(f"  (c) tools/nccl_capture_probe.py --nproc {nproc} --n 64: exit "
+        f"{r.returncode}: {lines[-1] if lines else r.stderr[-2000:]}")
+    if r.returncode != 0:
+        fail(f"phase 15 (c): the {nproc}-GPU probe failed (exit "
+             f"{r.returncode})")
+    return json.loads(lines[-1])
+
+
+def phase15(torch, dev, group, smi):
+    """Phase 15 (b) and (c), then the arms (a) ran in phase 12."""
+    log("phase 15: the sharded solves as one device program")
+    rows = dict(nccl_capture=nccl_capture_check(torch, dev, group, smi),
+                cross_gpu=cross_gpu_check(torch, smi), arms=ARMS15)
+    log("phase 15: " + json.dumps(rows))
+
+
 def main() -> int:
     import torch
 
@@ -3195,7 +3336,7 @@ def main() -> int:
     for line in ptxas_summary(_build.last_build_log()):
         log(f"  ptxas: {line}")
     # phase 8's process group: NCCL, one rank, through a FileStore
-    from polydeal_tpu_torch.parallel.sharding import init_group
+    from polydeal_tpu_torch.parallel.sharding import init_group, leave_group
     store_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     group = init_group(0, 1, device=dev,
                        store_path=os.path.join(store_dir, "store"))
@@ -3384,7 +3525,8 @@ def main() -> int:
     ell_arm(torch, dev)
     log("phase 14: the remaining one-program solves against eager ones "
         "(arms run in phases 10, 11 and here): " + json.dumps(ARMS14))
-    torch.distributed.destroy_process_group()
+    phase15(torch, dev, group, smi)
+    leave_group()
     shutil.rmtree(store_dir, ignore_errors=True)
     kres.update(halo_rows)
     for key, rows, main_row in (

@@ -19,7 +19,10 @@ from the whole system.  :func:`dryrun` is the counterpart of the repo's
 ``hyper_cube(2, 16)`` at p=1 in f64 with a packed fine level (a far
 block-COO tail once a slab is narrower than its offsets), sharded and held
 to the host solve, then the flat block-COO ``ShardedSystem`` on the 2D
-n=8 problem.
+n=8 problem.  On GPUs (NCCL) every sharded solve runs as captured programs
+by default; :func:`eager_and_graph` times it beside the eager loop
+(``capture=False``), and :func:`masked_case` runs on CPU ranks the CG that
+the captured loop replays.
 
 Usage, one GPU per rank (rank r on ``cuda:r``) or CPU processes::
 
@@ -52,15 +55,23 @@ import torch
 from polydeal_tpu_torch.models import flagship
 from polydeal_tpu_torch.models.flagship import Flagship, setup_flagship
 from polydeal_tpu_torch.parallel.banded import ShardedBandedSystem
-from polydeal_tpu_torch.parallel.sharding import ShardedSystem, init_group
+from polydeal_tpu_torch.parallel.sharding import (
+    ShardedSystem,
+    init_group,
+    leave_group,
+)
 from polydeal_tpu_torch.solvers import multigrid
+from polydeal_tpu_torch.utils.segment import SegmentSum
 
 __all__ = ["Sharded", "share", "setup_sharded", "setup_local",
            "solve_sharded", "level_meta", "max_offset", "min_ms", "run_case",
-           "local_case", "flat_problem", "flat_case", "dryrun", "run_rank",
-           "spawn"]
+           "case_flagship", "eager_and_graph", "masked_case", "local_case",
+           "flat_problem", "flat_case", "packed_problem", "dryrun",
+           "run_rank", "spawn"]
 
 REPS = 3  # warm timed solves, the least kept (bench_sharded's)
+MAXITER = 100  # CG's iteration cap in every case here
+BLIND = 3  # masked_case's bodies after the stop
 
 
 @dataclass
@@ -173,37 +184,27 @@ def run_case(case: dict, device, group) -> dict:
     names, rtol, and optionally ``pack_min_p``, a lower pack threshold for
     small test problems, and ``timed``), its sharded solve and V-cycle on
     every rank and, on rank 0 only, the unsharded no-FMG solve and V-cycle
-    they are held to; with ``timed`` both solves are timed as ``bench_sharded``
-    times them (least of ``REPS`` warm runs).  Rank 0 returns numbers and
-    host arrays, the other ranks their sharded numbers.  A case with
-    ``kind`` "local" runs :func:`local_case`, "dryrun" :func:`dryrun`,
-    "flat" :func:`flat_case`."""
+    they are held to; with ``timed`` both solves are timed as
+    ``bench_sharded`` times them (least of ``REPS`` warm runs), the sharded
+    one eager and captured (:func:`eager_and_graph`).  Rank 0 returns
+    numbers and host arrays, the other ranks their sharded numbers.  A case
+    with ``kind`` "local" runs :func:`local_case`, "dryrun" :func:`dryrun`,
+    "flat" :func:`flat_case`, "masked" :func:`masked_case`."""
     if case.get("kind") == "local":
         return local_case(case, device, group)
     if case.get("kind") == "flat":
         return flat_case(case, device, group)
     if case.get("kind") == "dryrun":
         return dryrun(device, group)
-    saved = multigrid.PACK_MIN_P
-    if case.get("pack_min_p") is not None:
-        multigrid.PACK_MIN_P = case["pack_min_p"]
-    try:
-        pdt, vdt = case.get("precond_dtype"), case.get("vector_dtype")
-        fs = setup_flagship(
-            case["n"], device=device,
-            dtype=getattr(torch, case.get("dtype", "float32")),
-            precond_dtype=None if pdt is None else getattr(torch, pdt),
-            vector_dtype=None if vdt is None else getattr(torch, vdt),
-            hierarchy=case.get("hierarchy", "structured"),
-            relabel=case.get("relabel", "lex"))
-    finally:
-        multigrid.PACK_MIN_P = saved
+    if case.get("kind") == "masked":
+        return masked_case(case, device, group)
+    fs = case_flagship(case, device)
     sh = share(fs, group)
     ss, b = sh.ss, sh.b
     if ss.rank != 0:
         fs = None  # only rank 0 keeps the whole system, to compare with
     rtol = case.get("rtol", 1e-8)
-    x, k, res = ss.solve_cg(b, rtol=rtol, maxiter=100)
+    x, k, res = ss.solve_cg(b, rtol=rtol, maxiter=MAXITER)
     out = dict(n_dofs=sh.n_dofs, levels=sh.level_sizes, n_dev=ss.n_dev,
                meta=level_meta(ss), comm=ss.comm_bytes_per_spmv(),
                lo_vec=str(ss.lo_vec).removeprefix("torch."),
@@ -211,12 +212,11 @@ def run_case(case: dict, device, group) -> dict:
                iterations=k, residual=res, bnorm=float(b.norm()),
                x=x.cpu().numpy(), v_cycle=ss.v_cycle(b).cpu().numpy())
     if case.get("timed"):
-        out["sharded_ms"] = min_ms(
-            lambda: ss.solve_cg_local(b, rtol=rtol, maxiter=100), device)
+        out.update(eager_and_graph(ss, b, rtol, device))
     if fs is None:
         return out
     # no collective below: the other ranks may have left
-    ru = fs.mg.solve_cg(b, rtol=rtol, maxiter=100)
+    ru = fs.mg.solve_cg(b, rtol=rtol, maxiter=MAXITER)
     out.update(
         fine_max_offset=max_offset(fs.mg.ells[-1]),
         unsharded_iterations=ru.iterations,
@@ -225,9 +225,119 @@ def run_case(case: dict, device, group) -> dict:
         v_cycle_unsharded=fs.mg.v_cycle(b).cpu().numpy())
     if case.get("timed"):
         out["unsharded_ms"] = min_ms(
-            lambda: fs.mg.solve_cg(b, rtol=rtol, maxiter=100), device)
+            lambda: fs.mg.solve_cg(b, rtol=rtol, maxiter=MAXITER), device)
         out["ratio"] = out["sharded_ms"] / out["unsharded_ms"]
     return out
+
+
+def case_flagship(case: dict, device) -> Flagship:
+    """The flagship system of ``case`` (keys as :func:`run_case`'s)."""
+    saved = multigrid.PACK_MIN_P
+    if case.get("pack_min_p") is not None:
+        multigrid.PACK_MIN_P = case["pack_min_p"]
+    try:
+        pdt, vdt = case.get("precond_dtype"), case.get("vector_dtype")
+        return setup_flagship(
+            case["n"], device=device,
+            dtype=getattr(torch, case.get("dtype", "float32")),
+            precond_dtype=None if pdt is None else getattr(torch, pdt),
+            vector_dtype=None if vdt is None else getattr(torch, vdt),
+            hierarchy=case.get("hierarchy", "structured"),
+            relabel=case.get("relabel", "lex"))
+    finally:
+        multigrid.PACK_MIN_P = saved
+
+
+def _max_over_ranks(v: torch.Tensor, group) -> list:
+    """The entries of ``v`` (1-D), each its largest over the group."""
+    if group is not None:
+        v = v.clone()
+        torch.distributed.all_reduce(v, op=torch.distributed.ReduceOp.MAX,
+                                     group=group)
+    return v.tolist()
+
+
+def eager_and_graph(ss, b, rtol: float, device) -> dict:
+    """The eager solve (``solve_cg_local(capture=False)``) of a sharded
+    system ``ss`` (either kind) beside its default one, captured where
+    ``ss.graph_ok`` admits it (else eager again): the iterations of each,
+    whether the default was captured, the largest |x - x_eager| over every
+    rank's share relative to the largest |x_eager| (``graph_eager_diff``;
+    0: bitwise) and, where captured, the loop's replays,
+    masked bodies and host reads of its last solve (``CGLoop.last``) and
+    its programs' capture seconds and pool MB; both timed as
+    ``bench_sharded`` times a solve: ``sharded_eager_ms`` and
+    ``sharded_ms`` (least of ``REPS`` warm solves; ``sharded_ms`` is the
+    default path's).  Every rank of the group calls it."""
+    solve = lambda capture=None: ss.solve_cg_local(
+        b, rtol=rtol, maxiter=MAXITER, capture=capture)
+    x_e, k_e, _ = solve(False)
+    x_g, k_g, _ = solve()
+    captured = ss.graph_ok(b)
+    d, m = _max_over_ranks(torch.stack([(x_g - x_e).abs().max(),
+                                        x_e.abs().max()]), ss.group)
+    out = dict(eager_iterations=k_e, graph_iterations=k_g, captured=captured,
+               graph_eager_diff=d / m)
+    out["sharded_eager_ms"] = min_ms(lambda: solve(False), device)
+    out["sharded_ms"] = min_ms(solve, device)
+    if captured:
+        loop = ss._compiled(rtol, MAXITER, True, b.dtype)[0]
+        out.update({k: loop.last[k] for k in ("replays", "masked",
+                                              "host_reads")})
+        out.update(capture_s=sum(p.seconds for p in loop.captured),
+                   pool_mb=sum(p.pool_bytes for p in loop.captured) / 2**20)
+    return out
+
+
+def masked_case(case: dict, device, group) -> dict:
+    """CG of one sharded system of ``case`` on this rank as the captured
+    loop (``solvers/graphs.CGLoop``) runs it, eagerly: ``cg_init``, the
+    masked ``cg_body`` to the stop, then ``BLIND`` more bodies,
+    each of which must leave the state bitwise as it was; held to the
+    rank's eager ``solve_cg_local(capture=False)``.  ``case["system"]`` is
+    "flat" (the flat ``ShardedSystem`` on :func:`flat_problem` of
+    ``case["n"]``) or "banded" (``ShardedBandedSystem`` of the flagship of
+    the case's keys, as :func:`run_case`).  Returns every rank's record
+    (``flags``: ``active`` after the start and after each body;
+    ``unchanged`` per blind body; ``k``, ``k_eager``, ``x_equal``;
+    ``raised``: whether ``capture=True`` raised) and the gathered x."""
+    from polydeal_tpu_torch.solvers.cg import cg_body, cg_init
+
+    rtol, maxiter = case.get("rtol", 1e-9), MAXITER
+    if case["system"] == "flat":
+        _, _, b, mg = flat_problem(case["n"], device=device)
+        ss = ShardedSystem.from_multigrid(mg, group)
+    else:
+        fs = case_flagship(case, device)
+        ss, b = ShardedBandedSystem.from_multigrid(fs.mg, group), fs.b
+    A, M = ss.cg_ops()
+    st, tol = cg_init(A, ss._local(b), None, M, rtol, maxiter=maxiter,
+                      dot=ss._dot)
+    flags, unchanged = [bool(st.active)], []
+    while flags[-1]:
+        st = cg_body(A, M, st, tol, maxiter, ss._dot)
+        flags.append(bool(st.active))
+    for _ in range(BLIND):
+        nxt = cg_body(A, M, st, tol, maxiter, ss._dot)
+        unchanged.append(all(torch.equal(p, q) for p, q in zip(nxt, st)))
+        flags.append(bool(nxt.active))
+        st = nxt
+    x_e, k_e, _ = ss.solve_cg_local(b, rtol=rtol, maxiter=maxiter,
+                                    capture=False)
+    try:
+        ss.solve_cg_local(b, rtol=rtol, maxiter=maxiter, capture=True)
+        raised = False
+    except ValueError:
+        raised = True
+    mine = dict(rank=ss.rank, flags=flags, unchanged=unchanged,
+                k=int(st.k), k_eager=k_e, x_equal=torch.equal(st.x, x_e),
+                raised=raised)
+    ranks = [mine]
+    if group is not None:
+        ranks = [None] * ss.n_dev
+        torch.distributed.all_gather_object(ranks, mine, group=group)
+    return dict(n_dev=ss.n_dev, ranks=ranks, x=ss._gather(st.x).cpu().numpy(),
+                meta=(level_meta(ss) if case["system"] != "flat" else None))
 
 
 def _global_lanes(ss) -> list:
@@ -240,6 +350,17 @@ def _global_lanes(ss) -> list:
             if torch.is_tensor(t) and P_l in t.shape:
                 bad.append((li, key, tuple(t.shape)))
     return bad
+
+
+def _same(a, b) -> bool:
+    """Whether two entries of a level's params are equal: tensors bitwise,
+    segment sums by their member lists (other entries, such as kept kernel
+    launch arguments, pass)."""
+    if torch.is_tensor(b):
+        return torch.equal(a, b)
+    if isinstance(b, SegmentSum):
+        return torch.equal(a.idx, b.idx) and a.shape == b.shape
+    return True
 
 
 def local_case(case: dict, device, group) -> dict:
@@ -268,8 +389,10 @@ def local_case(case: dict, device, group) -> dict:
         multigrid.PACK_MIN_P = saved
     rtol = case.get("rtol", 1e-8)
     ss, gs = sl.ss, sg.ss
-    x, k, res = ss.solve_cg(sl.b, rtol=rtol, maxiter=100)
-    xg, kg, resg = gs.solve_cg(sg.b, rtol=rtol, maxiter=100)
+    x, k, res = ss.solve_cg(sl.b, rtol=rtol, maxiter=MAXITER)
+    xg, kg, resg = gs.solve_cg(sg.b, rtol=rtol, maxiter=MAXITER)
+    both = (eager_and_graph(ss, sl.b, rtol, device)
+            if case.get("timed") else {})
     fine = ss.params[-1]
     handlers, _, _ = flagship.flagship_hierarchy(
         case["n"], 1, kw["hierarchy"], kw["relabel"])
@@ -286,15 +409,15 @@ def local_case(case: dict, device, group) -> dict:
         lam_rel=[abs(a.hi - b.hi) / b.hi for a, b in zip(ss.levels,
                                                          gs.levels)],
         b_diff=float((ss._local(sl.b) - gs._local(sg.b)).abs().max()),
-        slabs_equal=[all(torch.equal(a[key], b[key]) for key in b
-                         if torch.is_tensor(b[key]) and key != "dinv")
+        slabs_equal=[all(_same(a[key], b[key]) for key in b
+                         if key != "dinv")
                      for a, b in zip(ss.params, gs.params)],
         dinv_diff=max(float((a["dinv"] - b["dinv"]).abs().max())
                       for a, b in zip(ss.params, gs.params)),
         fine_data_i=fine["data_i"].cpu().numpy(),
         global_lanes=_global_lanes(ss), rep_levels=ss.rep_mg.n_levels,
         table_bytes=[(st["max_host_slab_bytes"], w)
-                     for st, w in zip(ss.setup_stats, whole)])
+                     for st, w in zip(ss.setup_stats, whole)], **both)
 
 
 def flat_problem(n: int, degree: int = 1, *, device, dtype=torch.float64,
@@ -351,17 +474,12 @@ def flat_case(case: dict, device, group) -> dict:
                 l2=float(compute_global_error(hf, x, _u_exact)[0]))
 
 
-def dryrun(device, group) -> dict:
-    """The counterpart of ``__graft_entry__.dryrun_multichip`` on this
-    rank: the R-tree hierarchy on ``hyper_cube(2, 16)``, p=1, f64, banded
-    level assembly, every level of a multiple of 128 polytopes packed with
-    ``pack_near_limit=max(per // 2, 4)`` (per: the fine lanes a rank), the
-    packed fine level sharded over ``group`` and held to the host solve
-    (rtol 1e-8: the same iterations, x within 1e-9, the residual at most
-    1e-8 |b|); then the flat block-COO ``ShardedSystem`` on the 2D n=8
-    problem (f32, table assembly) at rtol 1e-6 (the same iterations, x
-    within 1e-4).  Raises on a failed hold; returns the numbers, with
-    ``comm_bytes_per_spmv(8)``."""
+def packed_problem(device, near_limit):
+    """(handlers, b, mg) of the dry run's problem: the R-tree hierarchy on
+    ``hyper_cube(2, 16)``, p=1, f64, banded level assembly, every level of
+    a multiple of 128 polytopes packed with ``pack_near_limit=
+    near_limit(P)`` (P: the fine polytopes), so that the fine pack's
+    offsets beyond it form a far block-COO tail."""
     from polydeal_tpu_torch.agglomeration import RTreeAgglomerator
     from polydeal_tpu_torch.assembly.sipg import (
         assemble_rhs,
@@ -369,10 +487,7 @@ def dryrun(device, group) -> dict:
         build_banded_groups,
     )
     from polydeal_tpu_torch.mesh import hyper_cube
-    from polydeal_tpu_torch.sparse import BlockPacked
 
-    _build_prepare(device)
-    n_dev = 1 if group is None else torch.distributed.get_world_size(group)
     f64 = torch.float64
     mesh = hyper_cube(2, 16)
     agg = RTreeAgglomerator.build(mesh.cell_centers())
@@ -384,10 +499,29 @@ def dryrun(device, group) -> dict:
     A = assemble_sipg_banded_direct(ah, groups, offs)
     del groups
     b = assemble_rhs(ah, _f_poisson, _u_exact, dtype=f64, device=device)
-    per = ah.n_poly // n_dev
     mg = multigrid.build_multigrid(
         handlers, parents, A, dtype=f64, level_assembly="banded", pack=True,
-        pack_near_limit=max(per // 2, 4), device=device)
+        pack_near_limit=near_limit(ah.n_poly), device=device)
+    return handlers, b, mg
+
+
+def dryrun(device, group) -> dict:
+    """The counterpart of ``__graft_entry__.dryrun_multichip`` on this
+    rank: the R-tree hierarchy on ``hyper_cube(2, 16)``, p=1, f64, banded
+    level assembly, every level of a multiple of 128 polytopes packed with
+    ``pack_near_limit=max(per // 2, 4)`` (per: the fine lanes a rank), the
+    packed fine level sharded over ``group`` and held to the host solve
+    (rtol 1e-8: the same iterations, x within 1e-9, the residual at most
+    1e-8 |b|); then the flat block-COO ``ShardedSystem`` on the 2D n=8
+    problem (f32, table assembly) at rtol 1e-6 (the same iterations, x
+    within 1e-4).  Raises on a failed hold; returns the numbers, with
+    ``comm_bytes_per_spmv(8)``."""
+    from polydeal_tpu_torch.sparse import BlockPacked
+
+    _build_prepare(device)
+    n_dev = 1 if group is None else torch.distributed.get_world_size(group)
+    handlers, b, mg = packed_problem(
+        device, lambda P: max(P // n_dev // 2, 4))
     fine = mg.ells[-1]
     if not isinstance(fine, BlockPacked):
         raise RuntimeError("dryrun: the fine level is not packed")
@@ -437,7 +571,7 @@ def run_rank(rank: int, world: int, device: str, store_path: str,
     try:
         results = [run_case(c, dev, group) for c in cases]
     finally:
-        torch.distributed.destroy_process_group()
+        leave_group()
     if rank == 0 and out_path is not None:
         with open(out_path + ".tmp", "wb") as f:
             pickle.dump(results, f)
@@ -493,9 +627,13 @@ def main(argv=None) -> int:
                 relabel=None if args.relabel == "none" else "lex",
                 dtype="float32", precond_dtype="bfloat16", rtol=1e-8,
                 timed=True)
+    # the eager and the captured sharded solve (eager_and_graph)
+    both = ("eager_iterations", "graph_iterations", "captured",
+            "graph_eager_diff", "sharded_eager_ms", "sharded_ms", "replays",
+            "masked", "host_reads", "capture_s", "pool_mb")
     keep = ("n_dofs", "levels", "n_dev", "meta", "comm", "iterations",
             "unsharded_iterations", "residual", "bnorm", "max_abs_diff",
-            "unsharded_ms", "sharded_ms", "ratio")
+            "unsharded_ms", "ratio") + both
     if args.dryrun:
         case = dict(kind="dryrun")
         keep = ("n_dev", "levels", "fine_has_far", "meta", "iterations",
@@ -506,7 +644,8 @@ def main(argv=None) -> int:
         case = dict(case, kind="local")
         keep = ("n_dev", "meta", "iterations", "iterations_global",
                 "residual", "bnorm", "max_abs_diff", "lam_rel", "b_diff",
-                "slabs_equal", "global_lanes", "rep_levels", "table_bytes")
+                "slabs_equal", "global_lanes", "rep_levels",
+                "table_bytes") + both
     (r,) = spawn(args.nproc, [case], device=args.device, timeout=3000.0)
     out = {k: r[k] for k in keep if k in r}
     out["device"] = "cpu"

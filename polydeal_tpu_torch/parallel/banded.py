@@ -27,11 +27,14 @@ gloo between CPU processes; only calls both support).
   * transfers between sharded levels need no communication (children of
     one parent never straddle a slab);
   * below the sharded levels the V-cycle runs replicated: one
-    ``all_gather`` of the coarse rhs, every rank runs the small bottom
-    levels (a port ``Multigrid``), then takes its own slice.
+    ``all_gather_into_tensor`` of the coarse rhs, every rank runs the
+    small bottom levels (a port ``Multigrid``), then takes its own slice.
 
 At world size 1 every exchange is a plain slice and no collective runs:
-the halo wraps onto the shard's own ends, as in the JAX package.  Smoothing
+the halo wraps onto the shard's own ends, as in the JAX package.  On the
+card a solve runs as captured programs (CUDA graphs, ``solvers/graphs``)
+at any world size on NCCL, the collectives inside them: the counterpart
+of the JAX package's jitted ``shard_map`` with its ``while_loop``.  Smoothing
 and residuals use the smoother's band copy (bf16 where ``Multigrid`` keeps
 one) and its vectors' dtype (``lo_vec``: bf16 where ``Multigrid`` was set
 up with ``vector_dtype=torch.bfloat16``, so the halo exchanges carry bf16
@@ -89,9 +92,12 @@ from polydeal_tpu_torch.ops.packed import (
     packed_band,
     packed_matvec_t_halo,
 )
-from polydeal_tpu_torch.parallel.sharding import build_halo_exchange, exchange
-from polydeal_tpu_torch.solvers.cg import cg_finish, cg_solve
-from polydeal_tpu_torch.solvers.graphs import CGLoop
+from polydeal_tpu_torch.parallel.sharding import (
+    CapturedCG,
+    build_halo_exchange,
+    captures_collectives,
+    exchange,
+)
 from polydeal_tpu_torch.solvers.chebyshev import ChebyshevSmoother
 from polydeal_tpu_torch.solvers.multigrid import (
     Multigrid,
@@ -110,6 +116,7 @@ from polydeal_tpu_torch.sparse import (
     far_blocks,
     pack_blocks,
 )
+from polydeal_tpu_torch.utils.segment import SegmentSum
 
 __all__ = ["ShardedBandedSystem"]
 
@@ -246,7 +253,7 @@ def _repacked_plan(h, pp, per: int):
                            h.n_poly, h.n_basis, near_limit=per)
 
 
-class ShardedBandedSystem:
+class ShardedBandedSystem(CapturedCG):
     """SPMD MG-CG over banded/packed levels, one rank per shard (see the
     module docstring)."""
 
@@ -393,11 +400,12 @@ class ShardedBandedSystem:
     def _build_far(lv: _SLevel, pl_: dict, rows: np.ndarray, cols: np.ndarray,
                    blocks_of, per: int, n_dev: int, rank: int):
         """This rank's rows of the far block-COO tail (``rows``/``cols``
-        global, split by row owner and zero-padded to the largest share;
-        ``blocks_of(idx)`` gives the blocks of the tail entries ``idx``,
-        which are this rank's) and its halo send lists for the remote
-        columns; every rank computes every shard's lists, so that the
-        exchange pairs up."""
+        global, split by row owner; ``blocks_of(idx)`` gives the blocks of
+        the tail entries ``idx``, which are this rank's) and its halo send
+        lists for the remote columns; every rank computes every shard's
+        lists, so that the exchange pairs up.  The exchange plan pads each
+        share to the largest; this rank keeps only its own entries (at
+        least one, zero where it has none)."""
         owner = rows // per
         counts = np.bincount(owner, minlength=n_dev)
         nnz_per = max(int(counts.max()), 1)
@@ -414,12 +422,15 @@ class ShardedBandedSystem:
         lv.nnz_far_per = nnz_per
         dev = pl_["data_i"].device
         mine = np.where(owner == rank)[0]
-        fdata = pl_["data_i"].new_zeros((nnz_per, lv.nb, lv.nb))
+        k = max(mine.size, 1)
+        fdata = pl_["data_i"].new_zeros((k, lv.nb, lv.nb))
         if mine.size:
-            fdata[:mine.size] = blocks_of(mine)
+            fdata[:] = blocks_of(mine)
         pl_["fdata"] = fdata
-        pl_["flrows"] = torch.as_tensor(flrows[rank], device=dev)
-        pl_["fcols"] = torch.as_tensor(remap[rank].astype(np.int64),
+        # the tail's rows repeat (one entry per far offset): a fixed order
+        # sum, not index_add_'s atomics, over this rank's entries only
+        pl_["frow_sum"] = SegmentSum(flrows[rank, :mine.size], per, dev)
+        pl_["fcols"] = torch.as_tensor(remap[rank, :k].astype(np.int64),
                                        device=dev)
         for t, send in enumerate(sends):
             pl_[f"fsend{t}"] = torch.as_tensor(send[rank].astype(np.int64),
@@ -657,7 +668,7 @@ class ShardedBandedSystem:
     def _far_matvec(self, lv: _SLevel, pl_, x_loc):
         """The far block-COO tail: ship only the lanes each shard needs
         (one exchange per neighbour distance), then gather, block products
-        and a scatter-add by local row, in the wider of the band's and
+        and a ``SegmentSum`` by local row, in the wider of the band's and
         the vectors' dtypes; the result in the vectors' (a bf16 sweep stays
         bf16)."""
         n, r = self.n_dev, self.rank
@@ -674,8 +685,7 @@ class ShardedBandedSystem:
         ct = torch.promote_types(fdata.dtype, x_loc.dtype)
         prod = torch.einsum("kij,kj->ki", fdata.to(ct),
                             xg[pl_["fcols"]].to(ct))
-        yb = x_loc.new_zeros((lv.per, lv.nb), dtype=ct)
-        return yb.index_add_(0, pl_["flrows"], prod).T.to(x_loc.dtype)
+        return pl_["frow_sum"](prod).T.to(x_loc.dtype)
 
     def _dot(self, a, b):
         d = torch.dot(a.reshape(-1), b.reshape(-1))
@@ -791,9 +801,13 @@ class ShardedBandedSystem:
             if self.n_dev == 1:
                 rc_full = rc_loc
             else:
-                parts = [torch.empty_like(rc_loc) for _ in range(self.n_dev)]
-                dist.all_gather(parts, rc_loc, group=self.group)
-                rc_full = torch.cat(parts, dim=1)
+                # one output tensor (a capture holds no list of them):
+                # [n_dev nb, per_c] by rank, then the lanes in rank order
+                nb, per_c = rc_loc.shape
+                parts = rc_loc.new_empty((self.n_dev * nb, per_c))
+                dist.all_gather_into_tensor(parts, rc_loc, group=self.group)
+                rc_full = parts.view(self.n_dev, nb, per_c).permute(
+                    1, 0, 2).reshape(nb, -1)
             xc_full = self.rep_mg._cycle(self.rep_mg.n_levels - 1, rc_full)
             per_c = rc_loc.shape[1]
             xc = xc_full[:, self.rank * per_c:(self.rank + 1) * per_c]
@@ -830,104 +844,31 @@ class ShardedBandedSystem:
         y = self._cycle(len(self.levels) - 1, b_loc)
         return self._gather(y.to(b_loc.dtype))
 
-    def solve_cg(self, b, rtol: float = 1e-9, maxiter: int = 100,
-                 precondition: bool = True, capture: bool | None = None):
-        """SPMD MG-CG from zero on a flat rhs (global, or this rank's local
-        part).  Returns (x flat global on every rank, iterations,
-        residual)."""
-        x_loc, k, res = self.solve_cg_local(b, rtol, maxiter, precondition,
-                                            capture)
-        return self._gather(x_loc), k, float(res)
+    def cg_ops(self, precondition: bool = True):
+        """(A, M) of the CG on this rank's slab [nb, per]: the fine SpMV on
+        the full-precision band and one V-cycle (None without
+        ``precondition``), its result in the vectors' dtype, with
+        :meth:`_dot` the all-reduced inner product; the eager and the
+        captured solves run these (CG itself stays full-precision)."""
+        fine, fine_pl = self.levels[-1], self.params[-1]
+        top = len(self.levels) - 1
+        M = ((lambda r: self._cycle(top, r).to(r.dtype)) if precondition
+             else None)
+        return (lambda p: self._matvec(fine, fine_pl, p)), M
 
     def graph_ok(self, b) -> bool:
         """Whether a solve of ``b`` runs as captured programs
-        (:meth:`_compiled`): a CUDA vector at world size 1, f32 or f64
-        smoothing vectors and a replicated bottom that ``Multigrid
-        .graph_ok`` admits.  At world size 1 ``_halo_x`` and ``_dot``
-        call no collective, so the programs hold the halo kernels only;
-        NCCL collectives are not captured (ROADMAP Queue 1), so more
-        ranks on the card keep the eager loop, as the CPU (gloo) does."""
-        return (b.device.type == "cuda" and self.n_dev == 1
+        (:meth:`_compiled`): a CUDA vector, one rank or an NCCL group
+        (the programs then hold the halo exchanges, the all-reduced dots
+        and the bottom's all-gather), f32 or f64 smoothing vectors and a
+        replicated bottom that ``Multigrid.graph_ok`` admits.  gloo and
+        the CPU keep the eager loop."""
+        return (b.device.type == "cuda"
+                and captures_collectives(self.group, self.n_dev)
                 and self.lo_vec in (None, torch.float32, torch.float64)
                 and self.rep_mg.graph_ok())
 
-    def _compiled(self, rtol, maxiter, precondition, dtype):
-        """(CGLoop, start program, rhs buffer [nb, per]) of the captured
-        solve for ``(rtol, maxiter, precondition)`` and vectors of
-        ``dtype``, made at first use: the counterpart of the JAX package's
-        cache of jitted ``shard_map`` programs.  CG itself stays
-        full-precision."""
-        key = (rtol, maxiter, precondition, dtype)
-        if key not in self._run_cache:
-            fine, fine_pl = self.levels[-1], self.params[-1]
-            like = torch.zeros((self.nb, fine.per), dtype=dtype,
-                               device=fine_pl["dinv"].device)
-            top = len(self.levels) - 1
-            M = ((lambda r: self._cycle(top, r).to(r.dtype)) if precondition
-                 else None)
-            loop = CGLoop(lambda p: self._matvec(fine, fine_pl, p), M, like,
-                          rtol=rtol, maxiter=maxiter, dot=self._dot)
-            b_in = torch.zeros_like(like)
-            self._run_cache[key] = (loop, loop.start_program(lambda: b_in),
-                                    b_in)
-        return self._run_cache[key]
-
-    def _solve_captured(self, b_loc, rtol, maxiter, precondition):
-        """(x_loc, k, |r|, iterations) of the captured solve; the tensors
-        new, on the device."""
-        if not self.graph_ok(b_loc):
-            raise ValueError(
-                "captured sharded solves need a CUDA rhs at world size 1 "
-                "with f32 or f64 smoothing vectors: NCCL collectives are not "
-                f"captured (world size {self.n_dev}, {b_loc.device}, "
-                f"smoothing vectors {self.lo_vec})")
-        loop, start, b_in = self._compiled(rtol, maxiter, precondition,
-                                           b_loc.dtype)
-        b_in.copy_(b_loc)
-        n = loop.run(start)
-        x, res = cg_finish(loop.state, self._dot)
-        return x.clone(), loop.state.k.clone(), res, n
-
-    def solve_cg_async(self, b, rtol: float = 1e-9, maxiter: int = 100,
-                       precondition: bool = True):
-        """Like :meth:`solve_cg_local`, but the iterations too as a device
-        tensor: (this rank's slab of x [nb, per], k int32, |r|), 0-dim
-        tensors on the vectors' device, with no host read of x or |r|
-        (the JAX package's timing path).  On the card it runs the
-        captured solve (:meth:`_compiled`), whose CG loop reads only its
-        flags on the host, and raises where :meth:`graph_ok` refuses (more
-        than one rank); on the CPU it runs the eager loop."""
-        b_loc = self._local(b)
-        if b_loc.device.type == "cuda":
-            return self._solve_captured(b_loc, rtol, maxiter,
-                                        precondition)[:3]
-        x, k, res = self._solve_eager(b_loc, rtol, maxiter, precondition)
-        return x, torch.tensor(k, dtype=torch.int32), res
-
-    def solve_cg_local(self, b, rtol: float = 1e-9, maxiter: int = 100,
-                       precondition: bool = True,
-                       capture: bool | None = None):
-        """Like :meth:`solve_cg` with no gather: (this rank's slab of x
-        [nb, per], iterations, |r| as a 0-dim device tensor).  Where
-        :meth:`graph_ok` admits the solve it runs captured
-        (:meth:`solve_cg_async`'s path; ``capture=False`` runs it
-        eagerly, ``capture=True`` raises where it cannot be captured),
-        else the port's ``cg_solve`` on the slab with the all-reduced dot,
-        its loop condition the one host read an iteration."""
-        b_loc = self._local(b)
-        if capture is None:
-            capture = self.graph_ok(b_loc)
-        if capture:
-            x, _, res, n = self._solve_captured(b_loc, rtol, maxiter,
-                                                precondition)
-            return x, n, res
-        return self._solve_eager(b_loc, rtol, maxiter, precondition)
-
-    def _solve_eager(self, b_loc, rtol, maxiter, precondition):
-        fine, fine_pl = self.levels[-1], self.params[-1]
-        top = len(self.levels) - 1
-        # CG itself stays full-precision
-        M = ((lambda r: self._cycle(top, r).to(r.dtype)) if precondition
-             else None)
-        return cg_solve(lambda p: self._matvec(fine, fine_pl, p), b_loc, M=M,
-                        rtol=rtol, maxiter=maxiter, dot=self._dot)
+    def _rhs_like(self, dtype):
+        """A zero vector of this rank's slab [nb, per] in ``dtype``."""
+        return torch.zeros((self.nb, self.levels[-1].per), dtype=dtype,
+                           device=self.params[-1]["dinv"].device)

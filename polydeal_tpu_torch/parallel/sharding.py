@@ -29,25 +29,31 @@ collectives become ``torch.distributed`` calls:
     rank, of the all-gathered coarse rhs.
 
 It runs no kernel, as the JAX one runs none: gathers, einsums and
-``utils/segment.SegmentSum``.  CG's norm test is one host synchronisation
-an iteration, as in ``solvers/cg.py``.
+``utils/segment.SegmentSum``.  On the card its CG runs as captured
+programs (``solvers/graphs.CGLoop``, the collectives inside them) at world
+size 1 and on NCCL groups, the counterpart of the JAX package's jitted
+``shard_map`` with its ``while_loop``; elsewhere (gloo, the CPU) eagerly,
+one host read of CG's condition an iteration, as in ``solvers/cg.py``.
 """
 
 from __future__ import annotations
 
 import datetime
+import gc
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from polydeal_tpu_torch.solvers.cg import cg_solve
+from polydeal_tpu_torch.solvers.cg import cg_finish, cg_solve
+from polydeal_tpu_torch.solvers.graphs import CGLoop
 from polydeal_tpu_torch.solvers.chebyshev import ChebyshevSmoother
 from polydeal_tpu_torch.utils.grouping import padded_group_lists
 from polydeal_tpu_torch.utils.segment import SegmentSum
 
-__all__ = ["init_group", "build_halo_exchange", "exchange", "ShardedMatrix",
+__all__ = ["init_group", "leave_group", "build_halo_exchange", "exchange",
+           "captures_collectives", "CapturedCG", "ShardedMatrix",
            "shard_block_matrix", "ShardedLevel", "ShardedSystem"]
 
 
@@ -68,6 +74,18 @@ def init_group(rank: int, world_size: int, *, device, store_path: str,
         world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout))
     return dist.group.WORLD
+
+
+def leave_group() -> None:
+    """Destroy the default process group that :func:`init_group` joined,
+    once the captured programs are gone: NCCL's destroy waits for every
+    CUDA graph that holds its operations, and a sharded system and its
+    captured programs reference each other, so only the cycle collector
+    frees them once the caller has dropped the system."""
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    dist.destroy_process_group()
 
 
 def build_halo_exchange(cols: np.ndarray, per: int, n_dev: int):
@@ -133,9 +151,104 @@ def exchange(group, pairs) -> None:
         w.wait()
 
 
+def captures_collectives(group, n_dev: int) -> bool:
+    """Whether a captured program may hold this group's collectives: one
+    rank (none run), or an NCCL group (its kernels go into the graph;
+    gloo's run on the host)."""
+    return n_dev == 1 or dist.get_backend(group) == "nccl"
+
+
 def _pad_rows(P_: int, n_dev: int) -> int:
     per = -(-P_ // n_dev)
     return per * n_dev
+
+
+class CapturedCG:
+    """MG-CG of a sharded system, eager or as captured programs: the
+    dispatch both sharded systems share.  A subclass gives ``_local(b)``
+    (this rank's share of a flat rhs), ``_rhs_like(dtype)`` (a zero vector
+    of that share's shape), ``cg_ops``, ``_dot`` (the all-reduced inner
+    product), ``_gather``, ``graph_ok`` and an empty ``_run_cache``."""
+
+    def _compiled(self, rtol, maxiter, precondition, dtype):
+        """(CGLoop, start program, rhs buffer) of the captured solve for
+        ``(rtol, maxiter, precondition)`` and vectors of ``dtype``, made at
+        first use: the counterpart of the JAX package's cache of jitted
+        ``shard_map`` programs.  CG itself stays full-precision."""
+        key = (rtol, maxiter, precondition, dtype)
+        if key not in self._run_cache:
+            like = self._rhs_like(dtype)
+            A, M = self.cg_ops(precondition)
+            loop = CGLoop(A, M, like, rtol=rtol, maxiter=maxiter,
+                          dot=self._dot)
+            b_in = torch.zeros_like(like)
+            self._run_cache[key] = (loop, loop.start_program(lambda: b_in),
+                                    b_in)
+        return self._run_cache[key]
+
+    def _solve_captured(self, b_loc, rtol, maxiter, precondition):
+        """(x_loc, k, |r|, iterations) of the captured solve; the tensors
+        new, on the device."""
+        if not self.graph_ok(b_loc):
+            raise ValueError(
+                "captured sharded solves need a CUDA rhs, one rank or an "
+                "NCCL group, and a system that graph_ok admits (world size "
+                f"{self.n_dev}, {b_loc.device})")
+        loop, start, b_in = self._compiled(rtol, maxiter, precondition,
+                                           b_loc.dtype)
+        b_in.copy_(b_loc)
+        n = loop.run(start)
+        x, res = cg_finish(loop.state, self._dot)
+        return x.clone(), loop.state.k.clone(), res, n
+
+    def _solve_eager(self, b_loc, rtol, maxiter, precondition):
+        A, M = self.cg_ops(precondition)
+        return cg_solve(A, b_loc, M=M, rtol=rtol, maxiter=maxiter,
+                        dot=self._dot)
+
+    def solve_cg_async(self, b, rtol: float = 1e-9, maxiter: int = 100,
+                       precondition: bool = True):
+        """Like :meth:`solve_cg_local`, but the iterations too as a device
+        tensor: (this rank's share of x, k int32, |r|), 0-dim tensors on
+        the vectors' device, with no host read of x or |r| (the JAX
+        package's timing path).  On the card it runs the captured solve
+        (:meth:`_compiled`), whose CG loop reads only its flags on the
+        host, at any world size, and raises where ``graph_ok`` refuses; on
+        the CPU it runs the eager loop."""
+        b_loc = self._local(b)
+        if b_loc.device.type == "cuda":
+            return self._solve_captured(b_loc, rtol, maxiter,
+                                        precondition)[:3]
+        x, k, res = self._solve_eager(b_loc, rtol, maxiter, precondition)
+        return x, torch.tensor(k, dtype=torch.int32), res
+
+    def solve_cg_local(self, b, rtol: float = 1e-9, maxiter: int = 100,
+                       precondition: bool = True,
+                       capture: bool | None = None):
+        """Like :meth:`solve_cg` with no gather: (this rank's share of x,
+        iterations, |r| as a 0-dim device tensor).  Where ``graph_ok``
+        admits the solve it runs captured (:meth:`solve_cg_async`'s path;
+        ``capture=False`` runs it eagerly, ``capture=True`` raises where it
+        cannot be captured), else the port's ``cg_solve`` on the share with
+        the all-reduced dot, its loop condition the one host read an
+        iteration."""
+        b_loc = self._local(b)
+        if capture is None:
+            capture = self.graph_ok(b_loc)
+        if capture:
+            x, _, res, n = self._solve_captured(b_loc, rtol, maxiter,
+                                                precondition)
+            return x, n, res
+        return self._solve_eager(b_loc, rtol, maxiter, precondition)
+
+    def solve_cg(self, b, rtol: float = 1e-9, maxiter: int = 100,
+                 precondition: bool = True, capture: bool | None = None):
+        """SPMD MG-CG from zero on a flat rhs (as ``_local`` takes it):
+        (x flat global on every rank, iterations, residual); captured as
+        :meth:`solve_cg_local` says."""
+        x_loc, k, res = self.solve_cg_local(b, rtol, maxiter, precondition,
+                                            capture)
+        return self._gather(x_loc), k, float(res)
 
 
 @dataclass
@@ -222,7 +335,7 @@ class ShardedLevel:
     nested_transfer: bool = False
 
 
-class ShardedSystem:
+class ShardedSystem(CapturedCG):
     """Sharded multigrid-CG built from a port ``Multigrid``, one rank per
     shard (see the module docstring).
 
@@ -241,6 +354,12 @@ class ShardedSystem:
         self.levels = levels  # list[ShardedLevel], coarse -> fine
         self.params = params  # list[dict] of this rank's tensors
         self.coarse_lu = coarse_lu  # (LU, pivots), replicated
+        # the pivots as a row permutation: b[perm] = P^T b for A = P L U
+        P_, _, _ = torch.lu_unpack(*coarse_lu, unpack_data=False)
+        self._coarse_perm = P_.argmax(dim=0)
+        # captured solves (_compiled), by (rtol, maxiter, precondition,
+        # dtype)
+        self._run_cache = {}
         self.n_true_rows = n_true_rows
         self.nb = nb
         self.chebyshev_degree = chebyshev_degree
@@ -416,9 +535,16 @@ class ShardedSystem:
         return torch.einsum("pij,pj->pi", pl["E"], xc_full[pl["parent"]])
 
     def _coarse_solve(self, b_loc):
+        """The replicated LU solve of the all-gathered coarse rhs, as two
+        triangular solves on the kept factors (``lu_solve`` may take a
+        backend that synchronises with the host, which a capture
+        refuses)."""
         b_full = self._all_gather(b_loc)
-        LU, piv = self.coarse_lu
-        x = torch.linalg.lu_solve(LU, piv, b_full.reshape(-1, 1))
+        LU = self.coarse_lu[0]
+        y = b_full.reshape(-1, 1)[self._coarse_perm]
+        y = torch.linalg.solve_triangular(LU, y, upper=False,
+                                          unitriangular=True)
+        x = torch.linalg.solve_triangular(LU, y, upper=True)
         x = x.reshape(b_full.shape)
         n = b_loc.shape[0]
         return x[self.rank * n:(self.rank + 1) * n]
@@ -435,17 +561,38 @@ class ShardedSystem:
         return self._smooth(lvl, pl, b_loc, x)
 
     # ------------------------------------------------------------------
-    def solve_cg(self, b, rtol: float = 1e-9, maxiter: int = 100,
-                 precondition: bool = True):
-        """SPMD MG-CG from zero on the flat global rhs ``b``: (x flat
-        [n_dofs] on every rank, iterations, residual)."""
-        fine, pl = self.levels[-1], self.params[-1]
-        nb, per = self.nb, fine.rows_per_shard
-        b_loc = _pad_vec(b, fine.n_rows_pad, nb)[
+    def _local(self, b):
+        """This rank's rows [per, nb] of the flat global vector ``b``."""
+        fine = self.levels[-1]
+        per = fine.rows_per_shard
+        return _pad_vec(b, fine.n_rows_pad, self.nb)[
             self.rank * per:(self.rank + 1) * per].contiguous()
+
+    def cg_ops(self, precondition: bool = True):
+        """(A, M) of the CG on this rank's rows [per, nb]: the fine SpMV
+        and one V-cycle (None without ``precondition``), with
+        :meth:`_dot` the all-reduced inner product; the eager and the
+        captured solves run these."""
+        fine, pl = self.levels[-1], self.params[-1]
         top = len(self.levels) - 1
         M = (lambda r: self._v_cycle(top, r)) if precondition else None
-        res = cg_solve(lambda v: self._matvec(pl, fine, v), b_loc, M=M,
-                       rtol=rtol, maxiter=maxiter, dot=self._dot)
-        x = self._all_gather(res.x).reshape(-1)[:self.n_true_rows * nb]
-        return x, res.iterations, float(res.residual)
+        return (lambda v: self._matvec(pl, fine, v)), M
+
+    def graph_ok(self, b) -> bool:
+        """Whether a solve of ``b`` runs as captured programs
+        (:meth:`_compiled`): a CUDA vector, at world size 1 or on an NCCL
+        group (the programs then hold the halo exchanges, the all-reduced
+        dots, the coarse all-gather and the restriction's all-reduce).
+        gloo and the CPU keep the eager loop."""
+        return (b.device.type == "cuda"
+                and captures_collectives(self.group, self.n_dev))
+
+    def _rhs_like(self, dtype):
+        """A zero vector of this rank's rows [per, nb] in ``dtype``."""
+        return torch.zeros((self.levels[-1].rows_per_shard, self.nb),
+                           dtype=dtype, device=self.params[-1]["data"].device)
+
+    def _gather(self, x_loc):
+        """The flat global vector [n_dofs] from every rank's rows."""
+        return self._all_gather(x_loc).reshape(-1)[:self.n_true_rows
+                                                   * self.nb]

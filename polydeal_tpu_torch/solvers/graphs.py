@@ -84,9 +84,14 @@ def capture(compute: Callable | None, commit: Callable, *, device,
     ``compute`` reads static buffers and returns new tensors (it may write
     buffers that only it writes); ``commit`` copies them into the static
     buffers the next program reads.  ``compute`` runs once on a side stream
-    first, without ``commit``, so the warm-up leaves the state as it was.
-    ``pool`` is a ``torch.cuda.graph_pool_handle()`` shared by the
-    programs that replay in turn on one stream."""
+    first, without ``commit``, so the warm-up leaves the state as it was
+    (and makes the NCCL communicators its collectives use).  ``pool`` is a
+    ``torch.cuda.graph_pool_handle()`` shared by the programs that replay
+    in turn on one stream.  The capture checks only this thread's CUDA
+    calls (``capture_error_mode="thread_local"``): a process group's
+    NCCL watchdog thread queries the events of earlier work, which under
+    ``"global"`` would invalidate a capture, and this thread makes every
+    call that goes into the program."""
     device = torch.device(device)
     t0 = time.perf_counter()
     with torch.cuda.device(device):
@@ -106,7 +111,8 @@ def capture(compute: Callable | None, commit: Callable, *, device,
         reserved = torch.cuda.memory_reserved(device)
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=pool):  # raises on failure
+            with torch.cuda.graph(graph, pool=pool,  # raises on failure
+                                  capture_error_mode="thread_local"):
                 commit(None if compute is None else compute())
         finally:
             delta = {k: _build.launches[k] - n for k, n in before.items()

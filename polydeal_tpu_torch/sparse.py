@@ -612,7 +612,9 @@ class BlockPacked:
         self.offsets_t = torch.as_tensor(self.plan.offsets,
                                          dtype=torch.int32, device=dev)
         if self._has_far():
-            self._far_rows_t = torch.as_tensor(self.far_rows, device=dev)
+            # the tail's rows repeat (one entry per far offset): a fixed
+            # order sum, not index_add_'s atomics
+            self._far_sum = SegmentSum(self.far_rows, self.n_block_rows, dev)
             self._far_cols_t = torch.as_tensor(self.far_cols, device=dev)
 
     def _has_far(self) -> bool:
@@ -666,17 +668,15 @@ class BlockPacked:
 
     def far_matvec_t(self, xt: torch.Tensor) -> torch.Tensor:
         """The far block-COO tail's product alone, [nb, P] -> [nb, P] in
-        ``xt``'s dtype (zero without a tail): gather, block products,
-        scatter-add by row, in the wider of the band's and ``xt``'s
+        ``xt``'s dtype (zero without a tail): gather, block products and a
+        ``SegmentSum`` by row, in the wider of the band's and ``xt``'s
         dtypes."""
+        if not self._has_far():
+            return torch.zeros_like(xt)
         ct = torch.promote_types(self.data_i.dtype, xt.dtype)
-        yb = torch.zeros((self.n_block_rows, self.n_basis), dtype=ct,
-                         device=xt.device)
-        if self._has_far():
-            g = xt.T[self._far_cols_t].to(ct)  # [n_far, nb]
-            prod = torch.einsum("kij,kj->ki", self.far_data.to(ct), g)
-            yb.index_add_(0, self._far_rows_t, prod)
-        return yb.T.to(xt.dtype)
+        g = xt.T[self._far_cols_t].to(ct)  # [n_far, nb]
+        prod = torch.einsum("kij,kj->ki", self.far_data.to(ct), g)
+        return self._far_sum(prod).T.to(xt.dtype)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         xt = x.reshape(self.n_block_rows, self.n_basis).T

@@ -1,26 +1,40 @@
-"""Try the captured sharded CG across GPUs (NCCL collectives in a CUDA
-graph).
+"""Run both sharded systems' captured CG across GPUs (NCCL collectives in
+CUDA graphs) and hold each to its eager solve.
 
 Run from the root of a checkout on a host with ``--nproc`` CUDA cards::
 
     python3 tools/nccl_capture_probe.py --nproc 4 [--n 64] [--timeout 600]
+        [--banded packed]
 
-(``--device cpu`` runs the same flow on gloo CPU processes, where the
-capture is refused: a rehearsal of the script.)
+(``--device cpu`` runs the same flow on gloo CPU processes, where nothing
+is captured: a rehearsal of the script.)
 
-Each rank (rank r on ``cuda:r``, NCCL through a FileStore) builds
-``bench_sharded``'s structured system (``models/sharded.setup_sharded``),
-solves it through the eager loop (``solve_cg_local(capture=False)``) and
-then through the captured programs, with ``ShardedBandedSystem.graph_ok``
-forced to admit more than one rank: the port's rule refuses that, since
-its halo exchanges and all-reduces were never held to the eager solve
-inside a capture.  Prints one JSON line: per rank, the eager iterations
-and warm ms (least of 3, host clock, synchronised), and either the
-captured solve's iterations, warm ms and max |x_graph - x_eager| on its
-slab, or the error its capture raised; and the card's name and power
-limit.  Each rank rewrites its JSON after every stage (``stage``: setup,
-eager, capture, graph, done), so a run cut at ``--timeout`` seconds still
-says how far each rank got.
+Each rank (rank r on ``cuda:r``, NCCL through a FileStore) builds, in
+turn, ``bench_sharded``'s structured system (``models/sharded
+.setup_sharded``, f32 with bf16 smoothing copies, the
+``ShardedBandedSystem``; with ``--banded packed`` the R-tree flagship with
+``relabel=None`` instead, whose packed levels 4 ranks repack with far
+tails) and the flat block-COO ``ShardedSystem`` of the 2D R-tree problem of
+side ``--n`` (``models/sharded.flat_problem``, f64).  For each it captures
+the CG programs (``_compiled`` and the body; on a card a system that
+``graph_ok`` refuses is a failure, since nothing would be captured), and
+only where every rank captured them (an all-reduced flag, so that no rank
+waits in a replayed collective for one that failed) solves eagerly
+(``capture=False``) and captured, both timed (``models/sharded
+.eager_and_graph``: least of 3 warm solves, host clock, synchronised).
+Prints one JSON line: per rank and system, both iterations, the largest
+|x_graph - x_eager| over the ranks relative to max |x_eager|, both times,
+the captured loop's replays, masked bodies and host reads of its last
+solve, capture seconds and pool MB, rank 0's traced solve each way (span,
+device busy time, idle share, the 8 device operations with the most
+time), or the error a capture raised; and the
+cards' names and power limits.  Each rank rewrites its JSON after every
+stage (``stage``: setup, banded:capture, banded:solve, flat:setup,
+flat:capture, flat:solve, done, and left once the group is destroyed), so
+a run cut at ``--timeout`` seconds still says how far each rank got.
+Exits 1 unless every rank finished and every system, on a card captured,
+took equal iterations both ways with x within 1e-6 (f32) and 1e-12 (f64)
+relative of the eager one.
 """
 
 import argparse
@@ -34,14 +48,21 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+TOL = {"banded": 1e-6, "flat": 1e-12}  # f32 and f64 solves
 
-def rank_main(rank, world, store, n, out_dir, device):
+
+def rank_main(rank, world, store, n, out_dir, device, banded):
     import torch
     import torch.distributed as dist
 
-    from polydeal_tpu_torch.models.sharded import min_ms, setup_sharded
-    from polydeal_tpu_torch.parallel.banded import ShardedBandedSystem
-    from polydeal_tpu_torch.parallel.sharding import init_group
+    from polydeal_tpu_torch.models.profile_flagship import _traced
+    from polydeal_tpu_torch.models.sharded import (MAXITER,
+                                                   eager_and_graph,
+                                                   flat_problem,
+                                                   setup_sharded)
+    from polydeal_tpu_torch.parallel.sharding import (ShardedSystem,
+                                                      init_group,
+                                                      leave_group)
 
     res = dict(rank=rank, stage="setup")
 
@@ -50,44 +71,75 @@ def rank_main(rank, world, store, n, out_dir, device):
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
 
+    def run(name, ss, b, rtol):
+        report(f"{name}:capture")
+        ok, captures = 1, ss.graph_ok(b)
+        if dev.type == "cuda" and not captures:
+            res[f"{name}_capture_error"] = "graph_ok refused the system"
+            ok = 0
+        elif captures:
+            try:
+                loop = ss._compiled(rtol, MAXITER, True, b.dtype)[0]
+                loop.body = loop._capture_body()
+                torch.cuda.synchronize(dev)
+            except Exception as e:  # the probe's result: what it raised
+                res[f"{name}_capture_error"] = f"{type(e).__name__}: {e}"[:600]
+                ok = 0
+        flag = torch.tensor([ok], device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        if not flag.item():
+            return
+        report(f"{name}:solve")
+        res[name] = eager_and_graph(ss, b, rtol, dev)
+        # one more solve each way on every rank, rank 0's traced
+        for mode, capture in (("eager", False), ("graph", None)):
+            solve = lambda: ss.solve_cg_local(b, rtol=rtol, maxiter=MAXITER,
+                                              capture=capture)
+            if rank != 0 or dev.type != "cuda":
+                solve()
+                continue
+            try:
+                span, busy, n_ops, ops = _traced(solve, top=8)
+                res[name][f"traced_{mode}"] = dict(
+                    span_ms=span, busy_ms=busy, idle_share=1 - busy / span,
+                    device_ops=n_ops, top_ops=ops)
+            except RuntimeError as e:  # a trace without device records
+                res[name][f"traced_{mode}"] = str(e)
+
     report("setup")
     dev = (torch.device("cuda", rank) if device == "cuda"
            else torch.device("cpu"))
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
     init_group(rank, world, device=dev, store_path=store, timeout=90.0)
-    sh = setup_sharded(n, device=dev, group=dist.group.WORLD)
-    ss, b = sh.ss, sh.b
-    report("eager")
-    eager = lambda: ss.solve_cg_local(b, rtol=1e-8, maxiter=100,
-                                      capture=False)
-    x_e, k_e, _ = eager()
-    res.update(eager_iterations=k_e, eager_ms=min_ms(eager, dev))
-    report("capture")
-    ShardedBandedSystem.graph_ok = lambda self, v: True
-    # capture both programs first; replay only where every rank captured,
-    # so that no rank waits in a replayed collective for one that failed
-    captured = 1
-    try:
-        loop = ss._compiled(1e-8, 100, True, b.dtype)[0]
-        loop.body = loop._capture_body()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    except Exception as e:  # the probe's result: what the capture raised
-        res["capture_error"] = f"{type(e).__name__}: {e}"[:600]
-        captured = 0
-    flag = torch.tensor([captured], device=dev)
-    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
-    res["all_captured"] = bool(flag.item())
-    if res["all_captured"]:
-        report("graph")
-        graph = lambda: ss.solve_cg_local(b, rtol=1e-8, maxiter=100,
-                                          capture=True)
-        x_g, k_g, _ = graph()
-        res.update(graph_iterations=k_g,
-                   max_abs_diff=float((x_g - x_e).abs().max()),
-                   graph_ms=min_ms(graph, dev),
-                   capture_s=sum(p.seconds for p in loop.captured))
+    kw = (dict(hierarchy="rtree", relabel=None) if banded == "packed"
+          else {})
+    sh = setup_sharded(n, device=dev, group=dist.group.WORLD, **kw)
+    run("banded", sh.ss, sh.b, 1e-8)
+    del sh
+    report("flat:setup")
+    _, _, b, mg = flat_problem(n, device=dev)
+    run("flat", ShardedSystem.from_multigrid(mg, dist.group.WORLD), b, 1e-9)
     report("done")
-    dist.destroy_process_group()
+    leave_group()
+    report("left")
+
+
+def held(ranks, nproc, device) -> bool:
+    """Every rank done, and each system's solve, on a card captured, held
+    to the eager one on every rank."""
+    if len(ranks) != nproc or any(r["stage"] != "left" for r in ranks):
+        return False
+    for r in ranks:
+        for name, tol in TOL.items():
+            s = r.get(name)
+            if s is None or s["graph_iterations"] != s["eager_iterations"]:
+                return False
+            if device == "cuda" and not s["captured"]:
+                return False
+            if not s["graph_eager_diff"] <= tol:
+                return False
+    return True
 
 
 def main() -> int:
@@ -95,6 +147,10 @@ def main() -> int:
     ap.add_argument("--nproc", type=int, default=4)
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--banded", choices=("structured", "packed"),
+                    default="structured",
+                    help="the banded system: bench_sharded's, or the "
+                         "relabel=None R-tree flagship (far tails)")
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds before the ranks are killed")
     args = ap.parse_args()
@@ -110,14 +166,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.start_processes(
             rank_main, args=(args.nproc, os.path.join(tmp, "store"), args.n,
-                             tmp, args.device), nprocs=args.nproc,
+                             tmp, args.device, args.banded),
+            nprocs=args.nproc,
             join=False, start_method="spawn")
         t_end = time.monotonic() + args.timeout
-        while not (ok := ctx.join(timeout=5)):
-            if time.monotonic() > t_end:
-                for p in ctx.processes:
-                    p.kill()
-                break
+        finished = False
+        try:
+            while not (finished := ctx.join(timeout=5)):
+                if time.monotonic() > t_end:
+                    break
+        except Exception as e:  # a rank failed: its JSON says where
+            print(f"probe: {e}", file=sys.stderr)
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
         ranks = []
         for r in range(args.nproc):
             path = os.path.join(tmp, f"rank{r}.json")
@@ -128,9 +190,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()
-    print(json.dumps(dict(n=args.n, nproc=args.nproc, finished=ok,
-                          ranks=ranks, cards=smi)), flush=True)
-    return 0 if ok and len(ranks) == args.nproc else 1
+    ok = finished and held(ranks, args.nproc, args.device)
+    print(json.dumps(dict(n=args.n, nproc=args.nproc, banded=args.banded,
+                          finished=finished,
+                          ok=ok, ranks=ranks, cards=smi)), flush=True)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
