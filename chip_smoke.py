@@ -182,6 +182,21 @@ Phases (each must pass; nothing falls back to the CPU):
      systems captured across the cards against their eager solves),
      which fails the run on a mismatch or a timeout; on one card a line
      says it needs two.
+ 16. bases without a K3-K5 or specialised K1/K2 build: the flagship on
+     the TensorDGQ basis at p=1 and n=64 (2,097,152 DoF, nb = 8), at p=2
+     and n=32 (nb = 27) and on P_4 at n=32 (nb = 35), each assembled by
+     the einsums (no K3-K5 launch), f32 with bf16 smoothing copies and
+     captured: rtol 1e-8 through K1 and K2's runtime-nb build
+     (csrc/banded_any_nb.cu), the iterations within 6 of an f64 solve of
+     the same system and the solution within 5e-3 of it (an f32 band of
+     these bases cannot carry 1e-4: F32_X_TOL16); each sharded at
+     world size 1 (K1/K2 halo's runtime-nb build, within one iteration of
+     the unsharded no-FMG solve); K1 (f32 and f64, beside a CSR torch.mv of
+     the band), K2 (the bf16 smoothing copy and f64, each mode bitwise over
+     two launches) and K1/K2 halo (4-way cuts, f32 and f64, bitwise) on the
+     fine bands against their plain versions, traced cold beside their
+     bounds; and the Q1 n=32 f64 solve within one iteration and 1e-8 (L2
+     error, relative) of the JAX package's (tools/jax_dgq_constants.py).
 K0 (o-major banded SpMV) and fused K0 (its Chebyshev step/residual, all
 three modes) are held against their plain versions on the real bands of
 phases 5-7 once each exists (phase 3's check, on real bands): the
@@ -978,7 +993,26 @@ def check_k0(torch, label, band, out, fused=True):
         del data, x, b, d, dinv, got, kb
 
 
-def check_k2(torch, label, band, out):
+def twice_equal(torch, label, calls):
+    """Each kernel call of ``calls`` (mode -> (kernel call, plain call))
+    launched twice: equal bits, or the run fails."""
+    for mode, (kf, _) in calls.items():
+        a, b = kf(), kf()
+        a, b = (a if isinstance(a, tuple) else (a,),
+                b if isinstance(b, tuple) else (b,))
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            fail(f"two launches of {label} {mode} differ")
+
+
+def traced_name(nb, name):
+    """The name (substring) a trace finds K1's or K2's kernel by: ``name``
+    for a specialised build, the runtime-nb kernel's at any other nb."""
+    from polydeal_tpu_torch.ops.banded import KERNEL_NB
+
+    return name if nb in KERNEL_NB else "any_nb_kernel"
+
+
+def check_k2(torch, label, band, out, bitwise=False):
     """K2's three modes against their plain versions on a real i-major
     band, in the band's type (f32 for an f64 band; f32 vectors for a bf16
     or f32 band) and as f64, 1e-5 / 1e-12 relative to the largest entry,
@@ -986,7 +1020,8 @@ def check_k2(torch, label, band, out):
     time per launch, with L2 evicted where the band exceeds it: the row's
     ``ms``, held to its bound by ``cold_traced_us``) and timed by CUDA
     events back to back beside the plain version, with its bound: the
-    band's n_off*nb*nb*P entries and six vectors once.
+    band's n_off*nb*nb*P entries and six vectors once; with ``bitwise``
+    each mode launched twice, equal bits.
     Adds each case to ``out`` (label -> row)."""
     from polydeal_tpu_torch.ops import fused_cheb as fc
     from polydeal_tpu_torch.ops.banded import imajor_band
@@ -1019,13 +1054,16 @@ def check_k2(torch, label, band, out):
         for mode, (kf, pf) in modes.items():
             e, r = hold(f"K2 {mode} on {label} {dname}", kf(), pf(), tol)
             err, rel = max(err, e), max(rel, r)
+        if bitwise:
+            twice_equal(torch, f"K2 on {label} {dname}", modes)
         ms, pms = time_pair(torch, *modes["step"])
         ent = n_off * nb * nb * P
         nbytes = ent * di.element_size() + 6 * nb * P * x.element_size()
         b_ms, b_by = bound(nbytes, 2 * ent + 6 * nb * P,
                            "float64" if dname == "float64" else "float32")
-        dus = cold_traced_us(torch, modes["step"][0], "fused_kernel",
-                             nbytes, b_ms, f"K2 on {label} {dname}")
+        dus = cold_traced_us(torch, modes["step"][0],
+                             traced_name(nb, "fused_kernel"), nbytes, b_ms,
+                             f"K2 on {label} {dname}")
         out[f"{label} {dname}"] = dict(
             max_abs_err=err, ms=dus / 1e3, plain_ms=pms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None, events_ms=ms)
@@ -1299,6 +1337,8 @@ def check_halo_slab(torch, label, slab, gen, library=False):
     for mode, (kf, pf) in calls.items():
         errs[mode] = hold(f"{label} {mode} {dname}", kf(), pf(), TOL[dname])
     pname, fname, ptrace, ftrace = HALO_KERNELS[slab.packed]
+    if not slab.packed:
+        ptrace, ftrace = traced_name(nb, ptrace), traced_name(nb, ftrace)
     line, rows = [], {}
     for name, mode, trace in ((pname, "product", ptrace),
                               (fname, "step", ftrace)):
@@ -1340,7 +1380,7 @@ def check_halo_slab(torch, label, slab, gen, library=False):
     return rows
 
 
-def check_halo_cuts(torch, label, e, n_cut=4):
+def check_halo_cuts(torch, label, e, n_cut=4, bitwise=False):
     """The halo kernels on ``n_cut`` lane slabs of the real level ``e`` (a
     band with its i-major copy, or a pack: repacked with a far tail where
     its plan reaches beyond a slab, as the sharded solve does), with x_ext
@@ -1349,7 +1389,9 @@ def check_halo_cuts(torch, label, e, n_cut=4):
     slab 1 beside the slab's CSR product, but for a bf16 band), and the
     slabs' products side by side (plus a far tail's product) against the
     unsharded K1 or K6 product of the whole level.  In the level's type
-    and as f64."""
+    and as f64; with ``bitwise`` every mode of every slab launched twice,
+    equal bits.  Returns slab 1's rows by type (dtype name -> kernel name
+    -> row)."""
     from polydeal_tpu_torch.parallel.banded import _shard_ready, _tile_for
 
     P, nb = e.n_block_rows, e.n_basis
@@ -1358,6 +1400,7 @@ def check_halo_cuts(torch, label, e, n_cut=4):
     T = _tile_for(ready, per)
     packed = hasattr(ready, "plan")
     gen = torch.Generator(device=ready.data_i.device).manual_seed(8)
+    rows = {}
     for data in (ready.data_i, ready.data_i.double()):
         dname = str(data.dtype).split(".")[-1]
         vdt = torch.float64 if dname == "float64" else torch.float32
@@ -1375,10 +1418,13 @@ def check_halo_cuts(torch, label, e, n_cut=4):
             for mode, (kf, pf) in calls.items():
                 hold(f"{label} slab {r} {mode} {dname}", kf(), pf(),
                      TOL[dname])
+            if bitwise:
+                twice_equal(torch, f"{label} slab {r} {dname}", calls)
             ys.append(calls["product"][0]())
             if r == 1:  # cuSPARSE takes no bf16 matrix with f32 vectors
-                check_halo_slab(torch, f"{label} slab 1 of {n_cut}", slab,
-                                gen, library=data.dtype != torch.bfloat16)
+                rows[dname] = check_halo_slab(
+                    torch, f"{label} slab 1 of {n_cut}", slab, gen,
+                    library=data.dtype != torch.bfloat16)
             del slab, x_ext, b, d, dinv, calls
         y = torch.cat(ys, dim=1)
         if packed:
@@ -1399,12 +1445,13 @@ def check_halo_cuts(torch, label, e, n_cut=4):
             f"{rel:.3e}")
         del x, ys, y, whole
     torch.cuda.empty_cache()
+    return rows
 
 
-def shard_flagship(torch, label, fs, group, x64, by_cell=False):
+def shard_flagship(torch, label, fs, group, x64, by_cell=False, tol=1e-4):
     """A flagship system sharded at world size 1 against its unsharded
     no-FMG solve: both reach rtol 1e-8, within one iteration of each other,
-    and the f32 sharded solution lies within 1e-4 of ``x64`` (an f64
+    and the f32 sharded solution lies within ``tol`` of ``x64`` (an f64
     solution of the same system; by cell with ``by_cell``).  Returns (the
     sharded system, the launch counts of its solve)."""
     from polydeal_tpu_torch.ops import _build
@@ -1434,7 +1481,7 @@ def shard_flagship(torch, label, fs, group, x64, by_cell=False):
         fail(f"{label}: a solve missed rtol 1e-8")
     if abs(k - ru.iterations) > 1:
         fail(f"{label}: sharded {k} iterations, unsharded {ru.iterations}")
-    if not diff <= 1e-4:
+    if not diff <= tol:
         fail(f"{label} sharded f32 solution differs from the f64 one by "
              f"{diff:.3e}")
     return ss, counts
@@ -1627,8 +1674,8 @@ def check_k1(torch, label, band, out):
         nbytes = ent * di.element_size() + 2 * nb * P * x.element_size()
         pdt = "float64" if dname == "float64" else "float32"
         b_ms, b_by = bound(nbytes, 2 * ent, pdt)
-        dus = cold_traced_us(torch, kf, "imajor_kernel", nbytes, b_ms,
-                             f"K1 on {label} {dname}")
+        dus = cold_traced_us(torch, kf, traced_name(nb, "imajor_kernel"),
+                             nbytes, b_ms, f"K1 on {label} {dname}")
         A = csr_of_band(torch, di, band.offsets.tolist(), nb, R_pad, P)
         xf = x.T.contiguous().view(-1)
         yl = torch.mv(A, xf).view(P, nb).T
@@ -3300,6 +3347,166 @@ def phase15(torch, dev, group, smi):
     log("phase 15: " + json.dumps(rows))
 
 
+# phase 16: the TensorDGQ basis and P_4 through the banded R3MG path, K1,
+# K2 and their halo entries at nb 8, 27 and 35 on their runtime-nb build
+
+# the JAX package's f64 flagship with the TensorDGQ basis on the CPU
+# (tools/jax_dgq_constants.py; 44.7 s on the CPU)
+JAX_DGQ = {"q1_n32": dict(n_dofs=262144, iterations=18,
+                          l2=0.00028394390472855514)}
+# (label, family, degree, n): fine nb 8, 27 and 35; every level's blocks
+# by the einsums (ops/sipg_kernels.kernel_blocks)
+DGQ_CASES = (("Q1", "dgq", 1, 64), ("Q2", "dgq", 2, 32), ("P4", "dgp", 4, 32))
+# An f32 band of these bases lies further from the f64 solution than the
+# P_1 flagship's (1e-5, phase 5).  On the CPU's plain versions
+# (tools/f32_band_drift.py): the f32 Q1 solve 6.6e-4 from f64 at n=32
+# (1.5e-4 at n=16), Q2 1.0e-4 and P_4 3.2e-4 at n=16, growing ~4x a
+# refinement; the f64 Q1 band rounded to f32 alone moves it 2.6e-4, and
+# the f64 solve on the f32-assembled band 6.3e-4, so no f32 band reaches
+# 1e-4 at these sizes; the f32 CG stops a few iterations later.  The f32
+# solves are held to their f64 ones within these, the f64 solve to the
+# JAX package's
+F32_X_TOL16 = 5e-3
+F32_ITS16 = 6
+ANY_NB = ("banded_matvec_imajor_any_nb", "banded_fused_cheb_any_nb")
+ANY_NB_HALO = ("banded_matvec_halo_any_nb", "banded_fused_halo_any_nb")
+
+
+def dgq_case(torch, dev, group, label, family, degree, n):
+    """One case of phase 16: the flagship on ``family``'s basis at
+    ``degree`` and ``n``, f32 with bf16 smoothing copies and captured (the
+    card's default), cold then warm, through K1 and K2's runtime-nb build
+    and no K3-K5; held to an f64 solve of the same system (iterations
+    within :data:`F32_ITS16`, x within :data:`F32_X_TOL16`); sharded at world size 1 (K1/K2 halo's
+    runtime-nb build); then K1, K2 (bf16 smoothing copy, bitwise) and the
+    halo entries (4-way cuts, bitwise) against their plain versions on the
+    fine band.  Returns the kernels' rows (kernel -> row, worst error of
+    its cases) and the launch counts of the solves and of the sharded
+    solve."""
+    from polydeal_tpu_torch.models.flagship import (setup_flagship,
+                                                    solve_flagship)
+    from polydeal_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    fs = setup_flagship(n=n, degree=degree, family=family, device=dev)
+    res = solve_flagship(fs)  # cold: captures the programs
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = solve_flagship(fs)  # warm
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t
+    counts = dict(_build.launches)
+    nb = fs.handlers[-1].n_basis
+    rel = float(res.residual) / float(fs.b.norm())
+    phases = {k: round(v, 3) for k, v in fs.setup_phases.items()}
+    log(f"  {label} (family {family}, p={degree}, nb={nb}) n={n}: levels "
+        f"{fs.level_sizes}, {fs.n_dofs} DoF, {len(fs.band_offsets)} fine "
+        f"offsets; setup phases (s) {phases}; warm solve {solve_s:.4f} s, "
+        f"{res.iterations} iterations, relative residual {rel:.3e}; "
+        f"runtime-nb launches over setup + 2 solves "
+        f"{ {k: counts[k] for k in ANY_NB} }")
+    if tuple(res.x.shape) != (fs.n_dofs,) or not bool(
+            torch.isfinite(res.x).all()):
+        fail(f"phase 16 {label}: the solution has the wrong shape or "
+             f"non-finite values")
+    if not rel <= 1e-8:
+        fail(f"phase 16 {label}: relative residual {rel:.3e} > 1e-8")
+    for name in ANY_NB:
+        if counts[name] <= 0:
+            fail(f"phase 16 {label}: {name} was never launched")
+    for name in ("volume_blocks", "face_group_blocks", "boundary_blocks"):
+        if counts[name]:
+            fail(f"phase 16 {label}: {name} launched on a basis the rule "
+                 f"gives the einsums")
+    ref = setup_flagship(n=n, degree=degree, family=family, device=dev,
+                         dtype=torch.float64, precond_dtype=None)
+    res64 = solve_flagship(ref)
+    true64 = float((ref.b - ref.mg.ells[-1].matvec(res64.x)).norm()) / float(
+        ref.b.norm())
+    diff = float((res.x.double() - res64.x).abs().max()) / float(
+        res64.x.abs().max())
+    log(f"  {label} f64 solve: {res64.iterations} iterations, true relative "
+        f"residual {true64:.3e}; max |x_f32 - x_f64| / max |x_f64| = "
+        f"{diff:.3e}")
+    if abs(res.iterations - res64.iterations) > F32_ITS16:
+        fail(f"phase 16 {label}: f32 {res.iterations} iterations, f64 "
+             f"{res64.iterations}")
+    if not true64 <= 1.01e-8:
+        fail(f"phase 16 {label}: f64 true relative residual {true64:.3e}")
+    if not diff <= F32_X_TOL16:
+        fail(f"phase 16 {label}: the f32 solution differs from the f64 one "
+             f"by {diff:.3e}")
+    del ref
+    torch.cuda.empty_cache()
+    ss, counts_h = shard_flagship(torch, f"phase 16 {label} flagship", fs,
+                                  group, res64.x, tol=F32_X_TOL16)
+    del ss, res64
+    for name in ANY_NB_HALO:
+        if counts_h[name] <= 0:
+            fail(f"phase 16 {label}: {name} was never launched on the "
+                 f"sharded solve")
+    k1, k2 = {}, {}
+    fine = fs.mg.ells[-1]
+    check_k1(torch, f"{label} fine", fine, k1)
+    check_k2(torch, f"{label} fine bf16 copy", fs.mg.lo_ells[-1], k2,
+             bitwise=True)
+    halo = check_halo_cuts(torch, f"{label} fine", fine, bitwise=True)
+    del fs, fine, res
+    torch.cuda.empty_cache()
+
+    def worst(cases, main):
+        return dict(cases[main], max_abs_err=max(
+            c["max_abs_err"] for c in cases.values()))
+
+    rows = {"K1": worst(k1, f"{label} fine float32"),
+            "K2": worst(k2, f"{label} fine bf16 copy bfloat16"),
+            "K1 halo": worst({d: r["K1 halo"] for d, r in halo.items()},
+                             "float32"),
+            "K2 halo": worst({d: r["K2 halo"] for d, r in halo.items()},
+                             "float32")}
+    log(f"  {label} took {time.perf_counter() - t0:.1f} s")
+    return nb, rows, counts, counts_h
+
+
+def phase16(torch, dev, group, build_s):
+    """Phase 16 (see the module docstring).  Returns (label, nb, rows,
+    launch counts of the solves, of the sharded solve) a case."""
+    import math
+
+    from polydeal_tpu_torch.models.flagship import (setup_flagship,
+                                                    solve_flagship)
+    from polydeal_tpu_torch.postprocess import compute_global_error
+
+    log(f"phase 16: TensorDGQ and P_4 through the banded R3MG path, K1/K2 "
+        f"and their halo entries on their runtime-nb build (kernel build "
+        f"{build_s:.2f} s)")
+    t0 = time.perf_counter()
+    out = [(label, *dgq_case(torch, dev, group, label, family, degree, n))
+           for label, family, degree, n in DGQ_CASES]
+    # Q1 at n=32 in f64 against the JAX package's constant
+    fs = setup_flagship(n=32, family="dgq", device=dev, dtype=torch.float64,
+                        precond_dtype=None)
+    r = solve_flagship(fs)
+    u_ex = lambda x: torch.prod(torch.sin(math.pi * x), dim=-1)
+    l2 = float(compute_global_error(fs.handlers[-1], r.x, u_ex)[0])
+    ref = JAX_DGQ["q1_n32"]
+    dl2 = abs(l2 - ref["l2"]) / ref["l2"]
+    log(f"  Q1 n=32 f64: {r.iterations} iterations (JAX {ref['iterations']})"
+        f", L2 error {l2!r} (JAX {ref['l2']!r}, rel diff {dl2:.2e})")
+    if fs.n_dofs != ref["n_dofs"] or abs(
+            r.iterations - ref["iterations"]) > 1:
+        fail(f"phase 16: Q1 n=32 took {r.iterations} iterations at "
+             f"{fs.n_dofs} DoF, JAX {ref['iterations']}")
+    if not dl2 <= COO_TOL:
+        fail(f"phase 16: Q1 n=32 L2 error differs from JAX's by {dl2:.3e}")
+    del fs, r
+    torch.cuda.empty_cache()
+    log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3526,6 +3733,7 @@ def main() -> int:
     log("phase 14: the remaining one-program solves against eager ones "
         "(arms run in phases 10, 11 and here): " + json.dumps(ARMS14))
     phase15(torch, dev, group, smi)
+    out16 = phase16(torch, dev, group, build_s)
     leave_group()
     shutil.rmtree(store_dir, ignore_errors=True)
     kres.update(halo_rows)
@@ -3609,6 +3817,25 @@ def main() -> int:
                      "polydeal_tpu/ops/packed.py:185"),
                     ("packed_matvec_halo_bf16", "K6 halo bf16",
                      "polydeal_tpu/ops/packed.py:313"))]
+    # phase 16's paths: K1 and K2 at nb 8, 27 and 35 on the runtime-nb
+    # build, launched by each case's solves; their halo entries by its
+    # sharded solve
+    any_nb = "polydeal_tpu_torch/csrc/banded_any_nb.cu"
+    for label, nb, rows16, c16, c16h in out16:
+        for key, name, rpl in (
+                ("K1", "banded_matvec_imajor_any_nb",
+                 "polydeal_tpu/ops/banded.py:65"),
+                ("K2", "banded_fused_cheb_any_nb",
+                 "polydeal_tpu/ops/fused_cheb.py:210"),
+                ("K1 halo", "banded_matvec_halo_any_nb",
+                 "polydeal_tpu/ops/banded.py:267"),
+                ("K2 halo", "banded_fused_halo_any_nb",
+                 "polydeal_tpu/ops/fused_cheb.py:417")):
+            kernels.append(dict(
+                name=f"{name}_{label.lower()}", route="cuda", source=any_nb,
+                replaces=rpl, launches=(c16h if "halo" in key else c16)[name],
+                nb=nb, **{k: rows16[key][k] for k in keys + ("plan",)
+                          if k in rows16[key]}))
     log(f"profiler traces: {TRACES['taken']} taken, {TRACES['empty']} held "
         f"no record of the traced kernel, {TRACES['by_events']} readings by "
         f"queued CUDA events instead")

@@ -14,11 +14,15 @@ into the band with the volume, face group and boundary block kernels
 (K3-K5, ``ops/sipg_kernels.py``), sums over the padded slots and lane
 rolls -- no scatters or gathers (a lane slab's build puts each face
 group's blocks on the slab by lane maps instead); with a pack plan it
-emits the packed format (``sparse.BlockPacked``) directly.  The tensors'
-device decides, as the JAX package's backend does: on a CUDA tensor the
-blocks come from the hand-written kernels (the JAX package's TPU branch),
-on a CPU tensor from their plain einsum versions (its
-``use_pallas=False`` branch).
+emits the packed format (``sparse.BlockPacked``) directly.  Which blocks
+the kernels compute is one rule of the basis family, dimension, degree
+and table dtype (``ops/sipg_kernels.kernel_blocks``: the P_p basis at p
+1-3); every other basis (TensorDGQ, P_p at p >= 4) takes the einsum
+branch, the JAX package's XLA branch, with the handler's basis.  The
+tensors' device decides, as the JAX package's backend does: on a CUDA
+tensor the kernels' blocks come from the hand-written kernels (the JAX
+package's TPU branch), on a CPU tensor from their plain einsum versions
+(its ``use_pallas=False`` branch).
 
 Penalty: gamma = penalty_constant / h_F with penalty_constant =
 10 (p + dim)(p + 1) and h_F the diameter of the smaller-id polytope, as in
@@ -35,8 +39,12 @@ import torch
 from polydeal_tpu_torch.handler import AgglomerationHandler
 from polydeal_tpu_torch.ops.sipg_kernels import (
     boundary_blocks,
+    boundary_blocks_einsum,
     face_group_blocks,
+    face_group_blocks_einsum,
+    kernel_blocks,
     volume_blocks,
+    volume_blocks_einsum,
 )
 from polydeal_tpu_torch.sparse import (
     BlockBanded,
@@ -621,12 +629,15 @@ def _emit_packed(pieces, offsets, plan, oid) -> BlockPacked:
 
 
 def banded_pieces(ah: AgglomerationHandler, tables: dict, offsets,
-                  penalty_constant: float | None = None) -> list:
+                  penalty_constant: float | None = None,
+                  basis=None) -> list:
     """The band of :func:`assemble_sipg_banded_direct` as one [nb, nb, L]
     block row a band offset (in ``offsets``' order), before it is laid
-    out: K3-K5, sums over the padded slots and lane rolls; over a slab's
-    tables, its own lanes [lo, hi) only, each face group's blocks put onto
-    them by its ``keep`` and ``give`` lane maps."""
+    out: K3-K5 where ``kernel_blocks`` gives them the handler's basis, else
+    the einsums with ``basis`` (default: the handler's), sums over the
+    padded slots and lane rolls; over a slab's tables, its own lanes [lo,
+    hi) only, each face group's blocks put onto them by its ``keep`` and
+    ``give`` lane maps."""
     if penalty_constant is None:
         penalty_constant = default_penalty_constant(ah.degree, ah.dim)
     nb, deg, dim = ah.n_basis, ah.degree, ah.dim
@@ -634,15 +645,36 @@ def banded_pieces(ah: AgglomerationHandler, tables: dict, offsets,
     ext_t = tables["ext_t"]  # [dim, P]
     lo_t = tables["lo_t"]  # [dim, P]
     P = ext_t.shape[1]  # the level's lanes, or a slab's own
+    # the kernels evaluate the handler's own P_p basis; another basis
+    # given here takes the einsums
+    kern = (kernel_blocks(ah.family, dim, deg, ext_t.dtype)
+            if basis is None or basis is ah.basis else frozenset())
+    basis = basis or ah.basis
 
-    diag = volume_blocks(tables["vol"], ext_t, deg, dim).reshape(nb, nb, P)
+    def volume(vol, ext):
+        if "volume" in kern:
+            return volume_blocks(vol, ext, deg, dim)
+        return volume_blocks_einsum(vol, ext, basis)
+
+    def faces(g, ext, lo, o):
+        if "face" in kern:
+            return face_group_blocks(g, ext, lo, o, deg, dim,
+                                     penalty_constant)
+        return face_group_blocks_einsum(g, ext, lo, o, basis,
+                                        penalty_constant)
+
+    def boundary(g, ext):
+        if "boundary" in kern:
+            return boundary_blocks(g, ext, deg, dim, penalty_constant)
+        return boundary_blocks_einsum(g, ext, basis, penalty_constant)
+
+    diag = volume(tables["vol"], ext_t).reshape(nb, nb, P)
     rows = {int(o): None for o in offsets}
     for o, g in tables["groups"].items():
         if "k" in g:  # a slab's group, on its own lanes
             m11, m12, m21, m22 = (
-                m.reshape(nb, nb, -1) for m in face_group_blocks(
-                    g, g["ext"], g["lo"], g["k"], deg, dim,
-                    penalty_constant))
+                m.reshape(nb, nb, -1)
+                for m in faces(g, g["ext"], g["lo"], g["k"]))
 
             def on_slab(m, lane_map):
                 pos, lanes = lane_map
@@ -654,8 +686,7 @@ def banded_pieces(ah: AgglomerationHandler, tables: dict, offsets,
             m21r, m22r = on_slab(m21, g["give"]), on_slab(m22, g["give"])
         else:
             m11, m12, m21, m22 = (
-                m.reshape(nb, nb, P) for m in face_group_blocks(
-                    g, ext_t, lo_t, o, deg, dim, penalty_constant))
+                m.reshape(nb, nb, P) for m in faces(g, ext_t, lo_t, o))
             # m22 and m21 belong to poly_out = p + o: roll them onto its
             # lane
             m21r = torch.roll(m21, o, dims=-1)
@@ -664,8 +695,7 @@ def banded_pieces(ah: AgglomerationHandler, tables: dict, offsets,
         rows[o] = m12 if rows[o] is None else rows[o] + m12
         rows[-o] = m21r if rows[-o] is None else rows[-o] + m21r
     if tables["bdry"] is not None:
-        diag = diag + boundary_blocks(tables["bdry"], ext_t, deg, dim,
-                                      penalty_constant).reshape(nb, nb, P)
+        diag = diag + boundary(tables["bdry"], ext_t).reshape(nb, nb, P)
 
     zero = diag.new_zeros((nb, nb, P))
     return [diag if o == 0 else (
@@ -681,9 +711,12 @@ def assemble_sipg_banded_direct(
     layout: str = "omajor",
     pack_plan=None,
     pack_oid: torch.Tensor | None = None,
+    basis=None,
 ) -> BlockBanded | BlockPacked:
     """Banded SIPG matrix over slot-padded tables (see
-    :func:`build_banded_groups`): the block kernels K3-K5, sums over the
+    :func:`build_banded_groups`): the block kernels K3-K5 or, for a basis
+    they are not built for (``ops/sipg_kernels.kernel_blocks``), the
+    einsums with ``basis`` (default: the handler's), then sums over the
     padded slots and lane rolls, no scatters or gathers.  Sign conventions
     follow the reference kernel (poly_utils.h:1870-1926); normals point
     outward from poly_in.  With ``pack_plan`` (a ``PackPlan`` over these
@@ -696,7 +729,7 @@ def assemble_sipg_banded_direct(
     columns of those lanes): every block of those rows, columns anywhere
     in the level."""
     offsets = np.asarray(offsets, dtype=np.int64)
-    pieces = banded_pieces(ah, tables, offsets, penalty_constant)
+    pieces = banded_pieces(ah, tables, offsets, penalty_constant, basis)
     if pack_plan is not None:
         return _emit_packed(pieces, offsets, pack_plan, pack_oid)
     return _emit_banded(pieces, offsets, ah.n_basis, pieces[0].shape[-1],

@@ -61,8 +61,10 @@
 //
 // Plain C interface for ctypes (built by polydeal_tpu_torch/ops/_build.py):
 // each entry point launches on the given stream and returns
-// cudaGetLastError() (0 on success), -1 for an unsupported dtype pair, -2
-// for an nb K2 has no build for, or -3 for an unknown mode.
+// cudaGetLastError() (0 on success), -1 for an unsupported dtype pair, -3
+// for an unknown mode or -4 for nb < 1.  K2 and K2 halo at an nb without
+// a specialised build (banded_common.cuh's PD_NB_DISPATCH) run the
+// runtime-nb kernel of csrc/banded_any_nb.cu.
 
 #include "banded_common.cuh"
 
@@ -246,8 +248,10 @@ int launch_fused(const void* data, const void* x, const int* offsets,
                  const void* dinv, double c1, double c2, int mode,
                  void* out0, void* out1, cudaStream_t s) {
   if (mode < RESIDUAL || mode > STEP) return -3;
-  PD_NB_DISPATCH(launch_fused_nb, TD, TV, nb, data, x, offsets, n_off,
-                 R_pad, P, ldx, halo, b, d, dinv, c1, c2, mode, out0, out1, s);
+  if (nb < 1) return -4;
+  PD_NB_DISPATCH(launch_fused_nb, pd_any_nb::fused, TD, TV, nb, data, x,
+                 offsets, n_off, R_pad, P, ldx, halo, b, d, dinv, c1, c2,
+                 mode, out0, out1, s);
 }
 
 template <typename TD, typename TV>

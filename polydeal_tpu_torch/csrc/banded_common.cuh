@@ -233,9 +233,35 @@ inline bool aligned16(const void* p) {
   }                                                                      \
   return -1
 
-// Calls F<TD, TV, NB>(args...) for the block sizes K1 and K2 are built for,
-// nb = (p + dim choose dim) for dim 2-3, p 1-3; -2 for any other.
-#define PD_NB_DISPATCH(F, TD, TV, nb, ...)          \
+// K1 and K2 at a runtime nb (csrc/banded_any_nb.cu), for every (data,
+// vector) dtype pair of PD_DISPATCH: what PD_NB_DISPATCH calls for an nb
+// without a specialised build.  Their arguments are those of the
+// specialised launch, plan and fused-launch functions, nb first.
+namespace pd_any_nb {
+
+template <typename TD, typename TV>
+int matvec(int nb, const void* data, const void* x, const int* offsets,
+           int n_off, int R_pad, int64_t P, int64_t ldx, int64_t halo,
+           void* y, cudaStream_t st);
+
+template <typename TD, typename TV>
+int fused(int nb, const void* data, const void* x, const int* offsets,
+          int n_off, int R_pad, int64_t P, int64_t ldx, int64_t halo,
+          const void* b, const void* d, const void* dinv, double c1,
+          double c2, int mode, void* out0, void* out1, cudaStream_t st);
+
+// plan[0..5] = W, S (1), threads a block, blocks, shared bytes (0), rows a
+// thread
+template <typename TD, typename TV>
+int plan(int nb, const void* data, const void* x, const void* y, int n_off,
+         int64_t P, int64_t ldx, int64_t halo, long long* out);
+
+}  // namespace pd_any_nb
+
+// Calls F<TD, TV, NB>(args...) for the block sizes K1 and K2 have a
+// specialised build for, nb = (p + dim choose dim) for dim 2-3, p 1-3, and
+// the runtime-nb build G<TD, TV>(nb, args...) for any other nb >= 1.
+#define PD_NB_DISPATCH(F, G, TD, TV, nb, ...)       \
   switch (nb) {                                     \
     case 3:                                         \
       return F<TD, TV, 3>(__VA_ARGS__);             \
@@ -247,5 +273,6 @@ inline bool aligned16(const void* p) {
       return F<TD, TV, 10>(__VA_ARGS__);            \
     case 20:                                        \
       return F<TD, TV, 20>(__VA_ARGS__);            \
-  }                                                 \
-  return -2
+    default:                                        \
+      return G<TD, TV>(nb, __VA_ARGS__);            \
+  }

@@ -41,7 +41,8 @@
 // Plain C interface for ctypes (built by polydeal_tpu_torch/ops/_build.py):
 // each entry point launches on the given stream and returns
 // cudaGetLastError() (0 on success), -1 for an unsupported dtype pair or
-// -2 for an nb with no build.
+// -4 for nb < 1.  At an nb without a specialised build (banded_common.cuh's
+// PD_NB_DISPATCH) K1, K1 halo and the plan are csrc/banded_any_nb.cu's.
 
 #include "banded_common.cuh"
 
@@ -162,8 +163,9 @@ template <typename TD, typename TV>
 int launch_matvec(const void* data, const void* x, const int* offsets,
                   int n_off, int nb, int R_pad, int64_t P, int64_t ldx,
                   int64_t halo, void* y, cudaStream_t st) {
-  PD_NB_DISPATCH(launch_matvec_nb, TD, TV, nb, data, x, offsets, n_off,
-                 R_pad, P, ldx, halo, y, st);
+  if (nb < 1) return -4;
+  PD_NB_DISPATCH(launch_matvec_nb, pd_any_nb::matvec, TD, TV, nb, data, x,
+                 offsets, n_off, R_pad, P, ldx, halo, y, st);
 }
 
 template <typename TD, typename TV, int NB>
@@ -175,13 +177,16 @@ int plan_nb(const void* data, const void* x, const void* y, int n_off,
   out[2] = pl.threads;
   out[3] = pl.blocks;
   out[4] = static_cast<long long>(pl.smem);
+  out[5] = NB;  // rows a thread: all of a lane's
   return 0;
 }
 
 template <typename TD, typename TV>
 int plan_of(const void* data, const void* x, const void* y, int n_off,
             int nb, int64_t P, int64_t ldx, int64_t halo, long long* out) {
-  PD_NB_DISPATCH(plan_nb, TD, TV, nb, data, x, y, n_off, P, ldx, halo, out);
+  if (nb < 1) return -4;
+  PD_NB_DISPATCH(plan_nb, pd_any_nb::plan, TD, TV, nb, data, x, y, n_off, P,
+                 ldx, halo, out);
 }
 
 }  // namespace
@@ -209,8 +214,8 @@ extern "C" int pd_banded_matvec_halo(const void* data, int data_dt,
 }
 
 // The plan a launch with these arguments takes (y may be null: a fresh
-// output, 16-byte aligned): plan[0..4] = W, S, threads a block, blocks,
-// bytes of shared memory.  Launches nothing.
+// output, 16-byte aligned): plan[0..5] = W, S, threads a block, blocks,
+// bytes of shared memory, output rows a thread.  Launches nothing.
 extern "C" int pd_banded_matvec_plan(const void* data, int data_dt,
                                      const void* x, int vec_dt, int n_off,
                                      int nb, long long P, long long ldx,

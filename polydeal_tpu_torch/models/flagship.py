@@ -45,6 +45,12 @@ Usage::
     fs = setup_flagship(n=64, relabel=None, device=torch.device("cuda"))
     fs = setup_flagship(n=64, hierarchy="structured",
                         device=torch.device("cuda"))
+    fs = setup_flagship(n=64, family="dgq", device=torch.device("cuda"))
+
+``family="dgq"`` (TensorDGQ, nb = (p + 1)^3: 8 at p=1) and P_p at p >= 4
+(nb = 35 at p=4) assemble every level through the einsums, as the JAX
+package does, and run K1 and K2 at their nb through the kernels' runtime-nb
+build (``csrc/banded_any_nb.cu``).
 
 On a CUDA device the kernel library is built or loaded, and CUDA, cuBLAS
 and cuSOLVER initialised, before the first setup clock starts
@@ -109,10 +115,12 @@ class Flagship:
 
 
 def flagship_hierarchy(n: int = 64, degree: int = 1,
-                       hierarchy: str = "rtree", relabel: str | None = "lex"):
+                       hierarchy: str = "rtree", relabel: str | None = "lex",
+                       family: str = "dgp"):
     """(handlers, parents, grid_shapes) of the flagship's hierarchy on
     ``hyper_cube(3, n)`` (host only): ``"rtree"`` trimmed to :data:`TRIM`
-    extraction levels, or ``"structured"``."""
+    extraction levels, or ``"structured"``; every level's basis is
+    ``family``'s (``"dgp"``: P_p, ``"dgq"``: TensorDGQ)."""
     mesh = hyper_cube(3, n)
     if hierarchy == "structured":
         if relabel != "lex":
@@ -120,13 +128,14 @@ def flagship_hierarchy(n: int = 64, degree: int = 1,
                              f"lexicographically: relabel {relabel!r} is not "
                              "'lex'")
         return multigrid.build_structured_hierarchy(
-            mesh, n, degree=degree, coarsest_side=max(2, n >> TRIM))
+            mesh, n, degree=degree, family=family,
+            coarsest_side=max(2, n >> TRIM))
     if hierarchy == "rtree":
         agg = RTreeAgglomerator.build(mesh.cell_centers())
         lv0 = max(1, agg.n_levels - 1 - TRIM)
         handlers, parents = multigrid.build_rtree_hierarchy(
             mesh, agg, list(range(lv0, agg.n_levels - 1)), degree=degree,
-            relabel=relabel)
+            family=family, relabel=relabel)
         return handlers, parents, (
             multigrid.detect_grid_shapes(handlers, parents) if relabel
             else None)
@@ -144,11 +153,14 @@ def setup_flagship(
     coarse_solver: str = "inv",
     relabel: str | None = "lex",
     hierarchy: str = "rtree",
+    family: str = "dgp",
 ) -> Flagship:
-    """Build the hierarchy (``"rtree"``, or ``"structured"``), the tables,
+    """Build the hierarchy (``"rtree"``, or ``"structured"``) with
+    ``family``'s basis (``"dgp"``, or ``"dgq"``: TensorDGQ), the tables,
     the fine band, the rhs and the multigrid on ``device``.  Every level is
     packed or banded by :func:`multigrid.level_pack_plan`; the fine one is
-    assembled straight into its format.
+    assembled straight into its format (K3-K5 for P_p at p 1-3, the einsums
+    for any other basis: ``ops/sipg_kernels.kernel_blocks``).
 
     Float32 products stay full float32: TF32 would corrupt the f32 einsum
     assembly and the transfers, so it is switched off here for the
@@ -161,7 +173,7 @@ def setup_flagship(
     dim = 3
     t0 = time.perf_counter()
     handlers, parents, grid_shapes = flagship_hierarchy(n, degree, hierarchy,
-                                                        relabel)
+                                                        relabel, family)
     ah = handlers[-1]
     t_hier = time.perf_counter() - t0
 

@@ -43,7 +43,9 @@ DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 # K0 and fused K0 (csrc/banded.cu), K3, K4, K5 (csrc/sipg.cu) and K6, K7
 # (csrc/packed.cu); the halo launches of K1, K2, K6 and K7 (on a shard's
 # slab) count apart, and so do K6's and K6 halo's bf16-x launches (their
-# own instantiation, csrc/packed_bf16.cu)
+# own instantiation, csrc/packed_bf16.cu) and the launches of K1, K2 and
+# their halo entries at an nb without a specialised build (``_any_nb``: the
+# runtime-nb kernel, csrc/banded_any_nb.cu)
 launches = {"banded_matvec_imajor": 0, "banded_fused_cheb": 0,
             "banded_matvec_omajor": 0, "banded_fused_omajor": 0,
             "volume_blocks": 0, "face_group_blocks": 0,
@@ -51,7 +53,9 @@ launches = {"banded_matvec_imajor": 0, "banded_fused_cheb": 0,
             "packed_fused_cheb": 0, "banded_matvec_halo": 0,
             "banded_fused_halo": 0, "packed_matvec_halo": 0,
             "packed_fused_halo": 0, "packed_matvec_bf16": 0,
-            "packed_matvec_halo_bf16": 0}
+            "packed_matvec_halo_bf16": 0, "banded_matvec_imajor_any_nb": 0,
+            "banded_fused_cheb_any_nb": 0, "banded_matvec_halo_any_nb": 0,
+            "banded_fused_halo_any_nb": 0}
 
 _lib = None
 _log = ""
@@ -132,7 +136,7 @@ def load_library() -> ctypes.CDLL:
     lib.pd_banded_fused.argtypes = [vp, i32, vp, i32, vp, i32, i32, i32, i64,
                                     vp, vp, vp, f64, f64, i32, vp, vp, vp]
     # K1's launch plan: (data, dtype, x, dtype, n_off, nb, P, ldx, halo, y,
-    # long long[5] out)
+    # long long[6] out)
     lib.pd_banded_matvec_plan.argtypes = [vp, i32, vp, i32, i32, i32, i64,
                                           i64, i64, vp, vp]
     # K0: as K1 without R_pad

@@ -8,11 +8,12 @@ and K1 halo (:func:`banded_matvec_t_halo`) of ``banded_matvec_t_halo``:
 K1 on one shard's lane slab, x read from ``x_ext`` [nb, per + 2T], whose T
 lanes on each side are the neighbouring shards' (``parallel/banded.py``).
 On a CUDA tensor each wrapper launches its hand-written kernel
-(K1 and K1 halo ``csrc/banded_matvec.cu``, K0 ``csrc/banded.cu``; it
-raises if it cannot); on a CPU tensor it runs its plain PyTorch version
-(``*_ref``), which computes the same function.  K1 runs by a launch plan
-(lanes a thread W, offset groups a block S) that the library chooses;
-:func:`k1_plan` reports it.
+(K1 and K1 halo ``csrc/banded_matvec.cu``, at an nb outside
+:data:`KERNEL_NB` its runtime-nb kernel ``csrc/banded_any_nb.cu``; K0
+``csrc/banded.cu``; it raises if it cannot); on a CPU tensor it runs its
+plain PyTorch version (``*_ref``), which computes the same function.  K1
+runs by a launch plan (lanes a thread W, offset groups a block S) that the
+library chooses; :func:`k1_plan` reports it.
 
 bf16 vectors: K1, K0 and K1 halo take them through an explicit cast to
 f32 before the launch and back to bf16 after it (:func:`widen_bf16`,
@@ -23,7 +24,7 @@ K6 alone reads bf16 x in the kernel (``ops/packed.py``).
 
 Layout contracts (shared with the JAX package): K1 takes ``data_i``
 [nb * R_pad, P] with rows ordered (i, k, j) and R_pad >= n_off * nb
-(padding rows are never read) and nb in :data:`KERNEL_NB`; K0 takes
+(padding rows are never read) and any nb >= 1; K0 takes
 ``data`` [n_off, nb, nb, P]; both take ``xt`` [nb, P], and x reads zero
 outside [0, P).
 
@@ -55,8 +56,10 @@ __all__ = ["banded_matvec_t_imajor", "banded_matvec_t_imajor_ref",
 _VEC_DTYPES = (torch.float32, torch.float64)
 # K0 stages its offset table in 48 KB of shared memory
 _MAX_OFFSETS = 48 * 1024 // 4
-# the block sizes K1 and K2 are built for (PD_NB_DISPATCH,
-# csrc/banded_common.cuh): (p + dim choose dim) for dim 2-3, p 1-3
+# the block sizes K1 and K2 have a specialised build for (PD_NB_DISPATCH,
+# csrc/banded_common.cuh): (p + dim choose dim) for dim 2-3, p 1-3.  Any
+# other nb runs their runtime-nb build (csrc/banded_any_nb.cu), whose
+# launches count apart (``_any_nb`` counters)
 KERNEL_NB = (3, 4, 6, 10, 20)
 
 
@@ -202,10 +205,7 @@ def band_layout(data_i, offsets, nb, n_slots=None) -> tuple[int, int, int]:
 
 def imajor_band(data_i, offsets, nb) -> KernelBand:
     """Validate an i-major band [nb * R_pad, P] for K1/K2
-    (:func:`band_layout`, nb in :data:`KERNEL_NB`)."""
-    if nb not in KERNEL_NB:
-        raise ValueError(f"no K1/K2 build for nb={nb} (built for "
-                         f"{KERNEL_NB})")
+    (:func:`band_layout`; any nb >= 1)."""
     n_off, R_pad, P = band_layout(data_i, offsets, nb)
     return KernelBand("imajor", data_i, nb, P, n_off, R_pad,
                       (offsets.data_ptr(), n_off, nb, R_pad, P), offsets)
@@ -242,13 +242,16 @@ def halo_check(offsets, P: int, x_ext: torch.Tensor, tile: int,
 class K1Plan(NamedTuple):
     """How K1 runs one launch (``k1_plan``): W lanes a thread, S offset
     groups a block (S > 1: the groups' partial sums meet in ``smem`` bytes
-    of shared memory), ``threads`` a block, ``blocks`` blocks."""
+    of shared memory), ``threads`` a block, ``blocks`` blocks, ``rows``
+    output rows a thread (nb in a specialised build, a chunk of 8 rows in
+    the runtime-nb one)."""
 
     W: int
     S: int
     threads: int
     blocks: int
     smem: int
+    rows: int
 
 
 def k1_plan(band: KernelBand, x: torch.Tensor,
@@ -258,7 +261,7 @@ def k1_plan(band: KernelBand, x: torch.Tensor,
     launch (``pd_banded_matvec_plan``; a fresh output, aligned).  Needs
     the kernel library, so a card."""
     ldx = band.P if halo is None else band.P + 2 * halo
-    out = (ctypes.c_longlong * 5)()
+    out = (ctypes.c_longlong * 6)()
     rc = _build.load_library().pd_banded_matvec_plan(
         band.head[0], band.head[1], x.data_ptr(), _build.DTYPE_CODES[x.dtype],
         band.n_off, band.nb, band.P, ldx, halo or 0, None, out)
@@ -293,6 +296,8 @@ def launch_band(band: KernelBand, fused: bool, vecs, tail,
         raise RuntimeError(f"{name} ({entry}) launch failed: {rc}")
     if vecs[0].dtype == torch.bfloat16:
         counter += "_bf16"  # K6's bf16-x instantiation counts apart
+    elif band.layout == "imajor" and band.nb not in KERNEL_NB:
+        counter += "_any_nb"  # K1/K2's runtime-nb build counts apart
     _build.launches[counter] += 1
 
 

@@ -28,13 +28,15 @@ caller passes b_eff = b - A_far x to the step and subtracts A_far x from
 the residual.
 
 On a CUDA tensor the wrappers launch the kernels of ``csrc/banded.cu`` and
-``csrc/packed.cu`` (and raise if they cannot); on a CPU tensor they run the
-plain PyTorch versions below.  The update runs in the vectors' dtype (f32,
-or f64); the product accumulates in it for K2 and K7, and as K0 does
-(f64 for an f64 band, f32 otherwise) for fused K0.  bf16 vectors are cast
-to f32 before the launch and the results back to bf16, where the JAX
-package's wrappers cast (``_prep_x``, ``_scal_vecs``,
-``polydeal_tpu/ops/fused_cheb.py:287-300``, ``:406``); the V-cycle itself
+``csrc/packed.cu`` (K2 and K2 halo at an nb outside ``ops/banded.KERNEL_NB``
+the runtime-nb kernel of ``csrc/banded_any_nb.cu``), and raise if they
+cannot; on a CPU tensor they run the plain PyTorch versions below.  The
+update runs in the vectors' dtype (f32, or f64); the product accumulates
+in it for K2 and K7, and as K0 does (f64 for an f64 band, f32 otherwise)
+for fused K0.  bf16 vectors are cast to f32 before the launch and the
+results back to bf16, where the JAX package's wrappers cast (``_prep_x``,
+``_scal_vecs``, ``polydeal_tpu/ops/fused_cheb.py:287-300``, ``:406``);
+the V-cycle itself
 runs bf16 sweeps through the composed smoother, as the JAX package's
 ``_fused_ok`` refuses them.  ``band=`` takes the band's validated launch
 arguments where the caller keeps them (``ops/banded.KernelBand``).

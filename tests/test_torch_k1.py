@@ -1,6 +1,8 @@
 """K1 (the i-major banded SpMV) and K1 halo: the block sizes the kernels
-are built for, the plain versions at each of them, and the CUDA kernel
-against its plain version.
+have a specialised build for, the plain versions at each of them, and the
+CUDA kernel against its plain version; K1, K2 and their halo entries at an
+nb without a specialised build (their runtime-nb build,
+``csrc/banded_any_nb.cu``).
 
 K1 runs by a launch plan that the kernel library chooses
 (``csrc/banded_matvec.cu`` ``k1_plan``, reported by ``ops/banded.k1_plan``):
@@ -9,9 +11,10 @@ multiples of W and the operands 16-byte aligned, else 1) and S offset
 groups a block (S > 1 where P / W threads leave the card short: the groups
 sum contiguous offset ranges and meet in shared memory in group order).
 
-On the CPU: ``imajor_band`` refuses an nb with no K1/K2 build (K0 and the
-packed layout take any nb); every nb the P_k bases give at dim 2-3, p 1-3
-is built; K1's plain version equals K1 halo's on a zero-padded x_ext at
+On the CPU: ``imajor_band`` takes an nb with no specialised build, and the
+wrappers of K1, K1 halo and K2 return their plain versions' bits there;
+every nb the P_k bases give at dim 2-3, p 1-3 has a specialised build;
+K1's plain version equals K1 halo's on a zero-padded x_ext at
 each built nb (f64, 1e-12 relative to the largest entry: two gathers of
 the same sum); on CPU tensors the wrapper runs the plain version and
 launches nothing.  The JAX parity of the plain versions is
@@ -22,11 +25,12 @@ On a card (``-m cuda``; the file imports no JAX, so it runs there with
 every (band, vector) dtype pair of the C interface, with an S > 1 plan;
 P not a multiple of W and a misaligned x (W = 1); halo slabs with S > 1
 and S = 1; the plans at the main path's shapes; two launches bitwise
-equal.  Tolerances: 1e-5 relative for f32 vectors (f32 sums in another
-order), 1e-12 for f64.
+equal; the runtime-nb build at nb 5, 8, 27 and 35 (K1, K2's three modes,
+every dtype pair) and K1 / K2 halo at nb = 8, each against its plain
+version and bitwise over two launches.  Tolerances: 1e-5 relative for f32
+vectors (f32 sums in another order), 1e-12 for f64.
 """
 
-import ctypes
 import math
 
 import numpy as np
@@ -38,6 +42,7 @@ torch.set_num_threads(1)
 from polydeal_tpu_torch.fem.basis import make_basis  # noqa: E402
 from polydeal_tpu_torch.ops import _build  # noqa: E402
 from polydeal_tpu_torch.ops import banded as bd  # noqa: E402
+from polydeal_tpu_torch.ops import fused_cheb as fc  # noqa: E402
 
 # aligned (multiples of 4 and 8) and unaligned offsets, both signs
 OFFSETS = (-70, -64, -9, -1, 0, 1, 8, 13, 64, 67)
@@ -66,15 +71,40 @@ def _rel(got, want):
                  / want.double().abs().max())
 
 
+def _cheb(nb, P, seed, dtype=torch.float64, device="cpu"):
+    """Seeded b, d and dinv [nb, P] of a Chebyshev step."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal((nb, P))).to(
+        device, dtype) for _ in range(3))
+
+
 @pytest.mark.parametrize("nb", [1, 2, 5, 8, 9, 27])
 def test_unbuilt_nb_is_refused(nb):
-    """K1/K2 have no build for these nb (TensorDGQ's 8, 9, 27 among them):
-    ``imajor_band`` raises before any launch; the layout itself is valid
-    and K0's o-major band takes it."""
-    data_i, offs, _ = _band(nb, 64, dtype=torch.float32)
-    with pytest.raises(ValueError, match="no K1/K2 build"):
-        bd.imajor_band(data_i, offs, nb)
-    assert bd.band_layout(data_i, offs, nb)[2] == 64
+    """These nb (TensorDGQ's 8, 9, 27 among them) have no specialised
+    K1/K2 build; no longer refused: ``imajor_band`` takes them (their
+    runtime-nb build launches on a card), and on CPU tensors the wrappers
+    of K1, K1 halo and K2 (step and residual) return their plain versions'
+    bits and launch nothing.  K0's o-major band takes them too."""
+    P = 64
+    data_i, offs, x = _band(nb, P, seed=nb)
+    kb = bd.imajor_band(data_i, offs, nb)
+    assert (kb.nb, kb.P, kb.n_off) == (nb, P, len(OFFSETS))
+    T = max(abs(o) for o in OFFSETS)
+    x_ext = torch.nn.functional.pad(x, (T, T))
+    b, d, dinv = _cheb(nb, P, seed=nb + 1)
+    before = dict(_build.launches)
+    assert torch.equal(bd.banded_matvec_t_imajor(data_i, offs, nb, x),
+                       bd.banded_matvec_t_imajor_ref(data_i, offs, nb, x))
+    assert torch.equal(
+        bd.banded_matvec_t_halo(data_i, offs, nb, x_ext, tile=T),
+        bd.banded_matvec_t_halo_ref(data_i, offs, nb, x_ext, tile=T))
+    got = fc.banded_cheb_step_t(data_i, offs, nb, x, d, b, dinv, 0.3, 0.7)
+    want = fc.banded_cheb_step_t_ref(data_i, offs, nb, x, d, b, dinv, 0.3,
+                                     0.7)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(fc.banded_residual_t(data_i, offs, nb, x, b),
+                       fc.banded_residual_t_ref(data_i, offs, nb, x, b))
+    assert _build.launches == before
     data = torch.zeros(len(OFFSETS), nb, nb, 64)
     assert bd.omajor_band(data, offs).nb == nb
 
@@ -207,19 +237,82 @@ def test_cuda_k1_plan(cuda, P, n_off, ddt, vdt, W, S):
     assert plan.blocks == -(-P // W // (256 // S))
 
 
+def _check_k2(data_i, offs, nb, x, b, d, dinv, vdt, halo=None):
+    """K2's three modes (K2 halo's with ``halo``, x being x_ext) against
+    their plain versions, each launched twice, bitwise."""
+    kw = {} if halo is None else {"tile": halo}
+    sfx = "" if halo is None else "_halo"
+    step, residual = (getattr(fc, f"banded_cheb_step_t{sfx}"),
+                      getattr(fc, f"banded_residual_t{sfx}"))
+    step_ref, residual_ref = (getattr(fc, f"banded_cheb_step_t{sfx}_ref"),
+                              getattr(fc, f"banded_residual_t{sfx}_ref"))
+    kb = bd.imajor_band(data_i, offs, nb)
+    for dv in (None, d):
+        args = (data_i, offs, nb, x, dv, b, dinv, 0.3, 0.7)
+        got = step(*args, band=kb, **kw)
+        again = step(*args, band=kb, **kw)
+        want = step_ref(*args, **kw)
+        for g, a, w in zip(got, again, want):
+            assert _rel(g, w) <= TOL[vdt]
+            assert torch.equal(g, a)
+    got = residual(data_i, offs, nb, x, b, band=kb, **kw)
+    assert _rel(got, residual_ref(data_i, offs, nb, x, b, **kw)) <= TOL[vdt]
+    assert torch.equal(got, residual(data_i, offs, nb, x, b, band=kb, **kw))
+
+
 @pytest.mark.cuda
 def test_cuda_library_refuses_unbuilt_nb(cuda):
-    """The C entries return -2 for an nb with no build (the wrapper's
-    ``imajor_band`` refuses it before)."""
+    """The nb the library once refused (no specialised build) run its
+    runtime-nb build: at nb 5, 8, 27 and 35 and every dtype pair, K1 and
+    K2's three modes against their plain versions, two launches bitwise
+    equal, each launch counted under the ``_any_nb`` counters; the C plan
+    entry reports 8 rows a thread and one offset group."""
+    P = 8192
+    for nb in (5, 8, 27, 35):
+        for ddt, vdt in PAIRS:
+            data_i, offs, x = _band(nb, P, seed=nb,
+                                    dtype=getattr(torch, ddt),
+                                    vdtype=getattr(torch, vdt), device=cuda)
+            b, d, dinv = _cheb(nb, P, nb + 1, getattr(torch, vdt), cuda)
+            _build.reset_launches()
+            plan = _check(data_i, offs, nb, x, vdt)
+            _check_k2(data_i, offs, nb, x, b, d, dinv, vdt)
+            assert (plan.S, plan.rows, plan.smem) == (1, 8, 0)
+            assert _build.launches["banded_matvec_imajor_any_nb"] == 2
+            assert _build.launches["banded_fused_cheb_any_nb"] == 6
+            assert _build.launches["banded_matvec_imajor"] == 0
+            assert _build.launches["banded_fused_cheb"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdt", ["float32", "float64"])
+def test_cuda_any_nb_halo(cuda, vdt):
+    """K1 halo and K2 halo at nb = 8 (TensorDGQ Q1 in 3D) on a slab of
+    8192 lanes with a halo of T = 4096 lanes whose values differ from the
+    interior's, against their plain versions, bitwise over two
+    launches."""
+    nb, per, T = 8, 8192, 4096
+    offsets = (-4096, -64, -1, 0, 1, 64, 4096)
+    t = getattr(torch, vdt)
+    data_i, offs, _ = _band(nb, per, offsets, dtype=t, vdtype=t,
+                            device=cuda)
+    x_ext = torch.randn(nb, per + 2 * T, dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(5)).to(cuda,
+                                                                       t)
+    b, d, dinv = _cheb(nb, per, 6, t, cuda)
+    _build.reset_launches()
+    plan = _check(data_i, offs, nb, x_ext, vdt, halo=T)
+    _check_k2(data_i, offs, nb, x_ext, b, d, dinv, vdt, halo=T)
+    assert plan.rows == 8
+    assert _build.launches["banded_matvec_halo_any_nb"] == 2
+    assert _build.launches["banded_fused_halo_any_nb"] == 6
+    # the C entry launches at an nb the specialised builds lack
     lib = _build.load_library()
-    data_i, offs, x = _band(5, 256, dtype=torch.float32,
-                            vdtype=torch.float32, device=cuda)
-    y = torch.empty_like(x)
-    out = (ctypes.c_longlong * 5)()
-    assert lib.pd_banded_matvec_plan(data_i.data_ptr(), 0, x.data_ptr(), 0,
-                                     len(OFFSETS), 5, 256, 256, 0, None,
-                                     out) == -2
-    assert lib.pd_banded_matvec(data_i.data_ptr(), 0, x.data_ptr(), 0,
-                                offs.data_ptr(), len(OFFSETS), 5,
-                                data_i.shape[0] // 5, 256, y.data_ptr(),
-                                _build.stream_handle(y.device)) == -2
+    y = torch.empty(nb, per, dtype=t, device=cuda)
+    assert lib.pd_banded_matvec_halo(
+        data_i.data_ptr(), _build.DTYPE_CODES[t], x_ext.data_ptr(),
+        _build.DTYPE_CODES[t], offs.data_ptr(), len(offsets), nb,
+        data_i.shape[0] // nb, per, per + 2 * T, T, y.data_ptr(),
+        _build.stream_handle(y.device)) == 0
+    assert torch.equal(y, bd.banded_matvec_t_halo(data_i, offs, nb, x_ext,
+                                                  tile=T))
