@@ -197,6 +197,25 @@ Phases (each must pass; nothing falls back to the CPU):
      fine bands against their plain versions, traced cold beside their
      bounds; and the Q1 n=32 f64 solve within one iteration and 1e-8 (L2
      error, relative) of the JAX package's (tools/jax_dgq_constants.py).
+ 17. the 2D high-order monodomain (MonodomainConfig(dim=2, degree=p), the
+     command line's defaults: dt 1e-4, stimulus radius 0.1), where K5
+     alone computes the blocks it computes in the JAX package (the
+     boundary blocks of every level; the volume and face blocks by the
+     einsums): p=4 at n_refinements=9 (262,144 fine polytopes, 3,932,160
+     DoF) with the lex relabel (K1/K2 at nb = 15 on their runtime-nb build
+     from 32768 lanes, fused K0 below) and with relabel=None (K6/K7 on the
+     packed levels), p=5 at n_refinements=8 (1,376,256 DoF, nb = 21) lex;
+     f32, captured, 1 BDF1 and MONO_STEPS BDF2 steps cold then warm: 2-5
+     CG iterations a step, max u at quadrature in (0.01, 2.0), the
+     integrals of u and u^2 within 1e-3 of an f64 lex run of the same
+     steps, K5 launched once a level at the build and K3/K4 never; setup
+     phases, steps/s and DoF*steps/s; K1 and K2 (f32 band and a bf16
+     copy, bitwise) against their plain versions on the lex fine bands,
+     K0 on the largest K0 level, K6/K7 on every packed level, K5 on every
+     lex level's real tables; then f64 at n_refinements=5 for p=4 and 5
+     against the JAX package (tools/jax_mono2d_constants.py): the same CG
+     iterations per step (BDF1 and 5 BDF2), the integrals within 1e-9.
+     Phase 3 holds K5 at the 2D p=4 and p=5 fine boundary shapes too.
 K0 (o-major banded SpMV) and fused K0 (its Chebyshev step/residual, all
 three modes) are held against their plain versions on the real bands of
 phases 5-7 once each exists (phase 3's check, on real bands): the
@@ -437,9 +456,11 @@ def check_kernels(torch, dev):
 def check_sipg_kernels(torch, dev):
     """Phase 3, K3-K5: against their plain versions on seeded tables at
     SIPG_SHAPES (``models/profile_sipg.py``), f32 and f64, each timed by
-    ``profile_sipg.cold_ms`` (device time, L2 evicted); returns per-kernel
-    results at the flagship's fine-level shapes in f32 (the main path's
-    tables).  The reference is the plain version evaluated in f64 on the
+    ``profile_sipg.cold_ms`` (device time, L2 evicted); at the 2D p = 4
+    and 5 shapes, where K5 alone is built, K5 only, bitwise over two
+    launches.  Returns per-kernel results at the flagship's fine-level
+    shapes in f32 (the main path's tables), and K5's at the 2D shapes
+    (``"boundary_blocks 2d p4"``, ``"... 2d p5"``).  The reference is the plain version evaluated in f64 on the
     same inputs, so that an f32 row measures the kernel's rounding alone:
     the 8-lane rows sum 9,000-65,000 points a lane, where the f32 plain
     version's own rounding nears the tolerance (printed beside)."""
@@ -457,7 +478,8 @@ def check_sipg_kernels(torch, dev):
             dt = getattr(torch, dname)
             (vol, face, bdry), ext, lo = ps.sipg_tables(dev, dt, dim, P,
                                                         (vq, fq, bq), gen)
-            vol = dict(pts=vol["pts_in"], w=vol["w"])
+            vol = vol and dict(pts=vol["pts_in"], w=vol["w"])
+            built = sk.kernel_blocks("dgp", dim, deg, dt)
             cases = {
                 "volume_blocks": (
                     lambda: sk.volume_blocks(vol, ext, deg, dim),
@@ -483,7 +505,10 @@ def check_sipg_kernels(torch, dev):
                         sk.boundary_blocks_ref(bdry, ext, deg, dim, pc)),
                     ("boundary", bq)),
             }
-            for name, (kf, pf, (kind, (C, q))) in cases.items():
+            for name, (kf, pf, (kind, Cq)) in cases.items():
+                if kind not in built:  # 2D p = 4-5: K5 alone
+                    continue
+                C, q = Cq
                 got, ref = ps.blocks(kf()).double(), ps.blocks(pf(up=True))
                 own = ps.blocks(pf()).double()
                 torch.cuda.synchronize()
@@ -507,10 +532,20 @@ def check_sipg_kernels(torch, dev):
                 if not rel <= SIPG_TOL[dname]:
                     fail(f"{name} {label} {dname} disagrees with its plain "
                          f"version: rel {rel:.3e}")
-                if label == "fine" and dname == "float32":
-                    out[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                     bound_ms=b_ms, bound_by=b_by,
-                                     library_ms=None)
+                if built == {"boundary"}:  # bitwise over two launches
+                    again = ps.blocks(kf()).double()
+                    if not torch.equal(got, again):
+                        fail(f"two {name} launches at {label} {dname} "
+                             f"differ")
+                    log(f"  {name} {label} {dname}: two launches bitwise "
+                        f"equal")
+                    del again
+                if dname == "float32" and (label == "fine"
+                                           or built == {"boundary"}):
+                    key = name if label == "fine" else f"{name} {label}"
+                    out[key] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=None)
                 del got, ref, own
             del vol, face, bdry
             torch.cuda.empty_cache()
@@ -532,14 +567,17 @@ def level_sipg_check(torch, handlers, dev, label):
         deg, dim = h.degree, h.dim
         kern = ps.kernel_calls(t, pc, deg, dim)
         plain = ps.kernel_calls(t, pc, deg, dim, plain=True)
+        built = sk.kernel_blocks("dgp", dim, deg, torch.float32)
         worst = 0.0
-        for kind in ps.KINDS:
+        for kind in (k for k in ps.KINDS if k in built):
             for kf, pf in zip(kern[kind], plain[kind]):
                 got, ref = ps.blocks(kf()), ps.blocks(pf())
                 rel = float((got - ref).abs().max()) / float(
                     ref.abs().max())
                 worst = max(worst, rel)
-                if li in (0, len(handlers) - 1) and kind != "boundary":
+                # K3 and K4, or K5 where it is built alone
+                bitwise = kind != "boundary" or built == {"boundary"}
+                if li in (0, len(handlers) - 1) and bitwise:
                     if not torch.equal(got, ps.blocks(kf())):
                         fail(f"{label} P={h.n_poly}: two {kind} launches "
                              "differ")
@@ -558,8 +596,11 @@ def level_sipg_check(torch, handlers, dev, label):
                 f"S) {', '.join(map(str, sorted(plans)))}")
         same = ""
         if li in (0, len(handlers) - 1):
-            same = (f"; two launches of K3 (S {S['volume']}) and K4 (S "
-                    f"{S['face']}) bitwise equal")
+            same = "; two launches of " + " and ".join(
+                f"{name} (S {S[kind]})" for kind, name in (
+                    ("volume", "K3"), ("face", "K4"), ("boundary", "K5"))
+                if kind in S and (kind != "boundary" or len(S) == 1)) + (
+                " bitwise equal")
         log(f"  {label} P={h.n_poly}: worst rel err {worst:.3e}{same}")
         if not worst <= SIPG_TOL["float32"]:
             fail(f"K3-K5 disagree with their plain versions on {label} "
@@ -1366,8 +1407,8 @@ def check_halo_slab(torch, label, slab, gen, library=False):
                           events_ms=ms)
         if name == "K1 halo":
             plan = k1_plan(slab.kb, x_ext, T)
-            rows[name]["plan"] = dict(W=plan.W, S=plan.S)
-            line.append(f"K1 halo plan W={plan.W}, S={plan.S}")
+            rows[name]["plan"] = plan_of(slab.kb, plan, x_ext, T)
+            line.append(f"K1 halo plan {rows[name]['plan']}")
         line.append(f"{name} {mode} traced {dus:.2f} us/launch, "
                     f"{b_ms * 1e3 / dus:.1%} of its bound {b_ms:.4f} ms "
                     f"({b_by}: {nbytes / 1e6:.1f} MB), events {ms:.4f} ms, "
@@ -1639,6 +1680,21 @@ def rate(a, b):
     return math.log2(a / b)
 
 
+def plan_of(kb, plan, x, halo=None):
+    """K1's launch plan as a row's ``plan``: W lanes a thread, S offset
+    groups, R rows a thread and CB row chunks a block; at an nb without a
+    specialised build held to ``ops/banded.any_nb_plan``, the plan's
+    Python statement."""
+    from polydeal_tpu_torch.ops.banded import KERNEL_NB, any_nb_plan
+
+    if kb.nb not in KERNEL_NB:
+        want = any_nb_plan(kb.nb, kb.n_off, kb.P, kb.dtype, x.dtype,
+                           ldx=x.shape[1], halo=halo or 0)
+        if tuple(plan) != tuple(want):
+            fail(f"K1's runtime-nb plan {plan} is not any_nb_plan's {want}")
+    return dict(W=plan.W, S=plan.S, R=plan.rows, CB=plan.chunks)
+
+
 def check_k1(torch, label, band, out):
     """K1 against its plain version on a real i-major band, in the band's
     type (f32 for an f64 band) and as f64, 1e-5 / 1e-12 relative to
@@ -1688,9 +1744,9 @@ def check_k1(torch, label, band, out):
         out[f"{label} {dname}"] = dict(
             max_abs_err=err, ms=dus / 1e3, plain_ms=pms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lms, events_ms=ms,
-            plan=dict(W=plan.W, S=plan.S))
-        log(f"  K1 {label} {dname} (P={P}, {n_off} offsets; plan W={plan.W},"
-            f" S={plan.S}; two launches bitwise equal): "
+            plan=plan_of(kb, plan, x))
+        log(f"  K1 {label} {dname} (P={P}, {n_off} offsets; plan "
+            f"{out[f'{label} {dname}']['plan']}; two launches bitwise equal): "
             f"max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:g}); traced "
             f"{dus:.2f} us/launch, {b_ms * 1e3 / dus:.1%} of its bound "
             f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB); {ms:.4f} ms by "
@@ -3507,6 +3563,174 @@ def phase16(torch, dev, group, build_s):
     return out
 
 
+# Phase 17: the 2D high-order monodomain (MonodomainConfig(dim=2,
+# degree=p), the command line's defaults otherwise), where K5 computes the
+# boundary blocks at 2D p = 4-5 and the einsums the volume and face blocks.
+# The JAX package's numbers at n_refinements=5, lex, f64, one BDF1 and five
+# BDF2 steps: printed by tools/jax_mono2d_constants.py
+JAX_MONO2D = {
+    "p4_n5": dict(n_dofs=15360, iterations=[4, 4, 4, 4, 4, 4],
+                  int_u=0.0017231683815484508, int_u2=0.0001830987714734614),
+    "p5_n5": dict(n_dofs=21504, iterations=[4, 4, 4, 4, 4, 4],
+                  int_u=0.0017314907317214968,
+                  int_u2=0.00018403636461233682),
+}
+MONO2D_JAX_STEPS = 5
+MONO2D_TOL = 1e-9  # relative, the integrals against JAX's in f64
+# (label, degree, n_refinements, numbering): 3,932,160 and 1,376,256 DoF
+MONO2D_CASES = (("p4 lex", 4, 9, "lex"), ("p4 relabel=None", 4, 9, None),
+                ("p5 lex", 5, 8, "lex"))
+
+
+def mono2d_config(degree, n_ref):
+    from polydeal_tpu_torch.config import MonodomainConfig
+
+    return MonodomainConfig(dim=2, n_refinements=n_ref, degree=degree)
+
+
+def mono2d_case(torch, dev, smi, label, degree, n_ref, relabel, ref64):
+    """One f32 run of phase 17: built and run captured on the card (1 BDF1
+    and MONO_STEPS BDF2 steps, cold then warm), held to the f64 run
+    ``ref64`` (label -> integrals; made here for a lex case); K5 launched on
+    every level at the build, K3 and K4 on none; the kernels on its real
+    bands against their plain versions.  Returns (launch counts of the
+    build and both passes, the kernels' rows)."""
+    from types import SimpleNamespace
+
+    from polydeal_tpu_torch.models.monodomain import MonodomainSolver
+    from polydeal_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    cfg = mono2d_config(degree, n_ref)
+    _build.reset_launches()
+    ms = MonodomainSolver.build(cfg, relabel=relabel, device=dev)
+    built = dict(_build.launches)
+    mono_steps(ms, MONO_STEPS)  # cold: captures the step programs
+    u, _, its, wall = mono_steps(ms, MONO_STEPS)
+    counts = dict(_build.launches)
+    n_dofs, nb = ms.handler.n_dofs, ms.handler.n_basis
+    fine = ms.mg.ells[-1]
+    formats = level_formats(SimpleNamespace(mg=ms.mg))
+    # the fine band's bytes: its blocks (nb^2 a slot, n_off slots for a
+    # band, K for a pack) and the array a kernel streams (R_pad padding)
+    arr = fine.data_i if fine.data_i is not None else fine.data
+    slots = formats[-1][3] if formats[-1][1] == "packed" else formats[-1][2]
+    uq_max = float(ms.u_at_quad(u).max())
+    log(f"  {label} (p={degree}, nb={nb}, n_refinements={n_ref}): levels "
+        f"(P, format, offsets[, K, R_pad, max |offset|]) {formats}, "
+        f"{n_dofs} DoF; the f32 fine band's blocks "
+        f"{nb * nb * slots * fine.n_block_rows * 4 / 1e6:.1f} MB ({nb}*{nb}"
+        f"*{slots}*{fine.n_block_rows}*4 B), its array "
+        f"{arr.numel() * arr.element_size() / 1e6:.1f} MB")
+    log(f"  {label} setup phases (s): "
+        f"{ {k: round(v, 3) for k, v in ms.setup_phases.items()} }")
+    log(f"  {label} {MONO_STEPS} warm BDF2 steps: {wall:.4f} s, "
+        f"{MONO_STEPS / wall:.2f} steps/s, "
+        f"{n_dofs * MONO_STEPS / wall:.1f} DoF*steps/s [{smi}]")
+    log(f"  {label} CG iterations per step (BDF1, then BDF2): {its}; max u "
+        f"at quadrature {uq_max:.6f}; launches at the build {built}; over "
+        f"the build and both passes {counts}")
+    if n_dofs != (4**n_ref) * nb:
+        fail(f"phase 17 {label}: {n_dofs} DoF")
+    if tuple(u.shape) != (n_dofs,) or not bool(torch.isfinite(u).all()):
+        fail(f"phase 17 {label}: u has the wrong shape or non-finite values")
+    if not all(2 <= i <= 5 for i in its):
+        fail(f"phase 17 {label}: CG iterations {its} outside 2-5 per step")
+    if not 0.01 < uq_max < 2.0:
+        fail(f"phase 17 {label}: max u {uq_max:.4f} outside (0.01, 2.0)")
+    # K5 on every level's boundary blocks, and no K3 or K4: the JAX rule
+    if built["boundary_blocks"] != len(ms.mg.ells):
+        fail(f"phase 17 {label}: K5 launched {built['boundary_blocks']} "
+             f"times at the build of {len(ms.mg.ells)} levels")
+    for name in ("volume_blocks", "face_group_blocks"):
+        if counts[name]:
+            fail(f"phase 17 {label}: {name} launched at p={degree}")
+    path = (("banded_matvec_imajor_any_nb", "banded_fused_cheb_any_nb",
+             "banded_fused_omajor") if relabel else
+            ("packed_matvec", "packed_fused_cheb"))
+    for name in path:
+        if counts[name] <= 0:
+            fail(f"phase 17 {label}: {name} was never launched")
+    m32 = integrals(ms, u)
+    if relabel and label not in ref64:
+        ref = MonodomainSolver.build(cfg, dtype=torch.float64,
+                                     relabel=relabel, device=dev)
+        u64, _, its64, wall64 = mono_steps(ref, MONO_STEPS)
+        ref64[label.split()[0]] = (integrals(ref, u64), its64, wall64)
+        del ref, u64
+        torch.cuda.empty_cache()
+    m64, its64, wall64 = ref64[label.split()[0]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(m32, m64)]
+    log(f"  {label} against the f64 lex run of the same steps ({wall64:.4f}"
+        f" s, iterations {its64}): int u {m32[0]:.9e} (f64 {m64[0]:.9e}, "
+        f"rel {rel[0]:.3e}), int u^2 {m32[1]:.9e} (f64 {m64[1]:.9e}, rel "
+        f"{rel[1]:.3e})")
+    if not max(rel) <= 1e-3:
+        fail(f"phase 17 {label}: f32 integrals differ from f64 by {rel}")
+    rows = {}
+    if relabel:
+        k1, k2 = {}, {}
+        check_k1(torch, f"mono2d {label} fine", fine, k1)
+        check_k2(torch, f"mono2d {label} fine", fine, k2, bitwise=True)
+        # the smoother runs on the f32 band; a bf16 copy as the flagship's
+        check_k2(torch, f"mono2d {label} fine bf16 copy", SimpleNamespace(
+            data_i=fine.data_i.to(torch.bfloat16), n_basis=nb,
+            offsets=fine.offsets, offsets_t=fine.offsets_t), k2,
+            bitwise=True)
+        rows["K1"] = k1[f"mono2d {label} fine float32"]
+        rows["K2"] = k2[f"mono2d {label} fine float32"]
+        k0 = {}
+        for e in [e for e in ms.mg.ells[1:] if e.data_i is None][-1:]:
+            check_k0(torch, f"mono2d {label} {e.n_block_rows}-lane", e, k0)
+    else:
+        rows.update(check_packed_levels(torch, SimpleNamespace(
+            mg=ms.mg, n_dofs=n_dofs), dev))
+    del ms, u
+    torch.cuda.empty_cache()
+    if relabel:
+        from polydeal_tpu_torch.models.profile_sipg import mono_handlers
+        level_sipg_check(torch, mono_handlers(cfg, relabel), dev,
+                         f"mono2d {label}")
+    log(f"  {label} took {time.perf_counter() - t0:.1f} s")
+    return counts, rows
+
+
+def phase17(torch, dev, smi):
+    """Phase 17 (see the module docstring).  Returns (launch counts and
+    kernel rows of the p4 lex run, launch counts of the p5 lex run)."""
+    from polydeal_tpu_torch.models.monodomain import MonodomainSolver
+
+    log("phase 17: the 2D high-order monodomain (K5 at 2D p = 4-5)")
+    t0 = time.perf_counter()
+    ref64, out = {}, {}
+    for label, degree, n_ref, relabel in MONO2D_CASES:
+        out[label] = mono2d_case(torch, dev, smi, label, degree, n_ref,
+                                 relabel, ref64)
+    # f64 at the constants' size against the JAX package
+    for key, degree in (("p4_n5", 4), ("p5_n5", 5)):
+        jx = JAX_MONO2D[key]
+        s = MonodomainSolver.build(mono2d_config(degree, 5),
+                                   dtype=torch.float64, relabel="lex",
+                                   device=dev)
+        u, _, its, _ = mono_steps(s, MONO2D_JAX_STEPS)
+        m = integrals(s, u)
+        rel = [abs(a - b) / abs(b) for a, b in zip(
+            m, (jx["int_u"], jx["int_u2"]))]
+        log(f"  {key} f64 ({s.handler.n_dofs} DoF): iterations {its} (JAX "
+            f"{jx['iterations']}); int u {m[0]!r} (JAX {jx['int_u']!r}, rel "
+            f"{rel[0]:.2e}), int u^2 {m[1]!r} (JAX {jx['int_u2']!r}, rel "
+            f"{rel[1]:.2e})")
+        if s.handler.n_dofs != jx["n_dofs"] or its != jx["iterations"]:
+            fail(f"phase 17 {key}: iterations {its} at {s.handler.n_dofs} "
+                 f"DoF, JAX {jx['iterations']} at {jx['n_dofs']}")
+        if not max(rel) <= MONO2D_TOL:
+            fail(f"phase 17 {key}: integrals differ from JAX's by {rel}")
+        del s, u
+        torch.cuda.empty_cache()
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3734,6 +3958,7 @@ def main() -> int:
         "(arms run in phases 10, 11 and here): " + json.dumps(ARMS14))
     phase15(torch, dev, group, smi)
     out16 = phase16(torch, dev, group, build_s)
+    out17 = phase17(torch, dev, smi)
     leave_group()
     shutil.rmtree(store_dir, ignore_errors=True)
     kres.update(halo_rows)
@@ -3836,6 +4061,37 @@ def main() -> int:
                 replaces=rpl, launches=(c16h if "halo" in key else c16)[name],
                 nb=nb, **{k: rows16[key][k] for k in keys + ("plan",)
                           if k in rows16[key]}))
+    # phase 17's paths: K5 at 2D p = 4 and 5 (phase 3's seeded fine
+    # boundary tables), launched at the lex runs' builds; K1 and K2 at nb
+    # 15 and 21 on the runtime-nb build (the lex runs' fine bands), K6 and
+    # K7 at nb 15 (the relabel=None run's fine pack)
+    for label, key, deg in (("p4 lex", "boundary_blocks 2d p4", 4),
+                            ("p5 lex", "boundary_blocks 2d p5", 5)):
+        kernels.append(dict(
+            name=f"boundary_blocks_2d_p{deg}", route="cuda", source=sipg,
+            replaces="polydeal_tpu/ops/sipg_kernels.py:324",
+            launches=out17[label][0]["boundary_blocks"],
+            **{k: kres[key][k] for k in keys}))
+    for label in ("p4 lex", "p5 lex"):
+        c17, rows17 = out17[label]
+        for key, name, rpl in (
+                ("K1", "banded_matvec_imajor_any_nb",
+                 "polydeal_tpu/ops/banded.py:65"),
+                ("K2", "banded_fused_cheb_any_nb",
+                 "polydeal_tpu/ops/fused_cheb.py:210")):
+            kernels.append(dict(
+                name=f"{name}_mono2d_{label.split()[0]}", route="cuda",
+                source=any_nb, replaces=rpl, launches=c17[name],
+                **{k: rows17[key][k] for k in keys + ("plan",)
+                   if k in rows17[key]}))
+    c17, rows17 = out17["p4 relabel=None"]
+    for key, name, rpl in (("K6", "packed_matvec",
+                            "polydeal_tpu/ops/packed.py:185"),
+                           ("K7", "packed_fused_cheb",
+                            "polydeal_tpu/ops/fused_cheb.py:122")):
+        kernels.append(dict(name=f"{name}_mono2d_p4", route="cuda",
+                            source=packed, replaces=rpl, launches=c17[name],
+                            **{k: rows17[key][k] for k in keys}))
     log(f"profiler traces: {TRACES['taken']} taken, {TRACES['empty']} held "
         f"no record of the traced kernel, {TRACES['by_events']} readings by "
         f"queued CUDA events instead")

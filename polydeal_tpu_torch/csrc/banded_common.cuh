@@ -250,8 +250,8 @@ int fused(int nb, const void* data, const void* x, const int* offsets,
           const void* b, const void* d, const void* dinv, double c1,
           double c2, int mode, void* out0, void* out1, cudaStream_t st);
 
-// plan[0..5] = W, S (1), threads a block, blocks, shared bytes (0), rows a
-// thread
+// plan[0..6] = W, S, threads a block, blocks, shared bytes, rows a thread
+// R, row chunks a block
 template <typename TD, typename TV>
 int plan(int nb, const void* data, const void* x, const void* y, int n_off,
          int64_t P, int64_t ldx, int64_t halo, long long* out);

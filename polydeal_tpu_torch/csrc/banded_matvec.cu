@@ -178,6 +178,7 @@ int plan_nb(const void* data, const void* x, const void* y, int n_off,
   out[3] = pl.blocks;
   out[4] = static_cast<long long>(pl.smem);
   out[5] = NB;  // rows a thread: all of a lane's
+  out[6] = 1;   // row chunks a block: the one
   return 0;
 }
 
@@ -214,8 +215,9 @@ extern "C" int pd_banded_matvec_halo(const void* data, int data_dt,
 }
 
 // The plan a launch with these arguments takes (y may be null: a fresh
-// output, 16-byte aligned): plan[0..5] = W, S, threads a block, blocks,
-// bytes of shared memory, output rows a thread.  Launches nothing.
+// output, 16-byte aligned): plan[0..6] = W, S, threads a block, blocks,
+// bytes of shared memory, output rows a thread, row chunks a block.
+// Launches nothing.
 extern "C" int pd_banded_matvec_plan(const void* data, int data_dt,
                                      const void* x, int vec_dt, int n_off,
                                      int nb, long long P, long long ldx,

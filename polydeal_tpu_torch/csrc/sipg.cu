@@ -30,13 +30,19 @@
 // phi is the orthonormal Legendre P_p basis of fem/basis.py, evaluated in
 // registers from the unit points: the graded exponent table is a
 // compile-time constant, so every (i, d) loop unrolls, and gradients are
-// scaled by 1/extent.
+// scaled by 1/extent.  Built for dim 2-3 at p = 1-3, and K5 alone also in
+// 2D at p = 4-5 (nb = 15, 21; q = 5, 6 points a boundary face slot), the
+// shapes at which the JAX package's rule (polydeal_tpu/assembly/sipg.py
+// assemble_sipg_banded_direct) gives its Pallas K5 the boundary blocks
+// while the volume and face blocks (q = 25, 36 a cell) go to XLA: there
+// the einsums of ops/sipg_kernels.py compute K3's and K4's blocks.
 //
 // Symmetric accumulation.  Every form is a symmetric M x M matrix (M = nb
 // for K3 and K5, 2 nb for K4) summed over points, so a lane accumulates only
 // its E = M (M + 1) / 2 upper-triangle entries (a <= b) and writes each to
 // both of its places at the end: 10 of 16 accumulators for K3/K5 and 36 of
-// 64 for K4 at p = 1 (3D), 55 / 210 at p = 2, 210 / 820 at p = 3.  m21 is
+// 64 for K4 at p = 1 (3D), 55 / 210 at p = 2, 210 / 820 at p = 3, and 120
+// / 231 for K5 at 2D p = 4 / 5 (3 nb staged values a point).  m21 is
 // m12^T and m11, m22 are symmetric bit for bit.  Per point a form stages
 // vectors from which an entry is two FMAs (K4/K5: beta, u = -w g / 2 and
 // u + w gamma beta, entry u_a beta_b + beta_a u_b + w gamma beta_a beta_b)
@@ -156,14 +162,17 @@ struct Triangle {
 // one unit point, in the operation order of fem/basis.py _tables_t.
 template <typename T, int DIM, int DEG>
 struct Basis {
-  static_assert(DEG >= 1 && DEG <= 3, "built for degrees 1-3");
+  // degrees 1-3 for every form; 4-5 in 2D, where K5 alone is built
+  static_assert(DEG >= 1 && DEG <= (DIM == 2 ? 5 : 3),
+                "built for degrees 1-3, and 4-5 in 2D");
   static constexpr int NB = binom(DEG + DIM, DIM);
 
   __device__ __forceinline__ static void eval(const T (&x)[DIM],
                                               const T (&inv_ext)[DIM],
                                               T (&B)[NB], T (&G)[NB][DIM]) {
-    constexpr double kScale[4] = {1.0, 1.7320508075688772, 2.23606797749979,
-                                  2.6457513110645907};  // sqrt(2k + 1)
+    constexpr double kScale[6] = {1.0, 1.7320508075688772, 2.23606797749979,
+                                  2.6457513110645907, 3.0,
+                                  3.3166247903554};  // sqrt(2k + 1)
     T v[DIM][DEG + 1], dv[DIM][DEG + 1];
 #pragma unroll
     for (int d = 0; d < DIM; ++d) {
@@ -788,7 +797,17 @@ int form_of(int kind, long long* out) {
   }
 }
 
-// Calls FN<T, DIM, DEG>(args...) for the built (type, dim, degree) triples.
+// K5 alone at 2D p = 4-5 (nb = 15, 21; E = 120, 231 entries): the JAX
+// package's rule gives its Pallas kernel the boundary blocks there and
+// leaves the volume and face blocks to XLA (ops/sipg_kernels.py
+// kernel_blocks)
+template <typename T, int DIM, int DEG>
+int boundary_form_of(int kind, long long* out) {
+  return kind == 2 ? form_info<BoundaryForm<T, DIM, DEG>>(out) : -1;
+}
+
+// Calls FN<T, DIM, DEG>(args...) for the (type, dim, degree) triples built
+// for every form ...
 #define PD_SIPG_CASES(FN, T, code, ...)                                   \
   case code * 100 + 21: return FN<T, 2, 1>(__VA_ARGS__);                  \
   case code * 100 + 22: return FN<T, 2, 2>(__VA_ARGS__);                  \
@@ -802,12 +821,33 @@ int form_of(int kind, long long* out) {
     PD_SIPG_CASES(FN, double, F64, __VA_ARGS__)                           \
     default: return -1;                                                   \
   }
+// ... and for K5 alone
+#define PD_SIPG_BOUNDARY_CASES(FN, T, code, ...)                          \
+  case code * 100 + 24: return FN<T, 2, 4>(__VA_ARGS__);                  \
+  case code * 100 + 25: return FN<T, 2, 5>(__VA_ARGS__);
+#define PD_SIPG_BOUNDARY_DISPATCH(FN, dt, dim, deg, ...)                  \
+  switch (dt * 100 + dim * 10 + deg) {                                    \
+    PD_SIPG_BOUNDARY_CASES(FN, float, F32, __VA_ARGS__)                   \
+    PD_SIPG_BOUNDARY_CASES(FN, double, F64, __VA_ARGS__)                  \
+    default: return -1;                                                   \
+  }
+
+bool built(int dim, int degree) {
+  return dim >= 2 && dim <= 3 && degree >= 1 && degree <= 3;
+}
+
+bool boundary_only(int dim, int degree) {
+  return dim == 2 && (degree == 4 || degree == 5);
+}
 
 }  // namespace
 
 extern "C" int pd_sipg_form_info(int dt, int dim, int degree, int kind,
                                  long long* info) {
-  if (dim < 2 || dim > 3 || degree < 1 || degree > 3) return -1;
+  if (boundary_only(dim, degree)) {
+    PD_SIPG_BOUNDARY_DISPATCH(boundary_form_of, dt, dim, degree, kind, info)
+  }
+  if (!built(dim, degree)) return -1;
   PD_SIPG_DISPATCH(form_of, dt, dim, degree, kind, info)
 }
 
@@ -820,7 +860,7 @@ extern "C" int pd_sipg_volume(int dt, int dim, int degree, const void* pts,
                               long long P, int L, int G, int S,
                               long long stage_bytes, void* ws, void* out,
                               void* stream) {
-  if (dim < 2 || dim > 3 || degree < 1 || degree > 3) return -1;
+  if (!built(dim, degree)) return -1;
   const Plan pl{L, G, S, stage_bytes, ws};
   PD_SIPG_DISPATCH(volume, dt, dim, degree, pts, w, ext, C, Q,
                    static_cast<int64_t>(P), pl, out,
@@ -833,8 +873,13 @@ extern "C" int pd_sipg_boundary(int dt, int dim, int degree, const void* pts,
                                 double penalty, int C, int Q, long long P,
                                 int L, int G, int S, long long stage_bytes,
                                 void* ws, void* out, void* stream) {
-  if (dim < 2 || dim > 3 || degree < 1 || degree > 3) return -1;
   const Plan pl{L, G, S, stage_bytes, ws};
+  if (boundary_only(dim, degree)) {
+    PD_SIPG_BOUNDARY_DISPATCH(boundary, dt, dim, degree, pts, n, w, h_f,
+                              ext, penalty, C, Q, static_cast<int64_t>(P),
+                              pl, out, static_cast<cudaStream_t>(stream));
+  }
+  if (!built(dim, degree)) return -1;
   PD_SIPG_DISPATCH(boundary, dt, dim, degree, pts, n, w, h_f, ext, penalty,
                    C, Q, static_cast<int64_t>(P), pl, out,
                    static_cast<cudaStream_t>(stream));
@@ -846,7 +891,7 @@ extern "C" int pd_sipg_face(int dt, int dim, int degree, const void* pts,
                             double penalty, int C, int Q, long long P, int L,
                             int G, int S, long long stage_bytes, void* ws,
                             void* out, void* stream) {
-  if (dim < 2 || dim > 3 || degree < 1 || degree > 3) return -1;
+  if (!built(dim, degree)) return -1;
   const Plan pl{L, G, S, stage_bytes, ws};
   PD_SIPG_DISPATCH(face, dt, dim, degree, pts, n, w, h_f, ext, lo,
                    static_cast<int64_t>(offset), penalty, C, Q,

@@ -5,6 +5,8 @@ Run from the root of a checkout, on a machine with a CUDA card::
 
     python -m polydeal_tpu_torch.models.profile_flagship [--relabel none]
     python -m polydeal_tpu_torch.models.profile_flagship --model monodomain
+    python -m polydeal_tpu_torch.models.profile_flagship --model mono2d \
+        [--relabel none]
     python -m polydeal_tpu_torch.models.profile_flagship --model oseen
     python -m polydeal_tpu_torch.models.profile_flagship --model amg
 
@@ -39,7 +41,11 @@ measures, both ways: the 20 warm BDF2 steps after the BDF1 one through
 ``steps_scan`` on the host clock (synchronised; two warm-up passes, then
 11 timed, in turns) with the CG iterations of every step; one traced warm
 BDF2 step, read as the traced solve above; and one V-cycle and one
-fine-level SpMV by CUDA events.
+fine-level SpMV by CUDA events.  ``--model mono2d`` measures the same
+for the 2D high-order monodomain of ``chip_smoke.py`` phase 17
+(``MonodomainConfig(dim=2, n_refinements=9, degree=4)``, 3,932,160 DoF,
+the command line's defaults otherwise; ``--relabel none`` for its packed
+arm), where K5 computes the boundary blocks.
 
 With ``--model oseen`` it sets up the Oseen (Kovasznay) system at n=64
 and its field-wise R3MG preconditioner (``models/oseen.py``, the
@@ -202,13 +208,14 @@ def _traced_modes(run, top: int) -> dict:
     return out
 
 
-def profile_monodomain(dev, smi: str) -> dict:
-    """The monodomain's numbers (see the module docstring)."""
+def profile_monodomain(dev, smi: str, cfg=None, relabel="lex") -> dict:
+    """The monodomain's numbers (see the module docstring): at ``cfg``
+    (default ``bench_config(6)``) with ``relabel``."""
     from polydeal_tpu_torch.models.monodomain import (MonodomainSolver,
                                                       bench_config)
 
-    cfg = bench_config(6, N_STEPS)
-    s = MonodomainSolver.build(cfg, relabel="lex", device=dev)
+    cfg = cfg or bench_config(6, N_STEPS)
+    s = MonodomainSolver.build(cfg, relabel=relabel, device=dev)
     dt = cfg.dt
     u, w = s.initial_state()
     u1, w1, it1 = s.step(u, u, w, 0.0, True)
@@ -230,8 +237,9 @@ def profile_monodomain(dev, smi: str) -> dict:
                 for m, _ in MODES])
     med = {m: statistics.median(v) for m, v in walls.items()}
     return dict(
-        card=smi, model="monodomain", n_dofs=s.handler.n_dofs,
-        levels=[e.n_block_rows for e in mg.ells], relabel="lex",
+        card=smi, model="monodomain", dim=cfg.dim, degree=cfg.degree,
+        n_refinements=cfg.n_refinements, n_dofs=s.handler.n_dofs,
+        levels=[e.n_block_rows for e in mg.ells], relabel=relabel,
         n_steps=N_STEPS, iterations_per_step=[it1] + list(iters[None]),
         iterations_per_step_eager=[it1] + list(iters[False]),
         cg_iters_per_step=sum(iters[None]) / N_STEPS,
@@ -375,12 +383,12 @@ def profile_flagship(dev, smi: str, relabel) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("flagship", "monodomain", "oseen",
-                                        "amg"), default="flagship")
+    ap.add_argument("--model", choices=("flagship", "monodomain", "mono2d",
+                                        "oseen", "amg"), default="flagship")
     ap.add_argument("--relabel", choices=("lex", "none"), default="lex",
-                    help="the flagship hierarchy's numbering (none: packed "
-                         "levels)")
+                    help="the hierarchy's numbering (none: packed levels)")
     args = ap.parse_args(argv)
+    relabel = None if args.relabel == "none" else "lex"
     if not torch.cuda.is_available():
         raise SystemExit("profile_flagship: needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -391,13 +399,17 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     if args.model == "monodomain":
         out = profile_monodomain(dev, smi)
+    elif args.model == "mono2d":
+        from polydeal_tpu_torch.config import MonodomainConfig
+
+        out = profile_monodomain(dev, smi, MonodomainConfig(
+            dim=2, n_refinements=9, degree=4), relabel)
     elif args.model == "oseen":
         out = profile_oseen(dev, smi)
     elif args.model == "amg":
         out = profile_amg(dev, smi)
     else:
-        out = profile_flagship(dev, smi,
-                               None if args.relabel == "none" else "lex")
+        out = profile_flagship(dev, smi, relabel)
     ph = out.get("setup_phases_s")
     if ph is not None:
         print(f"first use, before and outside the setup phases (s): "

@@ -57,13 +57,17 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 # level (C > 1), "p2" the 32768-lane level's shapes at p=2 (nb=10); "p2
 # 8 lanes" and "p3 8 lanes" a coarse level's at p=2 and 3, where the plan
 # splits a lane's points over point ranks of a block and entry ranks share
-# staged point values.
+# staged point values.  "2d p4" and "2d p5" are the fine boundary tables of
+# the 2D monodomain at p=4 (n_refinements=9) and p=5 (n_refinements=8),
+# where K5 alone is built (no volume or face group: None)
 SIPG_SHAPES = {
     "fine": (3, 1, 64**3, (1, 8), (1, 4), (3, 4), 64),
     "coarse": (3, 1, 4096, (64, 8), (16, 4), (48, 4), 16),
     "p2": (3, 2, 32768, (8, 27), (4, 9), (12, 9), 32),
     "p2 8 lanes": (3, 2, 8, (1024, 27), (1024, 9), (1024, 9), 1),
     "p3 8 lanes": (3, 3, 8, (1024, 64), (1024, 16), (1024, 16), 1),
+    "2d p4": (2, 4, 512**2, None, None, (2, 5), 512),
+    "2d p5": (2, 5, 256**2, None, None, (2, 6), 256),
 }
 KINDS = ("volume", "face", "boundary")
 
@@ -109,13 +113,15 @@ def sipg_work(kind, dim, degree, C, q, P, esz):
 
 def sipg_tables(dev, dtype, dim, P, groups, gen):
     """Seeded tables: unit points in [0, 1), normals, positive weights,
-    face diameters and extents, box origins; one group per (C, q)."""
+    face diameters and extents, box origins; one group per (C, q), None
+    for None."""
     def r(*shape):
         return torch.rand(*shape, generator=gen, device=dev,
                           dtype=torch.float64).to(dtype)
 
-    out = [dict(pts_in=r(C, q, dim, P), n=r(C, q, dim, P) - 0.5,
-                w=r(C, q, P), h_f=0.5 + r(C, P)) for C, q in groups]
+    out = [None if g is None else dict(
+        pts_in=r(g[0], g[1], dim, P), n=r(g[0], g[1], dim, P) - 0.5,
+        w=r(g[0], g[1], P), h_f=0.5 + r(g[0], P)) for g in groups]
     return out, 0.5 + r(dim, P), r(dim, P)
 
 
@@ -185,15 +191,18 @@ def table_groups(t):
 
 
 def level_rows(t, pc, deg, dim, reps=10):
-    """One row per kind of a level's tables: device ms per assembly
-    (``cold_ms``; K4 summed over the face groups), its bound and share,
-    the launches one assembly makes, and C and q (the largest over K4's
-    groups)."""
+    """One row per kind a kernel computes at (dim, deg) (``kernel_blocks``)
+    of a level's tables: device ms per assembly (``cold_ms``; K4 summed
+    over the face groups), its bound and share, the launches one assembly
+    makes, and C and q (the largest over K4's groups)."""
+    from polydeal_tpu_torch.ops.sipg_kernels import kernel_blocks
+
     dname = str(t["ext_t"].dtype).split(".")[-1]
     calls, groups = kernel_calls(t, pc, deg, dim), table_groups(t)
     P = t["ext_t"].shape[1]
     rows = {}
-    for kind in KINDS:
+    built = kernel_blocks("dgp", dim, deg, t["ext_t"].dtype)
+    for kind in (k for k in KINDS if k in built):
         ms = sum(cold_ms(fn, reps) for fn in calls[kind])
         nbytes = flops = 0.0
         for g in groups[kind]:
@@ -276,8 +285,9 @@ def shape_rows(name, dtype, dev, gen):
     dim, deg, P, vq, fq, bq, off = SIPG_SHAPES[name]
     (vol, face, bdry), ext, lo = sipg_tables(dev, dtype, dim, P,
                                              (vq, fq, bq), gen)
-    t = dict(vol=dict(pts=vol["pts_in"], w=vol["w"]), groups={off: face},
-             bdry=bdry, ext_t=ext, lo_t=lo)
+    t = dict(vol=vol and dict(pts=vol["pts_in"], w=vol["w"]),
+             groups={off: face} if face else {}, bdry=bdry, ext_t=ext,
+             lo_t=lo)
     return level_rows(t, 10.0 * (deg + dim) * (deg + 1), deg, dim)
 
 

@@ -136,7 +136,7 @@ def load_library() -> ctypes.CDLL:
     lib.pd_banded_fused.argtypes = [vp, i32, vp, i32, vp, i32, i32, i32, i64,
                                     vp, vp, vp, f64, f64, i32, vp, vp, vp]
     # K1's launch plan: (data, dtype, x, dtype, n_off, nb, P, ldx, halo, y,
-    # long long[6] out)
+    # long long[7] out)
     lib.pd_banded_matvec_plan.argtypes = [vp, i32, vp, i32, i32, i32, i64,
                                           i64, i64, vp, vp]
     # K0: as K1 without R_pad

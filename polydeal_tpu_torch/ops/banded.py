@@ -51,7 +51,8 @@ __all__ = ["banded_matvec_t_imajor", "banded_matvec_t_imajor_ref",
            "banded_matvec_t_halo", "banded_matvec_t_halo_ref",
            "KernelBand", "imajor_band", "omajor_band", "band_layout",
            "launch_band", "launch_product", "halo_check", "KERNEL_NB",
-           "K1Plan", "k1_plan", "widen_bf16", "narrow_to"]
+           "K1Plan", "k1_plan", "any_nb_plan", "widen_bf16",
+           "narrow_to"]
 
 _VEC_DTYPES = (torch.float32, torch.float64)
 # K0 stages its offset table in 48 KB of shared memory
@@ -243,8 +244,9 @@ class K1Plan(NamedTuple):
     """How K1 runs one launch (``k1_plan``): W lanes a thread, S offset
     groups a block (S > 1: the groups' partial sums meet in ``smem`` bytes
     of shared memory), ``threads`` a block, ``blocks`` blocks, ``rows``
-    output rows a thread (nb in a specialised build, a chunk of 8 rows in
-    the runtime-nb one)."""
+    output rows a thread (nb in a specialised build, a chunk of R rows in
+    the runtime-nb one, :func:`any_nb_plan`) and ``chunks`` row chunks a
+    block (1 in a specialised build)."""
 
     W: int
     S: int
@@ -252,6 +254,69 @@ class K1Plan(NamedTuple):
     blocks: int
     smem: int
     rows: int
+    chunks: int
+
+
+# csrc/banded_any_nb.cu's plan constants: threads a block, offset groups
+# at most, the threads below which a launch takes offset groups, and those
+# an f32 band with f32 vectors keeps at 8 rows a thread
+ANY_NB_THREADS = 256
+ANY_NB_MAX_GROUPS = 4
+ANY_NB_FILL_THREADS = 32768
+ANY_NB_MANY_THREADS = 40960
+
+
+def _wide_lanes(data_esz: int, vec_esz: int, rows: int) -> int:
+    """Lanes a thread of the wide path (``wide_lanes``,
+    csrc/banded_common.cuh): one 16-byte band load a row, halved while the
+    rows' accumulators would outgrow 384 bytes."""
+    w = 16 // data_esz
+    while w > 1 and rows * w * vec_esz > 96 * 4:
+        w //= 2
+    return w
+
+
+def any_nb_plan(nb: int, n_off: int, P: int, data_dtype, vec_dtype,
+                ldx: int | None = None, halo: int = 0,
+                aligned: bool = True) -> K1Plan:
+    """The plan of K1 and K2's runtime-nb build (``plan_of``,
+    csrc/banded_any_nb.cu), stated in Python: R rows a thread, 4 for a
+    bf16 band or f64 vectors; for an f32 band with f32 vectors 8 where the
+    launch then has ANY_NB_MANY_THREADS threads, else 2; at most nb; W
+    lanes a thread where P, ldx and halo allow it and the operands are
+    ``aligned``; S offset groups doubling, to 4 at most and while 2 S <=
+    n_off, while the launch has fewer than ANY_NB_FILL_THREADS threads
+    (S times the P / W lanes-threads times the nb / R row chunks); CB = 2
+    row chunks a block where there are two.  ``pd_banded_matvec_plan``
+    reports the library's (:func:`k1_plan`)."""
+    ldx = P if ldx is None else ldx
+    desz = torch.empty((), dtype=data_dtype).element_size()
+    vesz = torch.empty((), dtype=vec_dtype).element_size()
+    cdiv = lambda a, b: -(-a // b)
+    def lanes_w(R):
+        w = _wide_lanes(desz, vesz, R)
+        fits = w > 1 and aligned and P % w == ldx % w == halo % w == 0
+        return w if fits else 1
+
+    f32 = desz == vesz == 4
+    R = 2 if f32 else 4
+    if f32 and nb >= 8 and (cdiv(P, lanes_w(8)) * cdiv(nb, 8)
+                            >= ANY_NB_MANY_THREADS):
+        R = 8
+    while R > nb:
+        R //= 2
+    W = lanes_w(R)
+    lanes, chunks = cdiv(P, W), cdiv(nb, R)
+    S = 1
+    while (S < ANY_NB_MAX_GROUPS and 2 * S <= n_off
+           and lanes * chunks * S < ANY_NB_FILL_THREADS):
+        S *= 2
+    CB = 2 if chunks >= 2 else 1
+    Lt = ANY_NB_THREADS // (CB * S)
+    return K1Plan(W=W, S=S, threads=ANY_NB_THREADS,
+                  blocks=cdiv(lanes, Lt) * cdiv(chunks, CB),
+                  smem=ANY_NB_THREADS * (S - 1) // S * R * W * vesz, rows=R,
+                  chunks=CB)
 
 
 def k1_plan(band: KernelBand, x: torch.Tensor,
@@ -261,7 +326,7 @@ def k1_plan(band: KernelBand, x: torch.Tensor,
     launch (``pd_banded_matvec_plan``; a fresh output, aligned).  Needs
     the kernel library, so a card."""
     ldx = band.P if halo is None else band.P + 2 * halo
-    out = (ctypes.c_longlong * 6)()
+    out = (ctypes.c_longlong * 7)()
     rc = _build.load_library().pd_banded_matvec_plan(
         band.head[0], band.head[1], x.data_ptr(), _build.DTYPE_CODES[x.dtype],
         band.n_off, band.nb, band.P, ldx, halo or 0, None, out)

@@ -13,12 +13,14 @@ weights [C, q, P], face diameters ``h_f`` [C, P], box extents ``ext_t`` and
 origins ``lo_t`` [dim, P].  Padded slots carry zero weights, so they add
 exact zeros.  Each block comes back as [nb * nb, P] (row i * nb + j), in
 the tables' dtype.  The kernels evaluate the Legendre P_p basis of
-``fem/basis.py`` in registers, built for dim 2-3 and degree 1-3;
-:func:`kernel_blocks` is the one rule that says where they compute a
-level's blocks.  Every other basis (TensorDGQ, P_p at p = 0 or p >= 4) has
-its blocks computed by the einsums (``*_einsum``, any basis), as the JAX
-package's ``assemble_sipg_banded_direct`` computes them in XLA outside its
-kernels; the plain versions are those einsums on the P_p basis.
+``fem/basis.py`` in registers, built for dim 2-3 and degree 1-3, and K5
+also for dim 2 at degree 4-5 (:data:`KERNEL_SHAPES`); :func:`kernel_blocks`
+is the one rule that says where they compute a level's blocks.  Every other
+block (TensorDGQ, P_p at p = 0, K3's and K4's at 2D p = 4-5, anything at 3D
+p >= 4 or 2D p >= 6) is computed by the einsums (``*_einsum``, any basis),
+as the JAX package's ``assemble_sipg_banded_direct`` computes it in XLA
+outside its kernels; the plain versions are those einsums on the P_p
+basis.
 
 :func:`sipg_launch_plan` decides how a kernel splits a level's work over
 the card (lanes a block holds, point ranks G, blocks a lane S and the
@@ -49,23 +51,27 @@ __all__ = [
 ]
 
 _TABLE_DTYPES = (torch.float32, torch.float64)
-# what csrc/sipg.cu builds K3-K5 for: the P_p basis at these dims and degrees
-KERNEL_DIMS = (2, 3)
-KERNEL_DEGREES = (1, 2, 3)
-KERNEL_KINDS = frozenset(("volume", "face", "boundary"))
+# the (dim, degree) of the P_p basis csrc/sipg.cu builds each kernel for:
+# all three at dim 2-3, p 1-3; K5 also at dim 2, p 4-5, where the JAX
+# package's feasibility rule gives its Pallas kernels the boundary blocks
+# alone (the volume and face blocks, q = 25 and 36 points a cell, go to XLA)
+_LOW = frozenset((d, p) for d in (2, 3) for p in (1, 2, 3))
+KERNEL_SHAPES = {"volume": _LOW, "face": _LOW,
+                 "boundary": _LOW | {(2, 4), (2, 5)}}
 
 
 def kernel_blocks(family: str, dim: int, degree: int, dtype) -> frozenset:
     """Which of K3 ("volume"), K4 ("face") and K5 ("boundary") compute the
     blocks of a level with this basis ``family``, ``dim``, ``degree`` and
-    table ``dtype``: all three for the P_p basis (``"dgp"``) at a (dim,
-    degree) that ``csrc/sipg.cu`` builds and f32 or f64 tables, none for any
-    other (those blocks take the ``*_einsum`` functions).  Decided from the
-    handler before any launch."""
-    if (family == "dgp" and dim in KERNEL_DIMS and degree in KERNEL_DEGREES
-            and dtype in _TABLE_DTYPES):
-        return KERNEL_KINDS
-    return frozenset()
+    table ``dtype``: for the P_p basis (``"dgp"``) and f32 or f64 tables,
+    each kernel ``csrc/sipg.cu`` builds at (dim, degree)
+    (:data:`KERNEL_SHAPES`: all three at p 1-3, K5 alone at 2D p 4-5);
+    none for any other basis (those blocks take the ``*_einsum``
+    functions).  Decided from the handler before any launch."""
+    if family != "dgp" or dtype not in _TABLE_DTYPES:
+        return frozenset()
+    return frozenset(k for k, shapes in KERNEL_SHAPES.items()
+                     if (dim, degree) in shapes)
 
 # the plan gives this many blocks' threads points to sum (two blocks on
 # each of the H100's 132 SMs) by point ranks; a level with fewer gets twice
@@ -265,12 +271,15 @@ def boundary_blocks_ref(group: dict, ext_t: torch.Tensor, degree: int,
                                   penalty_constant)
 
 
-def _check(kernel: str, degree: int, dim: int, shaped: dict):
-    """Validate what the CUDA kernels take: ``shaped`` maps an operand's
-    name to (tensor, expected shape).  Returns the common dtype."""
-    if dim not in (2, 3) or not 1 <= degree <= 3:
-        raise ValueError(f"{kernel}: built for dim 2-3 and degree 1-3, "
-                         f"not dim={dim}, degree={degree}")
+def _check(kernel: str, degree: int, dim: int, shaped: dict,
+           kind: str = "volume"):
+    """Validate what the CUDA kernel of ``kind`` takes: built at (dim,
+    degree) (:data:`KERNEL_SHAPES`); ``shaped`` maps an operand's name to
+    (tensor, expected shape).  Returns the common dtype."""
+    if (dim, degree) not in KERNEL_SHAPES[kind]:
+        raise ValueError(f"{kernel}: built for (dim, degree) in "
+                         f"{sorted(KERNEL_SHAPES[kind])}, not ({dim}, "
+                         f"{degree})")
     first = next(iter(shaped.values()))[0]
     dev, dt = first.device, first.dtype
     if dt not in _TABLE_DTYPES:
@@ -356,7 +365,7 @@ def face_group_blocks(group: dict, ext_t: torch.Tensor, lo_t: torch.Tensor,
     dt = _check("face_group_blocks", degree, dim, {
         "w": (w, (C, Q, P)), "pts_in": (group["pts_in"], (C, Q, dim, P)),
         "n": (group["n"], (C, Q, dim, P)), "h_f": (group["h_f"], (C, P)),
-        "ext_t": (ext_t, (dim, P)), "lo_t": (lo_t, (dim, P))})
+        "ext_t": (ext_t, (dim, P)), "lo_t": (lo_t, (dim, P))}, kind="face")
     nb = comb(degree + dim, dim)
     out = torch.empty((4, nb * nb, P), dtype=dt, device=w.device)
     plan, _ws = _plan_args("face", w, degree, dim)
@@ -381,7 +390,7 @@ def boundary_blocks(group: dict, ext_t: torch.Tensor, degree: int, dim: int,
     dt = _check("boundary_blocks", degree, dim, {
         "w": (w, (C, Q, P)), "pts_in": (group["pts_in"], (C, Q, dim, P)),
         "n": (group["n"], (C, Q, dim, P)), "h_f": (group["h_f"], (C, P)),
-        "ext_t": (ext_t, (dim, P))})
+        "ext_t": (ext_t, (dim, P))}, kind="boundary")
     nb = comb(degree + dim, dim)
     out = torch.empty((nb * nb, P), dtype=dt, device=w.device)
     plan, _ws = _plan_args("boundary", w, degree, dim)

@@ -125,8 +125,9 @@ def _port_fine(key):
 
 
 def test_kernel_rule():
-    """K3-K5 compute P_p blocks at p 1-3 in f32 and f64 only; TensorDGQ,
-    P_0 and P_4 take the einsums."""
+    """K3-K5 compute P_p blocks at p 1-3 in f32 and f64 only, and K5 alone
+    at 2D p 4-5 (the JAX package's Pallas split there); TensorDGQ, P_0, 3D
+    P_p at p >= 4 and 2D P_p at p >= 6 take the einsums."""
     for dim in (2, 3):
         for p in (1, 2, 3):
             for dt in (torch.float32, torch.float64):
@@ -135,7 +136,16 @@ def test_kernel_rule():
         for p in (1, 2):
             assert not kernel_blocks("dgq", dim, p, torch.float32)
         assert not kernel_blocks("dgp", dim, 0, torch.float32)
-        assert not kernel_blocks("dgp", dim, 4, torch.float32)
+    for p in (4, 5):
+        for dt in (torch.float32, torch.float64):
+            assert kernel_blocks("dgp", 2, p, dt) == {"boundary"}
+        assert not kernel_blocks("dgp", 2, p, torch.bfloat16)
+    for p in (4, 5, 6):
+        for dt in (torch.float32, torch.float64):
+            assert not kernel_blocks("dgp", 3, p, dt)
+    for p in (6, 7):
+        for dt in (torch.float32, torch.float64):
+            assert not kernel_blocks("dgp", 2, p, dt)
     assert not kernel_blocks("dgp", 3, 1, torch.bfloat16)
 
 

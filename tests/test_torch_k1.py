@@ -117,6 +117,74 @@ def test_built_nb_covers_the_bases():
     assert got == want == set(bd.KERNEL_NB)
 
 
+# The runtime-nb build's plan (ops/banded.any_nb_plan, csrc/banded_any_nb.cu
+# plan_of) at the shapes its paths give it: (nb, n_off, P, ldx, halo, data
+# dtype, vector dtype) -> (W, S, rows R, row chunks a block CB).  Phase 16's
+# fine bands (TensorDGQ Q1 n=64, Q2 and P_4 n=32; f32, their bf16 smoothing
+# copies and f64) whole and as slab 1 of a 4-way cut, phase 17's (the 2D
+# monodomain at p = 4 and 5, lex): the whole f32 bands take 8 rows a thread
+# but Q2's (32768 lanes, nb 27: too few threads), the whole bands keep S =
+# 1, the few-lane slabs split the offsets.
+F32, BF16, F64 = torch.float32, torch.bfloat16, torch.float64
+ANY_NB_PLANS = [
+    ((8, 7, 262144, None, 0, F32, F32), (4, 1, 8, 1)),
+    ((8, 7, 262144, None, 0, BF16, F32), (8, 1, 4, 2)),
+    ((8, 7, 262144, None, 0, F64, F64), (2, 1, 4, 2)),
+    ((27, 7, 32768, None, 0, F32, F32), (4, 1, 2, 2)),
+    ((27, 7, 32768, None, 0, BF16, F32), (8, 2, 4, 2)),
+    ((27, 7, 32768, None, 0, F64, F64), (2, 1, 4, 2)),
+    ((35, 7, 32768, None, 0, F32, F32), (4, 1, 8, 2)),
+    ((35, 7, 32768, None, 0, F64, F64), (2, 1, 4, 2)),
+    ((8, 7, 65536, 65536 + 8192, 4096, F32, F32), (4, 1, 2, 2)),
+    ((8, 7, 65536, 65536 + 8192, 4096, F64, F64), (2, 1, 4, 2)),
+    ((27, 7, 8192, 8192 + 2048, 1024, F32, F32), (4, 2, 2, 2)),
+    ((27, 7, 8192, 8192 + 2048, 1024, F64, F64), (2, 2, 4, 2)),
+    ((35, 7, 8192, 8192 + 2048, 1024, F32, F32), (4, 1, 2, 2)),
+    ((35, 7, 8192, 8192 + 2048, 1024, F64, F64), (2, 1, 4, 2)),
+    ((15, 5, 262144, None, 0, F32, F32), (4, 1, 8, 2)),
+    ((15, 5, 262144, None, 0, BF16, F32), (8, 1, 4, 2)),
+    ((15, 5, 262144, None, 0, F64, F64), (2, 1, 4, 2)),
+    ((21, 5, 65536, None, 0, F32, F32), (4, 1, 8, 2)),
+    ((21, 5, 65536, None, 0, BF16, F32), (8, 1, 4, 2)),
+    ((21, 5, 65536, None, 0, F64, F64), (2, 1, 4, 2)),
+]
+
+
+@pytest.mark.parametrize("args,want", ANY_NB_PLANS)
+def test_any_nb_plan_at_the_paths_shapes(args, want):
+    """The runtime-nb plan at phase 16's and 17's shapes, and what every
+    plan must hold: R W accumulators within 384 bytes, CB S row chunks
+    and groups a block leaving at least a warp of lanes-threads, the
+    groups' partial sums within 48 KB, the grid covering every lane and
+    row."""
+    nb, n_off, P, ldx, halo, ddt, vdt = args
+    pl = bd.any_nb_plan(nb, n_off, P, ddt, vdt, ldx=ldx, halo=halo)
+    assert (pl.W, pl.S, pl.rows, pl.chunks) == want
+    vsz = torch.empty((), dtype=vdt).element_size()
+    assert pl.rows * pl.W * vsz <= 384 and pl.rows <= nb
+    Lt = pl.threads // (pl.chunks * pl.S)
+    assert Lt >= 32 and pl.S <= n_off
+    assert pl.smem <= 48 * 1024
+    lane_tiles = -(-(-(-P // pl.W)) // Lt)
+    assert pl.blocks == lane_tiles * -(-(-(-nb // pl.rows)) // pl.chunks)
+
+
+def test_any_nb_plan_fallbacks():
+    """One lane a thread where P, ldx or the halo is no multiple of W or
+    an operand is misaligned; rows a thread at most nb; S at most 4 and
+    2 S <= n_off."""
+    assert bd.any_nb_plan(15, 5, 4099, F32, F32).W == 1
+    assert bd.any_nb_plan(15, 5, 4096, F32, F32, aligned=False).W == 1
+    assert bd.any_nb_plan(15, 5, 4096, F64, F64, ldx=4096 + 6,
+                          halo=3).W == 1
+    assert bd.any_nb_plan(1, 3, 64, F64, F64).rows == 1
+    assert bd.any_nb_plan(3, 3, 64, F64, F64).rows == 2
+    assert bd.any_nb_plan(8, 1, 64, F32, F32).S == 1  # 2 S > n_off
+    few = bd.any_nb_plan(8, 3, 64, F32, F32)
+    assert few.S == 2 and few.chunks == 2
+    assert bd.any_nb_plan(8, 31, 64, F32, F32).S == 4
+
+
 @pytest.mark.parametrize("nb", bd.KERNEL_NB)
 def test_plain_product_equals_halo_plain(nb):
     """K1's plain version equals K1 halo's on x_ext = x zero-padded by T =
@@ -266,7 +334,7 @@ def test_cuda_library_refuses_unbuilt_nb(cuda):
     runtime-nb build: at nb 5, 8, 27 and 35 and every dtype pair, K1 and
     K2's three modes against their plain versions, two launches bitwise
     equal, each launch counted under the ``_any_nb`` counters; the C plan
-    entry reports 8 rows a thread and one offset group."""
+    entry reports the plan ``any_nb_plan`` states."""
     P = 8192
     for nb in (5, 8, 27, 35):
         for ddt, vdt in PAIRS:
@@ -277,11 +345,48 @@ def test_cuda_library_refuses_unbuilt_nb(cuda):
             _build.reset_launches()
             plan = _check(data_i, offs, nb, x, vdt)
             _check_k2(data_i, offs, nb, x, b, d, dinv, vdt)
-            assert (plan.S, plan.rows, plan.smem) == (1, 8, 0)
+            assert plan == bd.any_nb_plan(nb, len(offs), P, data_i.dtype,
+                                          x.dtype)
             assert _build.launches["banded_matvec_imajor_any_nb"] == 2
             assert _build.launches["banded_fused_cheb_any_nb"] == 6
             assert _build.launches["banded_matvec_imajor"] == 0
             assert _build.launches["banded_fused_cheb"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_any_nb_plan_is_the_python_plan(cuda):
+    """The library's runtime-nb plan (``pd_banded_matvec_plan``) is
+    ``any_nb_plan``'s at every shape of ``ANY_NB_PLANS``."""
+    for (nb, n_off, P, ldx, halo, ddt, vdt), _ in ANY_NB_PLANS:
+        R_pad = -(-n_off * nb // 8) * 8
+        data_i = torch.empty(nb * R_pad, P, dtype=ddt, device=cuda)
+        offs = torch.zeros(n_off, dtype=torch.int32, device=cuda)
+        x = torch.empty(nb, ldx or P, dtype=vdt, device=cuda)
+        got = bd.k1_plan(bd.imajor_band(data_i, offs, nb), x, halo or None)
+        assert got == bd.any_nb_plan(nb, n_off, P, ddt, vdt, ldx=ldx,
+                                     halo=halo)
+        del data_i, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ddt,vdt", PAIRS)
+@pytest.mark.parametrize("nb,P", [(15, 4099), (21, 4096), (15, 65536),
+                                  (35, 32768)])
+def test_cuda_any_nb_partial_chunks(cuda, nb, P, ddt, vdt):
+    """Block sizes whose last row chunk is partial (the 2D P_4 and P_5
+    ones, 3D P_4's): one lane a thread (P = 4099), offset groups (4096
+    lanes), 2 and (f32, 32768 lanes) 8 rows a thread; K1 and K2's three
+    modes against their plain versions, bitwise over two launches."""
+    offsets = (-64, -1, 0, 1, 64)
+    data_i, offs, x = _band(nb, P, offsets, seed=nb,
+                            dtype=getattr(torch, ddt),
+                            vdtype=getattr(torch, vdt), device=cuda)
+    b, d, dinv = _cheb(nb, P, nb + 2, getattr(torch, vdt), cuda)
+    plan = _check(data_i, offs, nb, x, vdt)
+    _check_k2(data_i, offs, nb, x, b, d, dinv, vdt)
+    assert plan == bd.any_nb_plan(nb, len(offsets), P, data_i.dtype,
+                                  x.dtype)
+    assert -(-nb // plan.rows) * plan.rows > nb  # a partial last chunk
 
 
 @pytest.mark.cuda
@@ -303,7 +408,8 @@ def test_cuda_any_nb_halo(cuda, vdt):
     _build.reset_launches()
     plan = _check(data_i, offs, nb, x_ext, vdt, halo=T)
     _check_k2(data_i, offs, nb, x_ext, b, d, dinv, vdt, halo=T)
-    assert plan.rows == 8
+    assert plan == bd.any_nb_plan(nb, len(offsets), per, t, t,
+                                  ldx=per + 2 * T, halo=T)
     assert _build.launches["banded_matvec_halo_any_nb"] == 2
     assert _build.launches["banded_fused_halo_any_nb"] == 6
     # the C entry launches at an nb the specialised builds lack

@@ -10,8 +10,11 @@ of 128; their outputs are sliced back.  The port's whole direct assembly is
 held to the JAX package's interpret-mode assembly the same way.  Cases: a
 structured 2D level (C = 1, P = 256) and R-tree levels with C > 1 and P
 not a multiple of 128, at p = 1 and 2 in 2D (p = 3 structured only) and
-p = 1 in 3D.  The test of the CUDA kernels against the plain versions
-needs a card and skips without one.
+p = 1 in 3D; K5 alone, and the whole assembly, also at 2D p = 4 and 5,
+where the JAX package's rule runs its Pallas K5 and leaves the volume and
+face blocks to XLA's einsums (the port's ``kernel_blocks`` makes the same
+split).  The test of the CUDA kernels against the plain versions needs a
+card and skips without one.
 """
 
 import functools
@@ -51,6 +54,11 @@ TOL = 2e-5
 # level's many offsets each compile a JAX interpret kernel (~2 min at p = 3).
 CASES = [("structured2d", 1), ("structured2d", 2), ("structured2d", 3),
          ("rtree2d", 1), ("rtree2d", 2), ("rtree3d", 1)]
+# 2D p = 4 and 5 (nb = 15, 21; q = 5, 6 points a boundary face slot): K5
+# alone is built there, as the JAX package gives only the boundary blocks
+# to its Pallas kernels
+HIGH_CASES = [("structured2d", 4), ("structured2d", 5), ("rtree2d", 4),
+              ("rtree2d", 5)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,7 +131,7 @@ def test_face_group_blocks_match_jax_kernel(mesh, degree):
             _close(r[:, :ha.n_poly], m.numpy())
 
 
-@pytest.mark.parametrize("mesh,degree", CASES)
+@pytest.mark.parametrize("mesh,degree", CASES + HIGH_CASES)
 def test_boundary_blocks_match_jax_kernel(mesh, degree):
     ha, _, _, ga, gb = _level(mesh, degree)
     tab_p, ext_p, _ = _padded(ha, ga)
@@ -134,11 +142,15 @@ def test_boundary_blocks_match_jax_kernel(mesh, degree):
     _close(ref, got.numpy())
 
 
-@pytest.mark.parametrize("mesh,degree", CASES)
+@pytest.mark.parametrize("mesh,degree", CASES + [("rtree2d", 4)])
 def test_direct_assembly_matches_jax_kernels(mesh, degree):
     """The port's whole direct assembly (both layouts) against the JAX
-    package's assembly through its Pallas kernels in interpret mode."""
+    package's assembly through its Pallas kernels in interpret mode (at 2D
+    p = 4: its Pallas K5 and its einsums for the volume and face
+    blocks)."""
     ha, hb, offs, ga, gb = _level(mesh, degree)
+    assert tk.kernel_blocks("dgp", ha.dim, degree, torch.float32) == (
+        {"boundary"} if degree >= 4 else {"volume", "face", "boundary"})
     A = assemble_sipg_banded_direct(ha, ga, offsets=offs, interpret=True,
                                     use_pallas=False)
     B = tsipg.assemble_sipg_banded_direct(hb, gb, offsets=offs)
@@ -226,6 +238,16 @@ def test_kernel_arg_checks():
     assert tk._check("k", 1, 3, {"w": (g["w"], (2, 4, 64))}) == torch.float32
     with pytest.raises(ValueError):  # degree the kernels were not built for
         tk._check("k", 4, 3, {"w": (g["w"], (2, 4, 64))})
+    # K5 alone is built at 2D p = 4-5
+    for degree in (4, 5):
+        assert tk._check("k", degree, 2, {"w": (g["w"], (2, 4, 64))},
+                         kind="boundary") == torch.float32
+        for kind in ("volume", "face"):
+            with pytest.raises(ValueError):
+                tk._check("k", degree, 2, {"w": (g["w"], (2, 4, 64))},
+                          kind=kind)
+    with pytest.raises(ValueError):
+        tk._check("k", 6, 2, {"w": (g["w"], (2, 4, 64))}, kind="boundary")
     with pytest.raises(ValueError):  # 1D
         tk._check("k", 1, 1, {"w": (g["w"], (2, 4, 64))})
     with pytest.raises(TypeError):  # bf16 tables
@@ -267,20 +289,31 @@ def test_cuda_kernels_match_plain(dtype):
     dt = getattr(torch, dtype)
     tol = 2e-5 if dtype == "float32" else 1e-12
     # (C, Q, P): lanes that fill the card (S = 1), and the coarse levels'
-    # shapes, whose points split over blocks (S > 1) and a second pass
+    # shapes, whose points split over blocks (S > 1) and a second pass; K5
+    # alone at 2D p = 4-5
     shapes = {(3, 1): [(3, 4, 1000), (512, 8, 512), (64, 4, 512)],
-              (3, 2): [(3, 4, 1000), (64, 9, 100)], (2, 3): [(3, 4, 1000)]}
+              (3, 2): [(3, 4, 1000), (64, 9, 100)], (2, 3): [(3, 4, 1000)],
+              (2, 4): [(3, 4, 1000), (64, 5, 100)], (2, 5): [(3, 4, 1000)]}
     for (dim, degree), (C, Q, P) in ((k, s) for k, v in shapes.items()
                                      for s in v):
+        kinds = tk.kernel_blocks("dgp", dim, degree, dt)
         if (C, Q, P) != (3, 4, 1000):
             assert max(tk.sipg_launch_plan(
                 P, C, Q, tk.sipg_form(kind, dim, degree, dt)).S
-                for kind in ("volume", "face", "boundary")) > 1
+                for kind in kinds) > 1
         g, ext, lo = _tables(C, Q, dim, P, dt)
         g = {k: v.to(dev) for k, v in g.items()}
         ext, lo = ext.to(dev), lo.to(dev)
         vol = dict(pts=g["pts_in"], w=g["w"])
         C = lambda t: t.cpu().numpy()
+        _close(C(tk.boundary_blocks_ref(g, ext, degree, dim, 40.0)),
+               C(tk.boundary_blocks(g, ext, degree, dim, 40.0)), tol)
+        assert torch.equal(tk.boundary_blocks(g, ext, degree, dim, 40.0),
+                           tk.boundary_blocks(g, ext, degree, dim, 40.0))
+        if kinds == {"boundary"}:
+            with pytest.raises(ValueError):
+                tk.volume_blocks(vol, ext, degree, dim)
+            continue
         _close(C(tk.volume_blocks_ref(vol, ext, degree, dim)),
                C(tk.volume_blocks(vol, ext, degree, dim)), tol)
         for r, m in zip(tk.face_group_blocks_ref(g, ext, lo, 7, degree, dim,
@@ -288,8 +321,6 @@ def test_cuda_kernels_match_plain(dtype):
                         tk.face_group_blocks(g, ext, lo, 7, degree, dim,
                                              40.0)):
             _close(C(r), C(m), tol)
-        _close(C(tk.boundary_blocks_ref(g, ext, degree, dim, 40.0)),
-               C(tk.boundary_blocks(g, ext, degree, dim, 40.0)), tol)
         # no atomics: two launches give the same bits
         assert torch.equal(tk.volume_blocks(vol, ext, degree, dim),
                            tk.volume_blocks(vol, ext, degree, dim))

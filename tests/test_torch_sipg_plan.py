@@ -34,6 +34,8 @@ LEVELS = [(262144, 1, 1, 3), (32768, 8, 4, 12), (4096, 64, 16, 48),
           (512, 512, 64, 192), (64, 4096, 256, 768), (8, 32768, 1024, 3072)]
 KINDS = {"volume": 1, "face": 2, "boundary": 3}  # index into a LEVELS row
 Q_POINTS = {1: (8, 4), 2: (27, 9), 3: (64, 16)}  # (volume, face) q at p
+# K5 alone at 2D p = 4, 5: q of a boundary face slot
+Q_BOUNDARY_HIGH = {4: 5, 5: 6}
 THREADS = 256
 
 
@@ -56,6 +58,10 @@ def _cases():
                     for dtype in (torch.float32, torch.float64):
                         q = Q_POINTS[degree][kind != "volume"]
                         yield P, Cs[k - 1], q, degree, dim, dtype, kind
+        for degree, q in Q_BOUNDARY_HIGH.items():
+            for dtype in (torch.float32, torch.float64):
+                yield P, Cs[KINDS["boundary"] - 1], q, degree, 2, dtype, \
+                    "boundary"
 
 
 @pytest.mark.parametrize("P,C,q,degree,dim,dtype,kind", list(_cases()))
@@ -143,6 +149,14 @@ def test_cuda_forms_and_staged_point_ranks():
                     nb = math.comb(degree + dim, dim)
                     assert sk.sipg_form(kind, dim, degree, dtype) == _form(
                         kind, nb, dtype)
+            # K5 alone at 2D p = 4-5
+            for degree in Q_BOUNDARY_HIGH:
+                if kind == "boundary":
+                    assert sk.sipg_form(kind, 2, degree, dtype) == _form(
+                        kind, math.comb(degree + 2, 2), dtype)
+                else:
+                    with pytest.raises(ValueError):
+                        sk.sipg_form(kind, 2, degree, dtype)
 
     def f64(d):
         return {k: v.double() for k, v in d.items()}
