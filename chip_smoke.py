@@ -211,7 +211,8 @@ Phases (each must pass; nothing falls back to the CPU):
      steps, K5 launched once a level at the build and K3/K4 never; setup
      phases, steps/s and DoF*steps/s; K1 and K2 (f32 band and a bf16
      copy, bitwise) against their plain versions on the lex fine bands,
-     K0 on the largest K0 level, K6/K7 on every packed level, K5 on every
+     K0 on every K0 level (timed on the largest), K6/K7 on every packed
+     level, K5 on every
      lex level's real tables; then f64 at n_refinements=5 for p=4 and 5
      against the JAX package (tools/jax_mono2d_constants.py): the same CG
      iterations per step (BDF1 and 5 BDF2), the integrals within 1e-9.
@@ -221,8 +222,13 @@ three modes) are held against their plain versions on the real bands of
 phases 5-7 once each exists (phase 3's check, on real bands): the
 4096-lane lex flagship level in f32 and as its bf16 smoother copy, the
 19-offset 512-lane level without the relabel, the monodomain's 64-, 512-
-and 4096-lane levels (and, for K0, its fine band), each also in f64; with
-CUDA-event, host-clock and traced device time per call.  K2 is held the
+and 4096-lane levels (and, for K0, its fine band), each also in f64,
+two launches of every mode bitwise equal, and plans the library cannot
+run refused (``ops/banded.omajor_plan`` gives the one each launch
+passes); with CUDA-event, host-clock and traced device
+time per call beside the traced empty kernel on K0's grid (the launch
+floor).  Phases 9, 10, 16 and 17 hold them the same way on their bands
+(16 and 17: every level under 32768 lanes).  K2 is held the
 same way on the real i-major bands it serves: the lex flagship's 32768-
 and 262144-lane bf16 smoother copies and the monodomain's f32 32768- and
 262144-lane levels.  Phases 5 and 7 fail unless fused K0 was launched,
@@ -933,18 +939,62 @@ def band_types(torch, t):
     return (t.float() if t.dtype == torch.float64 else t), t.double()
 
 
-def check_k0(torch, label, band, out, fused=True):
+def k0_floor_us(torch, plan):
+    """Traced device microseconds of an empty kernel launched on K0's grid
+    (``plan``: threads a block, blocks) the way K0 launches: the floor
+    beside K0's byte bound."""
+    from polydeal_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    empty = lambda: lib.pd_empty_kernel(plan.blocks, plan.threads,
+                                        _build.stream_handle(dev))
+    if empty() != 0:
+        fail(f"the empty kernel on K0's grid {plan} did not launch")
+    return traced_us(torch, empty, "empty_kernel")
+
+
+def k0_refuses(torch, label, kb, x):
+    """K0's library returns -2, and launches nothing, for plans it cannot
+    run at the band ``kb``: a batch other than its path's, 48 threads a
+    block."""
+    import copy
+
+    from polydeal_tpu_torch.ops import _build
+    from polydeal_tpu_torch.ops.banded import launch_product
+
+    before = dict(_build.launches)
+    for bad in (kb.plan._replace(batch=kb.plan.batch + 1),
+                kb.plan._replace(threads=48)):
+        other = copy.copy(kb)
+        other.args = (*kb.args[:4], bad.path, bad.threads, bad.batch)
+        try:
+            launch_product(other, x)
+        except RuntimeError as e:
+            if str(e).endswith(": -2"):
+                continue
+            raise
+        fail(f"K0 on {label}: the library ran the plan {bad}")
+    if dict(_build.launches) != before:
+        fail(f"K0 on {label}: a refused plan counted a launch")
+
+
+def check_k0(torch, label, band, out, fused=True, timed=True):
     """K0 against its plain version on a real o-major band, in the band's
     type (f32 for an f64 band; f32 vectors for a bf16 or f32 band) and as
-    f64, 1e-5 / 1e-12 relative to the largest entry; timed beside the
-    plain version and, for an f32 or f64 band, a torch.sparse CSR product of the same band.  With
-    ``fused``, fused K0's three modes too, on the same band.  Each call
-    goes through the band's kept launch arguments, as ``BlockBanded``'s
-    do, and is timed traced (device time per launch: the row's ``ms``),
-    by CUDA events back to back, by the host clock (the wrapper's work
-    per call, which back to back outruns a launch of a few microseconds)
-    and by ``queued_events_us`` (traced_us' fallback, checked here).
-    Adds each case to ``out`` (label -> row; fused rows end in " fused")."""
+    f64, 1e-5 / 1e-12 relative to the largest entry, two launches bitwise
+    equal, and plans it cannot run refused (``k0_refuses``); with
+    ``fused``, fused K0's three modes the same way,
+    on the same band.  With ``timed``, each is timed beside the plain
+    version and, for an f32 or f64 band, a torch.sparse CSR product of the
+    same band.  Each call goes through the band's kept launch arguments,
+    as ``BlockBanded``'s do, and is timed traced (device time per launch:
+    the row's ``ms``), by CUDA events back to back, by the host clock (the
+    wrapper's work per call, which back to back outruns a launch of a few
+    microseconds) and by ``queued_events_us`` (traced_us' fallback,
+    checked here); beside them the traced empty kernel on K0's grid (the
+    launch floor, ``floor_ms``).  Adds each timed case to ``out`` (label
+    -> row; fused rows end in " fused")."""
     from polydeal_tpu_torch.ops import fused_cheb as fc
     from polydeal_tpu_torch.ops.banded import (banded_matvec_t_omajor,
                                                banded_matvec_t_omajor_ref,
@@ -962,14 +1012,48 @@ def check_k0(torch, label, band, out, fused=True):
         pdt = "float64" if dname == "float64" else "float32"
         tol = TOL[dname]
         kb = omajor_band(data, offs)
+        plan = kb.plan
         x, b, d, dinv = cheb_vectors(torch, gen, nb, P, vdt)
+        k0_refuses(torch, f"{label} {dname}", kb, x)
         kf = lambda: banded_matvec_t_omajor(data, offs, x, band=kb)
         pf = lambda: banded_matvec_t_omajor_ref(data, offs, x)
         got = kf()
         err, rel = hold(f"K0 on {label} {dname}", got, pf(), tol)
+        twice_equal(torch, f"K0 on {label} {dname}", {"product": (kf, pf)})
+        modes = {
+            "step": (lambda: fc.banded_cheb_step_t_omajor(
+                data, offs, x, d, b, dinv, c1, c2, band=kb),
+                lambda: fc.banded_cheb_step_t_omajor_ref(
+                    data, offs, x, d, b, dinv, c1, c2)),
+            "step0": (lambda: fc.banded_cheb_step_t_omajor(
+                data, offs, x, None, b, dinv, c1, c2, band=kb),
+                lambda: fc.banded_cheb_step_t_omajor_ref(
+                    data, offs, x, None, b, dinv, c1, c2)),
+            "residual": (lambda: fc.banded_residual_t_omajor(
+                data, offs, x, b, band=kb),
+                lambda: fc.banded_residual_t_omajor_ref(
+                    data, offs, x, b))}
+        ferr = frel = 0.0
+        if fused:
+            for mode, (mf, mp) in modes.items():
+                e, r = hold(f"fused K0 {mode} on {label} {dname}", mf(),
+                            mp(), tol)
+                ferr, frel = max(ferr, e), max(frel, r)
+            twice_equal(torch, f"fused K0 on {label} {dname}", modes)
+        plan_s = (f"plan build={plan.build} path={plan.path} "
+                  f"threads={plan.threads} blocks={plan.blocks} "
+                  f"batch={plan.batch}")
+        if not timed:
+            log(f"  K0{' and fused K0' if fused else ''} {label} {dname} "
+                f"(P={P}, nb={nb}, {len(band.offsets)} offsets): "
+                f"rel {max(rel, frel):.3e} (tol {tol:g}), two launches "
+                f"bitwise equal; {plan_s}")
+            del data, x, b, d, dinv, got, kb
+            continue
         ms, pms = time_pair(torch, kf, pf)
         hus, dus = host_us(torch, kf), traced_us(torch, kf, "omajor_kernel")
         qus = queued_events_us(torch, kf)
+        floor = k0_floor_us(torch, plan)
         nbytes, flops = k0_work(band, data, x.element_size())
         b_ms, b_by = bound(nbytes, flops, pdt)
         lms = None
@@ -988,33 +1072,18 @@ def check_k0(torch, label, band, out, fused=True):
         out[f"{label} {dname}"] = dict(
             max_abs_err=err, ms=dus / 1e3, plain_ms=pms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lms, events_ms=ms, host_us=hus,
-            queued_us=qus)
+            queued_us=qus, floor_ms=floor / 1e3, plan=plan._asdict())
         log(f"  K0 {label} {dname} (P={P}, {len(band.offsets)} offsets, "
             f"max |offset| {int(abs(band.offsets).max())}): "
-            f"max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:g}); "
+            f"max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:g}), two "
+            f"launches bitwise equal; "
             f"{ms:.4f} ms by events, host {hus:.2f} us/call, traced "
-            f"{dus:.2f} us/launch, queued events {qus:.2f} us/call (plain {pms:.4f}, CSR "
+            f"{dus:.2f} us/launch, queued events {qus:.2f} us/call (plain "
+            f"{pms:.4f}, CSR "
             f"{'-' if lms is None else f'{lms:.4f}'}; bound {b_ms:.4f} "
-            f"{b_by}: {nbytes / 1e6:.2f} MB)")
+            f"{b_by}: {nbytes / 1e6:.2f} MB; empty kernel on its grid "
+            f"{floor:.2f} us traced); {plan_s}")
         if fused:
-            modes = {
-                "step": (lambda: fc.banded_cheb_step_t_omajor(
-                    data, offs, x, d, b, dinv, c1, c2, band=kb),
-                    lambda: fc.banded_cheb_step_t_omajor_ref(
-                        data, offs, x, d, b, dinv, c1, c2)),
-                "step0": (lambda: fc.banded_cheb_step_t_omajor(
-                    data, offs, x, None, b, dinv, c1, c2, band=kb),
-                    lambda: fc.banded_cheb_step_t_omajor_ref(
-                        data, offs, x, None, b, dinv, c1, c2)),
-                "residual": (lambda: fc.banded_residual_t_omajor(
-                    data, offs, x, b, band=kb),
-                    lambda: fc.banded_residual_t_omajor_ref(
-                        data, offs, x, b))}
-            ferr = frel = 0.0
-            for mode, (kf, pf) in modes.items():
-                e, r = hold(f"fused K0 {mode} on {label} {dname}", kf(),
-                            pf(), tol)
-                ferr, frel = max(ferr, e), max(frel, r)
             kf, pf = modes["step"]
             ms, pms = time_pair(torch, kf, pf)
             hus, dus = (host_us(torch, kf),
@@ -1025,12 +1094,14 @@ def check_k0(torch, label, band, out, fused=True):
             out[f"{label} {dname} fused"] = dict(
                 max_abs_err=ferr, ms=dus / 1e3, plain_ms=pms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, events_ms=ms, host_us=hus,
-                queued_us=qus)
+                queued_us=qus, floor_ms=floor / 1e3, plan=plan._asdict())
             log(f"  fused K0 {label} {dname}: step0/step/residual "
-                f"max_abs_err={ferr:.3e} rel={frel:.3e} (tol {tol:g}); step "
+                f"max_abs_err={ferr:.3e} rel={frel:.3e} (tol {tol:g}), two "
+                f"launches bitwise equal; step "
                 f"{ms:.4f} ms by events, host {hus:.2f} us/call, traced "
-                f"{dus:.2f} us/launch, queued events {qus:.2f} us/call (plain {pms:.4f}; bound {b_ms:.4f} "
-                f"{b_by}: {nbytes / 1e6:.2f} MB)")
+                f"{dus:.2f} us/launch, queued events {qus:.2f} us/call "
+                f"(plain {pms:.4f}; bound {b_ms:.4f} {b_by}: "
+                f"{nbytes / 1e6:.2f} MB; floor {floor:.2f} us)")
         del data, x, b, d, dinv, got, kb
 
 
@@ -3503,6 +3574,14 @@ def dgq_case(torch, dev, group, label, family, degree, n):
         if counts_h[name] <= 0:
             fail(f"phase 16 {label}: {name} was never launched on the "
                  f"sharded solve")
+    # K0 and fused K0 on every level under 32768 lanes: the f32 band (the
+    # eigenvalue estimates' products) and the bf16 smoothing copy
+    for e, lo in zip(fs.mg.ells[1:], fs.mg.lo_ells[1:]):
+        if e.data_i is None:
+            check_k0(torch, f"{label} {e.n_block_rows}-lane", e, {},
+                     timed=False)
+            check_k0(torch, f"{label} {e.n_block_rows}-lane bf16 copy", lo,
+                     {}, timed=False)
     k1, k2 = {}, {}
     fine = fs.mg.ells[-1]
     check_k1(torch, f"{label} fine", fine, k1)
@@ -3679,9 +3758,14 @@ def mono2d_case(torch, dev, smi, label, degree, n_ref, relabel, ref64):
             bitwise=True)
         rows["K1"] = k1[f"mono2d {label} fine float32"]
         rows["K2"] = k2[f"mono2d {label} fine float32"]
+        # K0 on every level under 32768 lanes, timed on the largest
         k0 = {}
-        for e in [e for e in ms.mg.ells[1:] if e.data_i is None][-1:]:
-            check_k0(torch, f"mono2d {label} {e.n_block_rows}-lane", e, k0)
+        levels = [e for e in ms.mg.ells[1:] if e.data_i is None]
+        for e in levels:
+            check_k0(torch, f"mono2d {label} {e.n_block_rows}-lane", e, k0,
+                     timed=e is levels[-1])
+        big = f"mono2d {label} {levels[-1].n_block_rows}-lane float32"
+        rows["K0"], rows["K0 fused"] = k0[big], k0[f"{big} fused"]
     else:
         rows.update(check_packed_levels(torch, SimpleNamespace(
             mg=ms.mg, n_dofs=n_dofs), dev))
@@ -3763,7 +3847,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_library()
     build_s = time.perf_counter() - t0
-    log(f"  built in {build_s:.2f} s")
+    log(f"  built in {build_s:.2f} s; by source (each in its own nvcc, all "
+        f"at once): " + ", ".join(
+            line[3:] for line in _build.last_build_log().splitlines()
+            if line.startswith("== ")))
     for line in ptxas_summary(_build.last_build_log()):
         log(f"  ptxas: {line}")
     # phase 8's process group: NCCL, one rank, through a FileStore
@@ -3972,16 +4059,17 @@ def main() -> int:
         kres[key] = dict(rows[main_row], max_abs_err=max(
             worst, kres.get(key, {}).get("max_abs_err", 0.0)))
 
-    banded, sipg, packed, k1, packed_bf16 = (
+    banded, sipg, packed, k1, packed_bf16, omajor = (
         "polydeal_tpu_torch/csrc/banded.cu", "polydeal_tpu_torch/csrc/sipg.cu",
         "polydeal_tpu_torch/csrc/packed.cu",
         "polydeal_tpu_torch/csrc/banded_matvec.cu",
-        "polydeal_tpu_torch/csrc/packed_bf16.cu")
+        "polydeal_tpu_torch/csrc/packed_bf16.cu",
+        "polydeal_tpu_torch/csrc/banded_omajor.cu")
     rows = [("banded_matvec_imajor", "K1", k1,
              "polydeal_tpu/ops/banded.py:65"),
-            ("banded_matvec_omajor", "K0", banded,
+            ("banded_matvec_omajor", "K0", omajor,
              "polydeal_tpu/ops/banded.py:176"),
-            ("banded_fused_omajor", "K0 fused", banded,
+            ("banded_fused_omajor", "K0 fused", omajor,
              "polydeal_tpu/ops/banded.py:176"),
             ("banded_fused_cheb", "K2", banded,
              "polydeal_tpu/ops/fused_cheb.py:210"),
@@ -4030,7 +4118,8 @@ def main() -> int:
     kernels += [dict(name=f"{name}_coupled", route="cuda", source=src,
                      replaces=rpl, launches=counts10[name],
                      case=rows10[key]["case"],
-                     **{k: rows10[key][k] for k in keys if k in rows10[key]})
+                     **{k: rows10[key][k] for k in keys + ("plan",)
+                        if k in rows10[key]})
                 for name, key, src, rpl in rows if key in rows10]
     # phase 11's path: K6 with bf16 x on the relabel=None bf16-vector solve,
     # K6 halo with bf16 x on its sharded solve
@@ -4074,14 +4163,16 @@ def main() -> int:
             **{k: kres[key][k] for k in keys}))
     for label in ("p4 lex", "p5 lex"):
         c17, rows17 = out17[label]
-        for key, name, rpl in (
-                ("K1", "banded_matvec_imajor_any_nb",
+        for key, name, src, rpl in (
+                ("K1", "banded_matvec_imajor_any_nb", any_nb,
                  "polydeal_tpu/ops/banded.py:65"),
-                ("K2", "banded_fused_cheb_any_nb",
-                 "polydeal_tpu/ops/fused_cheb.py:210")):
+                ("K2", "banded_fused_cheb_any_nb", any_nb,
+                 "polydeal_tpu/ops/fused_cheb.py:210"),
+                ("K0 fused", "banded_fused_omajor", omajor,
+                 "polydeal_tpu/ops/banded.py:176")):
             kernels.append(dict(
                 name=f"{name}_mono2d_{label.split()[0]}", route="cuda",
-                source=any_nb, replaces=rpl, launches=c17[name],
+                source=src, replaces=rpl, launches=c17[name],
                 **{k: rows17[key][k] for k in keys + ("plan",)
                    if k in rows17[key]}))
     c17, rows17 = out17["p4 relabel=None"]

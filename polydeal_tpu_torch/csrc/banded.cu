@@ -1,13 +1,11 @@
 // Fused Chebyshev step / residual (K2) for Hopper (sm_90a), over the
-// i-major band layout of BlockBanded.data_i; and the o-major banded SpMV
-// (K0), plain or fused with the same Chebyshev step / residual, over
-// BlockBanded.data.  K1, the i-major product, is csrc/banded_matvec.cu.
+// i-major band layout of BlockBanded.data_i.  K1, the i-major product, is
+// csrc/banded_matvec.cu; K0, the o-major product, plain and fused, is
+// csrc/banded_omajor.cu.
 //
-// Replaces the TPU Pallas kernels
+// Replaces the TPU Pallas kernel
 //   K2  polydeal_tpu/ops/fused_cheb.py  _banded_fused_impl
-//   K0  polydeal_tpu/ops/banded.py      _banded_matvec_impl
-// Fused K0 computes K2's function on the o-major layout, where the JAX
-// package runs the product and the update unfused.  The halo entry
+// The halo entry
 // (pd_banded_fused_halo) runs K2 on one shard's lane slab, in place of the
 // JAX package's sharded entry points
 //   polydeal_tpu/ops/fused_cheb.py  banded_cheb_step_t_halo,
@@ -43,22 +41,6 @@
 // TPU mechanics (lane tiles, funnel shifts, padded x and pre-rolled far
 // copies, SMEM scalars) have no counterpart.
 //
-// K0, the o-major layout: data [n_off, nb, nb, P], element (o, i, j, p) at
-// ((o*nb + i)*nb + j)*P + p, multiplies x[j, p + off_o];
-//   y[i,p] = sum_o sum_j data[o,i,j,p] * x[j, p+off_o], x zero outside [0,P),
-// then, fused, K2's three modes on y.  Accumulation follows the Pallas
-// kernel's contract: f32 for bf16 or f32 data, f64 for f64 data; y enters
-// the update in the vector type, as in the plain version.  It serves the
-// small multigrid levels (64 to 4,096 lanes), where the band is 0.1-2 MB
-// and a launch costs more than its bytes: what bounds it there is the
-// number of launches, so the product and the Chebyshev update are one
-// launch per smoothing step (else a product and about six elementwise
-// launches).  One thread per output (i, p): a
-// grid of (lane blocks, nb), nb times the threads of one lane per thread,
-// each reading its own nb*n_off band elements once, coalesced along p, and
-// its own b, d, dinv and x at (i, p) once; x[j, p+off_o] through a
-// bounds-checked load.  The offset table is staged in shared memory.
-//
 // Plain C interface for ctypes (built by polydeal_tpu_torch/ops/_build.py):
 // each entry point launches on the given stream and returns
 // cudaGetLastError() (0 on success), -1 for an unsupported dtype pair, -3
@@ -70,12 +52,10 @@
 
 namespace {
 
-// RESIDUAL, STEP0 and STEP are the fused modes of the C interface; PRODUCT
-// (y = A x) is K0's plain product
-enum Mode { RESIDUAL = 0, STEP0 = 1, STEP = 2, PRODUCT = 3 };
+// the fused modes of the C interface
+enum Mode { RESIDUAL = 0, STEP0 = 1, STEP = 2 };
 
-constexpr int kFusedThreads = 128;   // K2
-constexpr int kOmajorThreads = 128;  // K0, plain and fused
+constexpr int kFusedThreads = 128;
 // K2 takes one lane per thread where W lanes per thread would leave fewer
 // threads than this (128 blocks of 128)
 constexpr int64_t kWideMinThreads = 16384;
@@ -141,67 +121,6 @@ __global__ void __launch_bounds__(kFusedThreads)
   }
 }
 
-// ---- K0 ------------------------------------------------------------------
-
-// K0's accumulator: f64 for f64 data, f32 otherwise
-template <typename TD>
-struct AccOf {
-  using type = float;
-};
-
-template <>
-struct AccOf<double> {
-  using type = double;
-};
-
-template <typename TD, typename TV>
-__global__ void __launch_bounds__(kOmajorThreads)
-    banded_omajor_kernel(const TD* __restrict__ data,
-                         const TV* __restrict__ x,
-                         const int* __restrict__ offsets, int n_off, int nb,
-                         int64_t P, const TV* __restrict__ b,
-                         const TV* __restrict__ d,
-                         const TV* __restrict__ dinv, double c1, double c2,
-                         int mode, TV* __restrict__ out0,
-                         TV* __restrict__ out1) {
-  using TA = typename AccOf<TD>::type;
-  extern __shared__ int s_off[];
-  for (int k = threadIdx.x; k < n_off; k += blockDim.x) {
-    s_off[k] = offsets[k];
-  }
-  __syncthreads();
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (p >= P) return;
-  const int i = blockIdx.y;
-  TA acc = TA(0);
-  for (int o = 0; o < n_off; ++o) {
-    const int64_t q = p + s_off[o];
-    if (q < 0 || q >= P) continue;  // x is zero outside [0, P)
-    const TD* rows = data + (static_cast<int64_t>(o) * nb + i) * nb * P + p;
-    for (int j = 0; j < nb; ++j) {
-      acc += load_as<TA>(rows + static_cast<int64_t>(j) * P) *
-             static_cast<TA>(x[static_cast<int64_t>(j) * P + q]);
-    }
-  }
-  const int64_t idx = static_cast<int64_t>(i) * P + p;
-  const TV y = static_cast<TV>(acc);
-  if (mode == PRODUCT) {
-    out0[idx] = y;
-    return;
-  }
-  const TV r = b[idx] - y;
-  if (mode == RESIDUAL) {
-    out0[idx] = r;
-    return;
-  }
-  // the recurrence scalars act in the vector type, as in the plain version
-  TV dn = static_cast<TV>(c2) * (dinv[idx] * r);
-  if (mode == STEP) dn = static_cast<TV>(c1) * d[idx] + dn;
-  out0[idx] = x[idx] + dn;
-  out1[idx] = dn;
-}
-
 template <typename TD, typename TV, int NB, int W>
 void launch_fused_w(const void* data, const void* x, const int* offsets,
                     int n_off, int R_pad, int64_t P, int64_t ldx,
@@ -254,21 +173,6 @@ int launch_fused(const void* data, const void* x, const int* offsets,
                  mode, out0, out1, s);
 }
 
-template <typename TD, typename TV>
-int launch_omajor(const void* data, const void* x, const int* offsets,
-                  int n_off, int nb, int64_t P, const void* b, const void* d,
-                  const void* dinv, double c1, double c2, int mode,
-                  void* out0, void* out1, cudaStream_t s) {
-  const dim3 grid(n_blocks(P, kOmajorThreads), static_cast<unsigned int>(nb));
-  const size_t smem = static_cast<size_t>(n_off) * sizeof(int);
-  banded_omajor_kernel<TD, TV><<<grid, kOmajorThreads, smem, s>>>(
-      static_cast<const TD*>(data), static_cast<const TV*>(x), offsets, n_off,
-      nb, P, static_cast<const TV*>(b), static_cast<const TV*>(d),
-      static_cast<const TV*>(dinv), c1, c2, mode, static_cast<TV*>(out0),
-      static_cast<TV*>(out1));
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" int pd_banded_fused(const void* data, int data_dt, const void* x,
@@ -297,26 +201,4 @@ extern "C" int pd_banded_fused_halo(const void* data, int data_dt,
               R_pad, static_cast<int64_t>(P), static_cast<int64_t>(ldx),
               static_cast<int64_t>(halo), b, d, dinv, c1, c2, mode, out0,
               out1, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int pd_banded_matvec_omajor(const void* data, int data_dt,
-                                       const void* x, int vec_dt,
-                                       const int* offsets, int n_off, int nb,
-                                       long long P, void* y, void* stream) {
-  PD_DISPATCH(launch_omajor, data_dt, vec_dt, data, x, offsets, n_off, nb,
-              static_cast<int64_t>(P), nullptr, nullptr, nullptr, 0.0, 0.0,
-              PRODUCT, y, nullptr, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int pd_banded_fused_omajor(const void* data, int data_dt,
-                                      const void* x, int vec_dt,
-                                      const int* offsets, int n_off, int nb,
-                                      long long P, const void* b,
-                                      const void* d, const void* dinv,
-                                      double c1, double c2, int mode,
-                                      void* out0, void* out1, void* stream) {
-  if (mode < RESIDUAL || mode > STEP) return -3;
-  PD_DISPATCH(launch_omajor, data_dt, vec_dt, data, x, offsets, n_off, nb,
-              static_cast<int64_t>(P), b, d, dinv, c1, c2, mode, out0, out1,
-              static_cast<cudaStream_t>(stream));
 }

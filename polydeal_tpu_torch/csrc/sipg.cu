@@ -76,10 +76,10 @@
 //   thread holds at most kMaxAccRegs registers of accumulators; each rank's
 //   entries are compile-time constants, by a uniform switch on the rank).
 //   With RE > 1 at p >= 2 the block stages the values of a chunk of points
-//   for its lanes in shared memory, double-buffered, with one barrier per
-//   chunk, and every rank accumulates its entries from there.  Elsewhere
-//   (p = 1, or one entry rank) each thread evaluates the point values it
-//   needs itself: no shared memory, no barrier per point.
+//   for its lanes in shared memory, double-buffered, the next chunk while
+//   every rank accumulates its entries from this one, with one barrier per
+//   chunk.  Elsewhere (p = 1, or one entry rank) each thread evaluates the
+//   point values it needs itself: no shared memory, no barrier per point.
 // No tensor cores: the f32 band is sensitive to single ulps (gamma below).
 // The launch plan (lanes a block holds L, point ranks G, blocks a lane S)
 // is chosen in Python (ops/sipg_kernels.py sipg_launch_plan) from what
@@ -107,6 +107,9 @@ constexpr int kThreads = 256;    // threads per block
 constexpr int kMaxAccRegs = 64;  // accumulator registers one thread holds
 constexpr int kRed = 8;          // accumulators summed over ranks per round
 constexpr size_t kSmemBlock = 227 * 1024;  // shared memory a block may use
+// the entry ranks K5 alone at 2D p = 4-5 takes at least in f64 (E = 120,
+// 231 entries)
+constexpr int kHighRanksF64 = 8;
 
 __host__ __device__ constexpr int binom(int n, int k) {
   int r = 1;
@@ -474,17 +477,26 @@ __host__ __device__ constexpr int entry_ranks(int entries, int cap) {
 // and how it runs: staged (point values through shared memory, shared by
 // the entry ranks) at p >= 2 where there is more than one entry rank; else
 // each thread evaluates its own points.  At p = 1 in f32 a thread keeps to
-// 128 registers (two blocks an SM).
+// 128 registers (two blocks an SM).  K5 alone at 2D p = 4-5 in f64
+// (kHighF64) takes at least kHighRanksF64 entry ranks, and a thread of at
+// most 16 accumulators keeps to 128 registers: at p = 4, 8 ranks of 15 in
+// place of 4 of 30, two blocks an SM in place of one (p = 5 takes 8
+// ranks anyway).  In f32 neither more ranks nor fewer registers beat the
+// 64-register split.
 template <class F>
 struct Split {
   using T = typename F::T;
+  static constexpr bool kHighF64 = F::kDegree >= 4 && sizeof(T) == 8;
   static constexpr int E = F::M * (F::M + 1) / 2;
-  static constexpr int RE =
+  static constexpr int RE0 =
       entry_ranks(E, kMaxAccRegs * 4 / static_cast<int>(sizeof(T)));
+  static constexpr int RE =
+      kHighF64 && RE0 < kHighRanksF64 ? kHighRanksF64 : RE0;
   static constexpr int PER = (E + RE - 1) / RE;
   static constexpr bool kStaged = F::kDegree >= 2 && RE > 1;
-  static constexpr int kMinBlocks = (F::kDegree == 1 && sizeof(T) == 4) ? 2
-                                                                        : 1;
+  static constexpr int kMinBlocks =
+      (F::kDegree == 1 && sizeof(T) == 4) || (kHighF64 && PER <= 16) ? 2
+                                                                       : 1;
   static_assert(kThreads % RE == 0, "entry ranks must divide the block");
 };
 
@@ -607,10 +619,11 @@ __global__ void __launch_bounds__(kThreads, Split<F>::kMinBlocks)
     const int ranks = kThreads / L;
     typename F::Lane l;
     if (live) l = F::lane(a, p, P);
-    int buf = 0;
-    for (int c0 = n0; c0 < n1; c0 += CH, buf ^= 1) {
+    // the values of the chunk of points from c0 into buffer b, and their
+    // sums from it
+    const auto stage = [&](int c0, int b) {
       const int len = min(CH, n1 - c0);
-      T* mine = sv + (static_cast<int64_t>(buf) * L + lane) * ls;
+      T* mine = sv + (static_cast<int64_t>(b) * L + lane) * ls;
       if (live) {
         for (int j = r; j < len; j += ranks) {
           const typename F::Raw raw = F::load(a, c0 + j, Q, p, P);
@@ -618,9 +631,10 @@ __global__ void __launch_bounds__(kThreads, Split<F>::kMinBlocks)
           F::values(a, l, raw, [&](int k, T x) { pv[k] = x; });
         }
       }
-      // one barrier a chunk: the other buffer's readers passed it before
-      // this chunk's writers could reach the next one
-      __syncthreads();
+    };
+    const auto sum = [&](int c0, int b) {
+      const int len = min(CH, n1 - c0);
+      const T* mine = sv + (static_cast<int64_t>(b) * L + lane) * ls;
       if (live) {
         for (int j = g; j < len; j += G) {
           const T* pv = mine + j * F::kValues;
@@ -630,6 +644,17 @@ __global__ void __launch_bounds__(kThreads, Split<F>::kMinBlocks)
           });
         }
       }
+    };
+    // the next chunk is staged while this one is summed, so that its table
+    // loads and basis evaluation overlap the sums; one barrier a chunk: a
+    // buffer is staged again only after the barrier that ends its sums
+    stage(n0, 0);
+    __syncthreads();
+    int buf = 0;
+    for (int c0 = n0; c0 < n1; c0 += CH, buf ^= 1) {
+      if (c0 + CH < n1) stage(c0 + CH, buf ^ 1);
+      sum(c0, buf);
+      __syncthreads();
     }
   }
 

@@ -8,6 +8,7 @@ Run from the root of a checkout, on a machine with a CUDA card::
     python -m polydeal_tpu_torch.models.profile_flagship --model mono2d \
         [--relabel none]
     python -m polydeal_tpu_torch.models.profile_flagship --model oseen
+    python -m polydeal_tpu_torch.models.profile_flagship --model darcy
     python -m polydeal_tpu_torch.models.profile_flagship --model amg
 
 Sets the flagship (n=64, p=1) up on ``cuda:0`` -- with ``--relabel none``
@@ -51,7 +52,10 @@ With ``--model oseen`` it sets up the Oseen (Kovasznay) system at n=64
 and its field-wise R3MG preconditioner (``models/oseen.py``, the
 MG-GMRES of ``chip_smoke.py`` phase 10, rtol 1e-11) and measures the
 GMRES solve both ways (``gmres_solve(capture=False)`` against one
-``solvers/graphs.GMRESLoop``); with ``--model amg`` the SA-AMG CG solve
+``solvers/graphs.GMRESLoop``); ``--model darcy`` the same for the
+Stokes-Darcy MG-GMRES at n=64 (``models/darcy_stokes.py``, phase 10's
+triangular field-block preconditioner); with ``--model amg`` the SA-AMG
+CG solve
 (``AMG.solve_cg``) of the n=64 3D p=1 COO Poisson system (1,048,576 DoF,
 phase 9's; its host setup ~20 s).  Each: the preconditioner's setup
 seconds, warm solves on the host clock (one warm-up each, then
@@ -74,7 +78,7 @@ import torch
 
 __all__ = ["busy_us", "traced_span", "device_intervals", "main",
            "profile_flagship", "profile_monodomain", "profile_oseen",
-           "profile_amg"]
+           "profile_darcy", "profile_amg"]
 
 _LABEL = "flagship_solve"  # the traced range's record_function label
 N = 64
@@ -309,6 +313,37 @@ def profile_oseen(dev, smi: str, n: int = N) -> dict:
                 for deg, mg in M.mgs.items()}))
 
 
+def profile_darcy(dev, smi: str, n: int = N) -> dict:
+    """The darcy_stokes MG-GMRES numbers (see the module docstring)."""
+    from polydeal_tpu_torch.mesh import hyper_cube
+    from polydeal_tpu_torch.models import darcy_stokes as ds
+    from polydeal_tpu_torch.solvers.gmres import gmres_solve
+    from polydeal_tpu_torch.solvers.graphs import GMRESLoop
+
+    s, _ = ds.run(n, 2, device=dev)
+    A, rhs = ds._regularized(s), s.rhs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M = ds.mg_block_preconditioner(s, hyper_cube(2, n), n, 2,
+                                   ps_mode="mass+stab", structure="tri")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kw = dict(restart=200, rtol=1e-11, max_restarts=40)
+    loop = GMRESLoop(A, M, rhs, **kw)
+
+    def solve(capture):
+        if capture is None:
+            return loop.solve(rhs).iterations
+        return gmres_solve(A, rhs, M=M, capture=False, **kw).iterations
+
+    parts = dict(precond_ms=_cuda_ms(lambda: M(rhs)),
+                 operator_ms=_cuda_ms(lambda: A(rhs)))
+    return _solve_modes(solve, loop, setup_s, parts, dict(
+        card=smi, model="darcy", n=n, n_dofs=s.space.n_dofs,
+        levels={f: [e.n_block_rows for e in mg.ells]
+                for f, mg in M.mgs.items() if hasattr(mg, "ells")}))
+
+
 def profile_amg(dev, smi: str, n: int = N) -> dict:
     """The SA-AMG CG numbers (see the module docstring)."""
     from polydeal_tpu_torch.models.poisson import solve_poisson
@@ -384,7 +419,8 @@ def profile_flagship(dev, smi: str, relabel) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("flagship", "monodomain", "mono2d",
-                                        "oseen", "amg"), default="flagship")
+                                        "oseen", "darcy", "amg"),
+                    default="flagship")
     ap.add_argument("--relabel", choices=("lex", "none"), default="lex",
                     help="the hierarchy's numbering (none: packed levels)")
     args = ap.parse_args(argv)
@@ -406,6 +442,8 @@ def main(argv=None) -> int:
             dim=2, n_refinements=9, degree=4), relabel)
     elif args.model == "oseen":
         out = profile_oseen(dev, smi)
+    elif args.model == "darcy":
+        out = profile_darcy(dev, smi)
     elif args.model == "amg":
         out = profile_amg(dev, smi)
     else:

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 import torch
@@ -39,8 +40,9 @@ _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # dtype codes of the C interface (enum DType in csrc/*.cu)
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
-# launches per kernel since the last reset: K1 (csrc/banded_matvec.cu), K2,
-# K0 and fused K0 (csrc/banded.cu), K3, K4, K5 (csrc/sipg.cu) and K6, K7
+# launches per kernel since the last reset: K1 (csrc/banded_matvec.cu), K2
+# (csrc/banded.cu), K0 and fused K0 (csrc/banded_omajor.cu), K3, K4, K5
+# (csrc/sipg.cu) and K6, K7
 # (csrc/packed.cu); the halo launches of K1, K2, K6 and K7 (on a shard's
 # slab) count apart, and so do K6's and K6 halo's bf16-x launches (their
 # own instantiation, csrc/packed_bf16.cu) and the launches of K1, K2 and
@@ -95,13 +97,25 @@ def _build(srcs: list[str], so: str) -> str:
     os.makedirs(_BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        t0 = time.perf_counter()
         procs = [subprocess.Popen([nvcc, *_FLAGS, "-c", "-o", o, s],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for s, o in zip(srcs, objs)]
-        outs = [p.communicate()[0] for p in procs]
-        log = "".join(f"== {os.path.basename(s)}\n{out}"
-                      for s, out in zip(srcs, outs))
+        outs, secs = [None] * len(procs), [0.0] * len(procs)
+
+        def wait(k):  # each source's own seconds
+            outs[k] = procs[k].communicate()[0]
+            secs[k] = time.perf_counter() - t0
+
+        waits = [threading.Thread(target=wait, args=(k,))
+                 for k in range(len(procs))]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
+        log = "".join(f"== {os.path.basename(s)} ({t:.1f} s)\n{out}"
+                      for s, t, out in zip(srcs, secs, outs))
         bad = [s for s, p in zip(srcs, procs) if p.returncode != 0]
         if bad:
             raise RuntimeError(f"nvcc failed to build {bad}:\n{log}")
@@ -139,13 +153,15 @@ def load_library() -> ctypes.CDLL:
     # long long[7] out)
     lib.pd_banded_matvec_plan.argtypes = [vp, i32, vp, i32, i32, i32, i64,
                                           i64, i64, vp, vp]
-    # K0: as K1 without R_pad
+    # K0: as K1 without R_pad, the plan's path, threads and batch after P
     lib.pd_banded_matvec_omajor.argtypes = [vp, i32, vp, i32, vp, i32, i32,
-                                            i64, vp, vp]
-    # fused K0: as K2 without R_pad
+                                            i64, i32, i32, i32, vp, vp]
+    # fused K0: as K2 without R_pad, the plan after P
     lib.pd_banded_fused_omajor.argtypes = [vp, i32, vp, i32, vp, i32, i32,
-                                           i64, vp, vp, vp, f64, f64, i32, vp,
-                                           vp, vp]
+                                           i64, i32, i32, i32, vp, vp, vp,
+                                           f64, f64, i32, vp, vp, vp]
+    # the empty kernel of K0's launch floor: (blocks, threads, stream)
+    lib.pd_empty_kernel.argtypes = [i64, i32, vp]
     # the packed pair: as the banded one, with oid before the offsets and
     # K after n_off
     lib.pd_packed_matvec.argtypes = [vp, i32, vp, i32, vp, vp, i32, i32, i32,
@@ -183,7 +199,7 @@ def load_library() -> ctypes.CDLL:
                lib.pd_sipg_face, lib.pd_banded_matvec_halo,
                lib.pd_banded_fused_halo, lib.pd_packed_matvec_halo,
                lib.pd_packed_fused_halo, lib.pd_sipg_form_info,
-               lib.pd_banded_matvec_plan):
+               lib.pd_banded_matvec_plan, lib.pd_empty_kernel):
         fn.restype = i32
     _lib = lib
     return lib

@@ -10,10 +10,13 @@ lanes on each side are the neighbouring shards' (``parallel/banded.py``).
 On a CUDA tensor each wrapper launches its hand-written kernel
 (K1 and K1 halo ``csrc/banded_matvec.cu``, at an nb outside
 :data:`KERNEL_NB` its runtime-nb kernel ``csrc/banded_any_nb.cu``; K0
-``csrc/banded.cu``; it raises if it cannot); on a CPU tensor it runs its
-plain PyTorch version (``*_ref``), which computes the same function.  K1
-runs by a launch plan (lanes a thread W, offset groups a block S) that the
-library chooses; :func:`k1_plan` reports it.
+``csrc/banded_omajor.cu``; it raises if it cannot); on a CPU tensor it
+runs its plain PyTorch version (``*_ref``), which computes the same
+function.  K1 runs by a launch plan (lanes a thread W, offset groups a
+block S) that the library chooses; :func:`k1_plan` reports it.  K0's plan
+(its path, threads a block, the loads a batch) is :func:`omajor_plan`,
+kept on the band's :class:`KernelBand` and passed with every launch; the
+library refuses a plan it cannot run.
 
 bf16 vectors: K1, K0 and K1 halo take them through an explicit cast to
 f32 before the launch and back to bf16 after it (:func:`widen_bf16`,
@@ -51,11 +54,11 @@ __all__ = ["banded_matvec_t_imajor", "banded_matvec_t_imajor_ref",
            "banded_matvec_t_halo", "banded_matvec_t_halo_ref",
            "KernelBand", "imajor_band", "omajor_band", "band_layout",
            "launch_band", "launch_product", "halo_check", "KERNEL_NB",
-           "K1Plan", "k1_plan", "any_nb_plan", "widen_bf16",
-           "narrow_to"]
+           "K1Plan", "k1_plan", "any_nb_plan", "K0_NB", "K0Plan",
+           "omajor_plan", "widen_bf16", "narrow_to"]
 
 _VEC_DTYPES = (torch.float32, torch.float64)
-# K0 stages its offset table in 48 KB of shared memory
+# the offsets K0's entries accept: 48 KB of int32 (no band comes near it)
 _MAX_OFFSETS = 48 * 1024 // 4
 # the block sizes K1 and K2 have a specialised build for (PD_NB_DISPATCH,
 # csrc/banded_common.cuh): (p + dim choose dim) for dim 2-3, p 1-3.  Any
@@ -114,18 +117,19 @@ class KernelBand:
     ``layout`` names the C entries and launch counters (``_ENTRIES``);
     ``offsets`` is the int32 offset table and ``keep`` any other tensor
     whose pointer ``args`` carries; ``max_off`` is the largest |offset|,
-    read from ``offsets`` at the first halo launch."""
+    read from ``offsets`` at the first halo launch; ``plan`` K0's launch
+    plan (:func:`omajor_plan`) on an o-major band."""
 
     __slots__ = ("layout", "dtype", "nb", "P", "device", "head", "args",
-                 "offsets", "keep", "n_off", "R_pad", "max_off")
+                 "offsets", "keep", "n_off", "R_pad", "max_off", "plan")
 
     def __init__(self, layout, data, nb, P, n_off, R_pad, args, offsets,
-                 keep=()):
+                 keep=(), plan=None):
         self.layout, self.dtype, self.nb, self.P = layout, data.dtype, nb, P
         self.device = data.device
         self.head = (data.data_ptr(), _build.DTYPE_CODES[data.dtype])
         self.n_off, self.R_pad, self.args = n_off, R_pad, args
-        self.offsets, self.keep = offsets, keep
+        self.offsets, self.keep, self.plan = offsets, keep, plan
         self.max_off = None
 
     def vec_code(self, vecs, ldx: int | None = None,
@@ -394,6 +398,66 @@ def banded_matvec_t_imajor(data_i: torch.Tensor, offsets, nb: int,
     return launch_product(band, xt)
 
 
+# K0's builds (csrc/banded_omajor.cu): the nb with a build of their own,
+# registers of loaded values a batch and offsets a batch at most (the
+# build's batch, kBatchRegs and kMaxBatch), threads a block at most and at
+# least (kMaxThreads, kMinThreads); and K0's plan: the blocks below which
+# a launch halves its blocks (two an SM on 132 SMs), the outputs nb * P
+# from which a launch is bound by bytes and takes the loop, and the loop's
+# threads a block
+K0_NB = (3, 4, 6, 8, 12, 15, 21)
+K0_BATCH_REGS = 128
+K0_MAX_BATCH = 8
+K0_MAX_THREADS = 128
+K0_MIN_THREADS = 32
+K0_FILL_BLOCKS = 264
+K0_WIDE_OUTPUTS = 49152
+K0_LOOP_THREADS = 128
+# the paths a thread walks its sum by (enum Path)
+K0_LOOP, K0_BATCHED = 0, 1
+
+
+class K0Plan(NamedTuple):
+    """How K0 (plain or fused) runs a band: ``build`` the nb of its
+    specialised build (0: the runtime-nb build), ``path`` how a thread
+    walks its sum (K0_LOOP, K0_BATCHED), ``threads`` (lanes) a block,
+    ``blocks`` (lane blocks times nb: one output a thread) and ``batch``,
+    the offsets whose loads a batch issues together (1 for the loop).
+    Every launch passes path, threads and batch; the library returns -2
+    for a plan it cannot run."""
+
+    build: int
+    path: int
+    threads: int
+    blocks: int
+    batch: int
+
+
+def omajor_plan(nb: int, P: int, data_dtype) -> K0Plan:
+    """K0's plan, which every launch of csrc/banded_omajor.cu passes: at
+    nb in :data:`K0_NB` below K0_WIDE_OUTPUTS outputs nb * P, nb's own
+    build on the BATCHED path, batches of K0_BATCH_REGS registers of
+    loaded (band entry, x value) pairs (4 registers a pair for an f64
+    band, 2 otherwise; 1 to K0_MAX_BATCH offsets), K0_MAX_THREADS lanes a
+    block, halved down to K0_MIN_THREADS while the grid has fewer than
+    K0_FILL_BLOCKS blocks; else the runtime-nb LOOP, K0_LOOP_THREADS lanes
+    a block."""
+    if nb < 1:
+        raise ValueError(f"nb={nb} < 1")
+    cdiv = lambda a, b: -(-a // b)
+    if nb in K0_NB and nb * P < K0_WIDE_OUTPUTS:
+        pair = 4 if data_dtype == torch.float64 else 2
+        batch = min(max(K0_BATCH_REGS // (nb * pair), 1), K0_MAX_BATCH)
+        threads = K0_MAX_THREADS
+        while (threads > K0_MIN_THREADS
+               and cdiv(P, threads) * nb < K0_FILL_BLOCKS):
+            threads //= 2
+        return K0Plan(build=nb, path=K0_BATCHED, threads=threads,
+                      blocks=cdiv(P, threads) * nb, batch=batch)
+    return K0Plan(build=0, path=K0_LOOP, threads=K0_LOOP_THREADS,
+                  blocks=cdiv(P, K0_LOOP_THREADS) * nb, batch=1)
+
+
 def banded_matvec_t_omajor_ref(data: torch.Tensor, offsets,
                                xt: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K0: x zero-padded and gathered at each
@@ -423,10 +487,12 @@ def omajor_band(data, offsets) -> KernelBand:
     if offsets.numel() != n_off:
         raise ValueError(f"{offsets.numel()} offsets for {n_off} band rows")
     if n_off > _MAX_OFFSETS:
-        raise ValueError(f"{n_off} offsets exceed K0's shared-memory table "
-                         f"({_MAX_OFFSETS})")
+        raise ValueError(f"{n_off} offsets exceed the {_MAX_OFFSETS} K0 "
+                         f"takes")
+    plan = omajor_plan(nb, P, data.dtype)
     return KernelBand("omajor", data, nb, P, n_off, n_off * nb,
-                      (offsets.data_ptr(), n_off, nb, P), offsets)
+                      (offsets.data_ptr(), n_off, nb, P, plan.path,
+                       plan.threads, plan.batch), offsets, plan=plan)
 
 
 def check_omajor_args(data, offsets, xt):

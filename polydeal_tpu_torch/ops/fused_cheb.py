@@ -27,10 +27,10 @@ slab's [nb, per].  A pack's far block-COO tail is not in K7's product: the
 caller passes b_eff = b - A_far x to the step and subtracts A_far x from
 the residual.
 
-On a CUDA tensor the wrappers launch the kernels of ``csrc/banded.cu`` and
-``csrc/packed.cu`` (K2 and K2 halo at an nb outside ``ops/banded.KERNEL_NB``
-the runtime-nb kernel of ``csrc/banded_any_nb.cu``), and raise if they
-cannot; on a CPU tensor they run the plain PyTorch versions below.  The
+On a CUDA tensor the wrappers launch the kernels of ``csrc/banded.cu``
+(K2, K2 halo; at an nb outside ``ops/banded.KERNEL_NB`` the runtime-nb
+kernel of ``csrc/banded_any_nb.cu``), ``csrc/banded_omajor.cu`` (fused K0)
+and ``csrc/packed.cu`` (K7, K7 halo), and raise if they cannot; on a CPU tensor they run the plain PyTorch versions below.  The
 update runs in the vectors' dtype (f32, or f64); the product accumulates
 in it for K2 and K7, and as K0 does (f64 for an f64 band, f32 otherwise)
 for fused K0.  bf16 vectors are cast to f32 before the launch and the
@@ -86,7 +86,8 @@ __all__ = [
     "packed_residual_t_halo_ref",
 ]
 
-# mode codes of the C interface (enum Mode in csrc/banded.cu, packed.cu)
+# mode codes of the C interface (enum Mode in csrc/banded.cu,
+# banded_omajor.cu, packed.cu)
 _MODES = {"residual": 0, "step0": 1, "step": 2}
 
 

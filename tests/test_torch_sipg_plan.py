@@ -39,14 +39,23 @@ Q_BOUNDARY_HIGH = {4: 5, 5: 6}
 THREADS = 256
 
 
-def _form(kind, nb, dtype):
-    """The form ``csrc/sipg.cu`` reports for ``kind`` at ``nb``."""
+# accumulator registers a thread holds (csrc/sipg.cu kMaxAccRegs); K5
+# alone at 2D p = 4-5 takes at least HIGH_RANKS_F64 entry ranks in f64
+ACC_REGS = 64
+HIGH_RANKS_F64 = 8
+
+
+def _form(kind, nb, dtype, degree=1):
+    """The form ``csrc/sipg.cu`` reports for ``kind`` at ``nb`` (and
+    ``degree``: K5 alone at 2D p = 4-5 has a split of its own in f64)."""
     M = 2 * nb if kind == "face" else nb
     E = M * (M + 1) // 2
     esz = torch.empty((), dtype=dtype).element_size()
     ranks = 1
-    while -(-E // ranks) * esz > 64 * 4:
+    while -(-E // ranks) * esz > ACC_REGS * 4:
         ranks *= 2
+    if degree >= 4 and esz == 8:
+        ranks = max(ranks, HIGH_RANKS_F64)
     return sk.SipgForm(entries=E, ranks=ranks, threads=THREADS, esz=esz)
 
 
@@ -68,7 +77,7 @@ def _cases():
 def test_plan_covers_points_and_fits_the_block(P, C, q, degree, dim, dtype,
                                                kind):
     nb = math.comb(degree + dim, dim)
-    form = _form(kind, nb, dtype)
+    form = _form(kind, nb, dtype, degree)
     pl = sk.sipg_launch_plan(P, C, q, form)
     assert pl.entries == form.entries and pl.ranks == form.ranks
     # the block: lanes x entry ranks x point ranks threads, lanes a power
@@ -124,6 +133,40 @@ def test_coarse_levels_fill_the_card(P, C):
                for g in range(pl.G)) >= sk.MIN_POINTS
 
 
+@pytest.mark.parametrize("degree,dtype", [(d, t) for d in (4, 5) for t in
+                                          (torch.float32, torch.float64)])
+def test_high_boundary_split(degree, dtype):
+    """K5 alone at 2D p = 4 / 5 (120 / 231 entries) splits into 2 / 4
+    entry ranks in f32 (at most 64 registers of accumulators a thread) and
+    8 in f64, so its fine level runs 128 / 64 lanes a block in f32 (32 in
+    f64), one point rank, one block a lane; one point's staged values of
+    the block's lanes, double-buffered, fit STAGE_BYTES."""
+    nb = math.comb(degree + 2, 2)
+    form = _form("boundary", nb, dtype, degree)
+    f64 = dtype == torch.float64
+    ranks = HIGH_RANKS_F64 if f64 else {4: 2, 5: 4}[degree]
+    assert (form.entries, form.ranks) == ({4: 120, 5: 231}[degree], ranks)
+    assert -(-form.entries // form.ranks) * form.esz <= ACC_REGS * 4
+    P = {4: 512**2, 5: 256**2}[degree]
+    pl = sk.sipg_launch_plan(P, 2, Q_BOUNDARY_HIGH[degree], form)
+    assert (pl.lanes, pl.G, pl.S) == (THREADS // form.ranks, 1, 1)
+    assert 2 * pl.lanes * 3 * nb * form.esz <= sk.STAGE_BYTES
+
+
+@pytest.mark.parametrize("kind,dim,degree,dtype,ranks", [
+    ("volume", 3, 1, torch.float32, 1), ("face", 3, 1, torch.float32, 1),
+    ("volume", 3, 2, torch.float32, 1), ("volume", 3, 2, torch.float64, 2),
+    ("face", 3, 2, torch.float32, 4), ("face", 3, 2, torch.float64, 8),
+    ("face", 3, 3, torch.float32, 16), ("face", 3, 3, torch.float64, 32),
+    ("boundary", 3, 3, torch.float32, 4), ("boundary", 2, 3,
+                                           torch.float64, 2)])
+def test_low_degree_forms_keep_their_split(kind, dim, degree, dtype, ranks):
+    """The p = 1-3 forms keep their split: a cap of 64 registers of
+    accumulators a thread."""
+    nb = math.comb(degree + dim, dim)
+    assert _form(kind, nb, dtype, degree).ranks == ranks
+
+
 def test_plan_rejects_unknown_kind():
     with pytest.raises(ValueError):
         sk.sipg_form("edge", 3, 1, torch.float32)
@@ -153,7 +196,7 @@ def test_cuda_forms_and_staged_point_ranks():
             for degree in Q_BOUNDARY_HIGH:
                 if kind == "boundary":
                     assert sk.sipg_form(kind, 2, degree, dtype) == _form(
-                        kind, math.comb(degree + 2, 2), dtype)
+                        kind, math.comb(degree + 2, 2), dtype, degree)
                 else:
                     with pytest.raises(ValueError):
                         sk.sipg_form(kind, 2, degree, dtype)
