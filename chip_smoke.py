@@ -16,7 +16,11 @@ Phases (each must pass; nothing falls back to the CPU):
      shapes (p=1, C=1), at a coarse level's (C>1, split over blocks), at
      p=2 (nb=10), and at 8 lanes at p=2 and p=3 (a lane's points over point
      ranks, entry ranks sharing staged point values), in f32 and f64, and
-     time both;
+     time both; hold set_condition (csrc/graph_loop.cu, the device loops'
+     condition) to its meaning: a WHILE program counting a device counter
+     to n stops at n = 0, 1 and 37 with n + 1 tests of its condition
+     counted, two launches alike, and time what a test adds to a loop
+     iteration beside an empty kernel node;
   4. a small f64 flagship solve (n=16, every level on the kernels) on the
      card against the same solve on the CPU;
   5. the flagship R3MG Poisson solve at n=64, p=1 (1,048,576 DoF) on the
@@ -144,14 +148,25 @@ Phases (each must pass; nothing falls back to the CPU):
      relative difference of the solutions (1e-6) and of the graph f32
      solution against the phase's f64 one (1e-4; the monodomain's not
      gated, as phase 7's), warm host-clock medians over 11 calls in turns
-     with their range, one traced call of each (device busy over the span,
-     idle share; the graph trace must hold records of the port's kernels),
-     masked iterations and host reads per call, capture seconds and the
-     graph pool's MB; the monodomain's integrals of u and u^2 within 1e-6
-     of the eager ones.  Phases 4-12 solve through the graphs (CG over
-     every hierarchy Multigrid.graph_ok admits, SA-AMG's CG, GMRES), so
-     their launch counts include replays (each replay adds its
-     program's launches).
+     with their range, one traced eager call (device busy over the span,
+     idle share; the trace must hold records of the port's kernels),
+     bodies run and host reads per call (each captured solve is one
+     device program, its loops WHILE nodes on the device: the run fails
+     unless a call reads the host once, the 20 monodomain steps included,
+     and runs the body once an iteration, by the device's count of the
+     loop's tests), capture seconds and the graph pool's MB; the
+     captured body must hold launches of the port's kernels, and one
+     replay of it on its own after the solve is traced: its trace must
+     hold records of them, x must stay bitwise (the body is masked once
+     the loop has stopped), and its busy time times the bodies run over
+     the program's span by CUDA events bounds the program's idle share;
+     the monodomain's integrals of u and u^2 within 1e-6 of the eager
+     ones.  Phases 4-12 solve through the graphs (CG over every
+     hierarchy Multigrid.graph_ok admits, SA-AMG's CG, GMRES), so their
+     launch counts include the programs' runs (each adds its launches
+     once it has read the iterations).  A device program is not traced
+     whole: the profiler drops the records of kernels inside WHILE
+     bodies, a plain torch program's too (tools/while_probe.py --fault).
  14. the remaining one-program solves (solvers/graphs.GMRESLoop, SA-AMG's
      captured CG, and CG over block-ELL, matrix-free and bf16-vector
      hierarchies) against the eager loops, as phase 13 holds its arms, on
@@ -164,15 +179,17 @@ Phases (each must pass; nothing falls back to the CPU):
      or 1e-6 (f32) of each other, the MG-GMRES ones within 1e-6 of the
      dense solve (phase 10's checks hold on the captured path too), warm
      medians (range; one warm call each where an eager solve takes
-     seconds), one traced captured solve (idle share; records of the
-     port's kernels, or any device operation where the arm has none) and
-     the eager one where its launches are few enough to trace, masked
-     steps, host reads, capture seconds and the graph pool's MB.
+     seconds), the traced eager solve where its launches are few enough
+     to trace (idle share; records of the port's kernels, or any device
+     operation where the arm has none), the body's capture and its traced
+     replay as in phase 13 (GMRES: the Arnoldi step), steps run and host
+     reads (one a solve, both loops of GMRES on the device), capture
+     seconds and the graph pool's MB.
  15. the sharded solves as one device program: (a) in phase 12, the flat
      block-COO ShardedSystem on phase 9's n=64 COO system captured (the
      default on the card) against its eager solve, as phase 13 holds its
      arms (equal iterations, x within 1e-12, whether bitwise, 3 warm
-     calls each, one traced captured solve); (b) one captured program on
+     calls each); (b) one captured program on
      the world-size-1 NCCL group holding an exchange to self, an
      all_reduce (PreMulSum by 2, so that it changes its input at one rank)
      and an all_gather_into_tensor, replayed on new input, held bitwise to
@@ -355,6 +372,97 @@ def csr_of_pack(torch, e):
          + e.offsets_t.long()[o.clamp(min=0)])
     live = (o >= 0) & (q >= 0) & (q < P)
     return csr_of_slots(torch, e.data_i, q, live, e.n_basis, e.plan.R_pad)
+
+
+def check_set_condition(torch, dev, n_time=1000):
+    """set_condition (csrc/graph_loop.cu) held to its plain meaning: a
+    device program ``init`` then WHILE(c < n) { c += 1 } (the body a
+    torch-captured program, then set_condition) stops at c = n and counts
+    n + 1 tests of its condition, for n = 0, 1 and 37, two launches
+    alike.  Timed at n = ``n_time``: ``ms`` is what a test adds to a loop
+    iteration (set_condition and the WHILE node's next iteration): the
+    loop less the same body run n times as a chain of child nodes in one
+    graph, no condition; ``plain_ms`` a loop iteration of the eager
+    loop's condition (the body replayed, the flag read on the host);
+    ``floor_ms`` an empty kernel node in a graph (the library's empty
+    kernel, n in one captured program).  Bound: the bytes it moves (the
+    flag, the count read and written) over the memory rate."""
+    from polydeal_tpu_torch.ops import _build
+    from polydeal_tpu_torch.solvers import graphs
+
+    pool = torch.cuda.graph_pool_handle()
+
+    def counting(n):
+        c = torch.zeros((), dtype=torch.int64, device=dev)
+        flag = torch.zeros((), dtype=torch.bool, device=dev)
+        tests = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def init(_):
+            c.zero_()
+            flag.copy_(c < n)
+
+        def body(_):
+            c.add_(1)
+            flag.copy_(c < n)
+
+        pi = graphs.capture(None, init, device=dev, pool=pool)
+        pb = graphs.capture(None, body, device=dev, pool=pool)
+
+        def build(ch):
+            ch.child(pi)
+            ch.loop(flag, lambda b: b.child(pb), tests)
+
+        return c, flag, tests, pi, pb, graphs.LoopProgram(build, dev)
+
+    got, err = {}, 0
+    for n in (0, 1, 37):
+        c, _, tests, _, _, prog = counting(n)
+        got[n] = []
+        for _ in range(2):
+            tests.zero_()
+            prog.launch()
+            got[n].append((int(c), int(tests)))
+        err = max(err, *(abs(v - n) + abs(t - (n + 1)) for v, t in got[n]))
+    c, flag, tests, pi, pb, prog = counting(n_time)
+
+    def chained(ch):
+        ch.child(pi)
+        for _ in range(n_time):
+            ch.child(pb)
+
+    chain = graphs.LoopProgram(chained, dev)
+
+    def plain():
+        pi.graph.replay()
+        while bool(flag):
+            pb.graph.replay()
+
+    lib = _build.load_library()
+
+    def empties(_):
+        s = _build.stream_handle(dev)
+        for _ in range(n_time):
+            lib.pd_empty_kernel(1, 32, s)
+
+    floor = graphs.capture(None, empties, device=dev, pool=pool)
+    loop_ms, chain_ms = time_pair(torch, prog.launch, chain.launch, reps=5)
+    plain_ms = time_one(torch, plain, reps=3)
+    floor_ms = time_one(torch, floor.graph.replay, reps=5)
+    row = dict(max_abs_err=float(err), ms=(loop_ms - chain_ms) / n_time,
+               plain_ms=plain_ms / n_time, bound_ms=17 / 3.35e12 * 1e3,
+               bound_by="bytes", library_ms=None,
+               floor_ms=floor_ms / n_time, iteration_ms=loop_ms / n_time)
+    log(f"  set_condition: WHILE(c < n) {{ c += 1 }} stopped at (c, tests) "
+        f"{got} for n = 0, 1, 37 (two launches each); at n = {n_time} a "
+        f"loop iteration {row['iteration_ms'] * 1e3:.3f} us, of it a test "
+        f"of the condition {row['ms'] * 1e3:.3f} us (the body chained "
+        f"{chain_ms / n_time * 1e3:.3f} us); the eager loop's condition "
+        f"{row['plain_ms'] * 1e3:.3f} us an iteration; an empty kernel node "
+        f"{row['floor_ms'] * 1e3:.3f} us")
+    if err != 0 or int(c) != n_time:
+        fail(f"set_condition: the device loop stopped at {got}, not at "
+             f"(n, n + 1)")
+    return row
 
 
 def check_kernels(torch, dev):
@@ -3162,15 +3270,24 @@ def graph_arm(torch, label, eager, graph, loop, x64=None, to64=None,
     ``GMRESLoop``).  After a cold call of each (of the graph only without
     ``cold_eager``: an eager solve of seconds that has nothing to warm),
     ``reps`` warm calls in turns on the host clock (synchronised), then
-    one traced call of the graph (and, with ``trace_eager``, of the eager)
-    solve (device busy time over the traced span).  The graph solve must
-    take the eager iterations to a solution within ``tol`` (max norm,
-    relative), and within 1e-4 of ``x64`` (``to64(x)`` where given: an
-    f64 solution of the same system); its trace must hold records of the
-    port's kernels
-    (``records(name)`` picks them; by default the banded and packed
-    kernels').  ``eager_reads(per, iterations)`` counts the eager solve's
-    host reads (default: CG's).  ``extra(x_eager, x_graph)`` adds numbers
+    the graph solve's device span (CUDA events around one call) and one
+    traced replay of its loop's body on its own after the solve (the
+    body the WHILE node runs: masked once the loop has stopped, so it
+    must leave x as it was, bitwise), and, with ``trace_eager``, one
+    traced eager solve (device busy time over the traced span).  A
+    device program is not traced whole: see the comment below.  The
+    graph solve must take the eager iterations to a solution within
+    ``tol`` (max norm, relative), and within 1e-4 of ``x64``
+    (``to64(x)`` where given: an f64 solution of the same system), as
+    one device program a call: one host read, and the body run once an
+    iteration (``loop.total``: the device's count of the loop's tests).
+    The body's capture must have recorded launches of the port's kernels
+    (``loop.body.launches``), and the body's trace, like the eager one,
+    must hold records of them (``records(name)`` picks them; by default
+    the banded and packed kernels'; ``any_op``: an arm that runs none,
+    whose traces must hold device operations).
+    ``eager_reads(per, iterations)`` counts the eager solve's host reads
+    (default: CG's).  ``extra(x_eager, x_graph)`` adds numbers
     to the row, which goes to ``store`` (default ``ARMS``)."""
     import statistics
 
@@ -3199,15 +3316,37 @@ def graph_arm(torch, label, eager, graph, loop, x64=None, to64=None,
             else:
                 xg, ig = out
     per = {k: (loop.total[k] - before[k]) / reps for k in before}
-    traced = {}
-    for name, fn in (("eager", eager), ("graph", graph)):
-        if name == "eager" and not trace_eager:
-            continue
-        span, busy, n_ops, ops = _traced(fn, top=None)
-        traced[name] = dict(span_ms=span, busy_ms=busy,
-                            idle_share=1.0 - busy / span, device_ops=n_ops,
-                            kernel_records=sum(o["count"] for o in ops
-                                               if records(o["name"])))
+    # the device program's span, untraced
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    sync_call(graph)
+    ev[1].record()
+    torch.cuda.synchronize()
+    span_ms = ev[0].elapsed_time(ev[1])
+    # a device program is not traced whole: torch.profiler (CUPTI, CUDA
+    # 12.8) drops the records of kernels inside WHILE bodies, a plain
+    # torch program's too (tools/while_probe.py --fault); the body it runs
+    # is traced on its own, replayed once after the solve
+    body = loop.body
+    held = sum(n for k, n in body.launches.items() if records(k))
+    x_stop = loop.state.x.clone()
+    bspan, bbusy, b_ops, bops = _traced(body.graph.replay, top=None)
+    masked_ok = bool(torch.equal(loop.state.x, x_stop))
+    n_body = per["replays"]
+    traced = dict(body=dict(
+        span_ms=bspan, busy_ms=bbusy, idle_share=1.0 - bbusy / bspan,
+        device_ops=b_ops, launches_held=held,
+        kernel_records=sum(o["count"] for o in bops if records(o["name"]))),
+        program=dict(span_ms=span_ms, bodies=n_body,
+                     idle_share_at_most=1.0 - n_body * bbusy / span_ms))
+    if trace_eager:
+        span, busy, n_ops, ops = _traced(eager, top=None)
+        traced["eager"] = dict(span_ms=span, busy_ms=busy,
+                               idle_share=1.0 - busy / span,
+                               device_ops=n_ops,
+                               kernel_records=sum(o["count"] for o in ops
+                                                  if records(o["name"])))
     n_it = sum(ie) if isinstance(ie, list) else ie
     # cg_solve reads its loop condition once an iteration, once more to
     # stop, and k once at the end
@@ -3219,9 +3358,10 @@ def graph_arm(torch, label, eager, graph, loop, x64=None, to64=None,
         **{f"{k}_s": dict(median=statistics.median(v), min=min(v),
                           max=max(v)) for k, v in times.items()},
         traced=traced, reps=reps,
-        runs_per_call=per["runs"], masked_per_call=per["masked"],
+        runs_per_call=per["runs"],
         host_reads_graph_per_call=per["host_reads"],
         host_reads_eager_per_call=reads,
+        masked_replay_bitwise=masked_ok,
         capture_s=sum(p.seconds for p in loop.captured),
         pool_mb=sum(p.pool_bytes for p in loop.captured) / 2**20)
     if "cycles" in per:
@@ -3244,27 +3384,49 @@ def graph_arm(torch, label, eager, graph, loop, x64=None, to64=None,
         f"median {med['graph']:.5f} ({row['graph_s']['min']:.5f}-"
         f"{row['graph_s']['max']:.5f})")
     for name, t in traced.items():
+        if name == "program":
+            log(f"    device program: {t['span_ms']:.3f} ms by events, "
+                f"{t['bodies']:.0f} bodies at the traced body's busy time: "
+                f"idle share at most {t['idle_share_at_most']:.1%} (the "
+                f"start's and the reads' time counted idle)")
+            continue
         log(f"    traced {name}: busy {t['busy_ms']:.3f} ms of "
             f"{t['span_ms']:.3f} ms, idle share {t['idle_share']:.1%}, "
             f"{t['device_ops']} device operations, {t['kernel_records']} "
-            f"records of the port's kernels")
+            f"records of the port's kernels"
+            + (f"; its capture recorded {t['launches_held']} launches of "
+               f"them; x unchanged bitwise: {masked_ok}" if name == "body"
+               else ""))
     log(f"    per call: {per['runs']:.0f} run(s)"
         + (f", {per['cycles']:.1f} cycle(s)" if "cycles" in per else "")
-        + f", masked {per['masked']:.2f}, host reads graph "
+        + f", bodies {per['replays']:.1f}, host reads graph "
         f"{per['host_reads']:.1f} eager {reads:.1f}; capture "
         f"{row['capture_s']:.3f} s, graph pool {row['pool_mb']:.1f} MB"
         + "".join(f"; {k} {v:.3e}" for k, v in ext.items()))
     if ig != ie:
         fail(f"{tag}: graph iterations {ig}, eager {ie}")
+    # one device program a solve (a scan of steps: one in all), read once
+    if per["host_reads"] != 1:
+        fail(f"{tag}: the graph solve read the host {per['host_reads']} "
+             f"times a call, not once")
+    if per["replays"] != n_it:
+        fail(f"{tag}: the graph solve ran {per['replays']} bodies a call "
+             f"for {n_it} iterations")
     if not row["diff_graph_eager"] <= tol:
         fail(f"{tag}: graph solution differs from the eager one by "
              f"{row['diff_graph_eager']:.3e} > {tol:g}")
     if x64 is not None and not row["diff_f32_f64"] <= 1e-4:
         fail(f"{tag}: graph f32 solution differs from the f64 one by "
              f"{row['diff_f32_f64']:.3e}")
-    if traced["graph"]["kernel_records"] <= 0:
-        fail(f"{tag}: the graph solve's trace holds no record of the "
-             f"port's kernels")
+    for name, t in traced.items():
+        if name != "program" and t["kernel_records"] <= 0:
+            fail(f"{tag}: the {name}'s trace holds no record of the port's "
+                 f"kernels")
+    if records is not any_op and held <= 0:
+        fail(f"{tag}: the captured body recorded no launch of the port's "
+             f"kernels")
+    if not masked_ok:
+        fail(f"{tag}: a body replayed after the loop stopped changed x")
     return row
 
 
@@ -3861,6 +4023,7 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions (flagship shapes)")
     kres = check_kernels(torch, dev)
+    kres["set_condition"] = check_set_condition(torch, dev)
     torch.cuda.empty_cache()
     kres.update(check_sipg_kernels(torch, dev))
 
@@ -3900,7 +4063,8 @@ def main() -> int:
         fail(f"flagship took {res.iterations} iterations, outside 18-22")
     for name in ("banded_matvec_imajor", "banded_fused_cheb",
                  "banded_matvec_omajor", "banded_fused_omajor",
-                 "volume_blocks", "face_group_blocks", "boundary_blocks"):
+                 "volume_blocks", "face_group_blocks", "boundary_blocks",
+                 "set_condition"):
         if counts[name] <= 0:
             fail(f"kernel {name} was never launched on the main path")
 
@@ -4059,12 +4223,13 @@ def main() -> int:
         kres[key] = dict(rows[main_row], max_abs_err=max(
             worst, kres.get(key, {}).get("max_abs_err", 0.0)))
 
-    banded, sipg, packed, k1, packed_bf16, omajor = (
+    banded, sipg, packed, k1, packed_bf16, omajor, loops = (
         "polydeal_tpu_torch/csrc/banded.cu", "polydeal_tpu_torch/csrc/sipg.cu",
         "polydeal_tpu_torch/csrc/packed.cu",
         "polydeal_tpu_torch/csrc/banded_matvec.cu",
         "polydeal_tpu_torch/csrc/packed_bf16.cu",
-        "polydeal_tpu_torch/csrc/banded_omajor.cu")
+        "polydeal_tpu_torch/csrc/banded_omajor.cu",
+        "polydeal_tpu_torch/csrc/graph_loop.cu")
     rows = [("banded_matvec_imajor", "K1", k1,
              "polydeal_tpu/ops/banded.py:65"),
             ("banded_matvec_omajor", "K0", omajor,
@@ -4090,7 +4255,11 @@ def main() -> int:
             ("packed_matvec_halo", "K6 halo", packed,
              "polydeal_tpu/ops/packed.py:313"),
             ("packed_fused_halo", "K7 halo", packed,
-             "polydeal_tpu/ops/fused_cheb.py:438")]
+             "polydeal_tpu/ops/fused_cheb.py:438"),
+            # the loop condition of the JAX package's lax.while_loop (no
+            # Pallas kernel): the device loops' set_condition
+            ("set_condition", "set_condition", loops,
+             "polydeal_tpu/solvers/cg.py:87")]
     # launches: each kernel's count on its path (K1-K5 phase 5, K6/K7
     # phase 6, K0 and fused K0 phase 7, K1/K2 halo phase 8's sharded
     # solves, K6/K7 halo the sharded relabel=None solve)
@@ -4101,7 +4270,7 @@ def main() -> int:
             "library_ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rpl,
                     launches=path.get(key, counts)[name],
-                    **{k: kres[key][k] for k in keys + ("plan",)
+                    **{k: kres[key][k] for k in keys + ("plan", "floor_ms")
                        if k in kres[key]})
                for name, key, src, rpl in rows]
     # phase 9's path (the COO Poisson solve at n=64) runs K1, K2, K0 and

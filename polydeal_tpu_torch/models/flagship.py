@@ -225,7 +225,8 @@ def solve_flagship(fs: Flagship, rtol: float = 1e-8, fmg: bool = True,
                    maxiter: int = 100,
                    capture: bool | None = None) -> CGResult:
     """R3MG-preconditioned CG on the flagship system: on the card the FMG
-    start and the CG iteration as captured programs, which later solves
-    replay (``Multigrid.solve_cg``; ``capture=False``: the eager loop)."""
+    start and the CG iteration in a WHILE loop, one device program that
+    later solves launch again (``Multigrid.solve_cg``; ``capture=False``:
+    the eager loop)."""
     return fs.mg.solve_cg(fs.b, rtol=rtol, maxiter=maxiter, fmg=fmg,
                           capture=capture)

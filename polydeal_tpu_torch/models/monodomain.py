@@ -13,10 +13,12 @@ kernels K3-K5, and each step solves with R3MG-preconditioned CG from a
 zero start.  On the card the levels below ``multigrid.IMAJOR_MIN_P``
 polytopes smooth through fused K0, the larger ones through K2 (K1 for the
 CG operator).  On the card each step runs as captured programs (the
-JAX package's jitted ``step1``/``step2``, ``solvers/graphs``) and
-:meth:`MonodomainSolver.steps_scan` replays them with the time and the
-iteration counts on the device (its ``lax.scan``); the CG loop reads one
-flag a CG iteration on the host, behind the queued work.
+JAX package's jitted ``step1``/``step2``, ``solvers/graphs``): one
+device program a step, the CG a WHILE loop on the device, so a step reads
+the host once (its iterations), and
+:meth:`MonodomainSolver.steps_scan` launches the step's program once a
+step with the time and the iteration counts on the device (its
+``lax.scan``), and reads the host once in all.
 
 Usage::
 
@@ -56,7 +58,6 @@ from polydeal_tpu_torch.solvers.cg import (
     block_jacobi_preconditioner,
     cg_solve,
 )
-from polydeal_tpu_torch.solvers import graphs
 from polydeal_tpu_torch.sparse import BlockBanded
 
 __all__ = ["MonodomainSolver", "run_monodomain", "bench_config",
@@ -315,8 +316,10 @@ class MonodomainSolver:
         (``solvers/graphs``; the JAX package's jitted ``step1``/``step2``):
         the gating update, the right-hand side and the CG start as one
         program for the BDF1 step and one for the BDF2 step, then the
-        hierarchy's captured CG iteration.  ``capture=False`` runs it
-        eagerly; the block-Jacobi path and the CPU always do."""
+        hierarchy's captured CG iteration in a WHILE loop on the device:
+        one device program and one host read (the iterations) a step.
+        ``capture=False`` runs it eagerly; the block-Jacobi path and the
+        CPU always do."""
         cfg = self.cfg
         bdf2 = self._bdf2(first_step)
         if self._capture(capture, u_n):
@@ -348,21 +351,19 @@ class MonodomainSolver:
         ``lax.scan`` loop).  Returns (u, u_prev, w, iterations per step).
 
         Captured (as :meth:`step`): the state stays in the step programs'
-        buffers, the time advances on the device (t0 + k dt), each step
-        replays the BDF2 program, the CG iterations and a program that
-        moves the state on, and the iterations per step go to a device
-        tensor read once at the end."""
+        buffers, the time advances on the device (t0 + k dt), and each
+        step is one device program launched with no host read between
+        steps: the BDF2 start, the CG loop, then a program that stores
+        the step's iterations and moves the state on.  The iterations
+        per step are read once, at the end."""
         if self._capture(capture, u):
             g = self._step_graphs()
             g.load(u, u_prev, w, t0)
-            start = g.start(True)
-            iters = torch.zeros(n_steps, dtype=torch.int32, device=u.device)
-            for k in range(n_steps):
-                g.loop.run(start)
-                iters[k].copy_(g.loop.state.k)
-                g.advance().replay()
-            return (g.u_n.clone(), g.u_nm1.clone(), g.w.clone(),
-                    iters.tolist())
+            start, advance = g.scan_programs(n_steps)
+            # n_steps launches, then the one host read
+            iters = g.loop.launch(start, (advance,), times=n_steps,
+                                  per_run=g.iters[:n_steps])
+            return (g.u_n.clone(), g.u_nm1.clone(), g.w.clone(), iters)
         dt = self.cfg.dt
         iters = []
         for k in range(n_steps):
@@ -413,8 +414,11 @@ class _StepGraphs:
     state (u_n, u_nm1, w), the time t0 + k dt (t0 f64 and k int64 on the
     device), one start program per BDF order (the gating update, the
     right-hand side and ``cg_init`` into the hierarchy's ``CGLoop``, whose
-    iteration program the steps share) and one program that moves the
-    state on by a step (:meth:`MonodomainSolver.steps_scan`)."""
+    iteration program the steps share) and, for
+    :meth:`MonodomainSolver.steps_scan`, one program that stores the
+    step's CG iterations at ``iters[k]`` (a unique index, the step
+    counter) and moves the state on by a step, with the device program
+    start, CG loop, advance."""
 
     def __init__(self, solver: "MonodomainSolver"):
         cfg = solver.cfg
@@ -427,7 +431,8 @@ class _StepGraphs:
         self.t0 = torch.zeros((), dtype=torch.float64, device=u.device)
         self.k = torch.zeros((), dtype=torch.int64, device=u.device)
         self._starts = {}
-        self._advance = None
+        self.iters = None  # CG iterations per step of a scan, int32
+        self._scan = None  # the advance program
 
     def load(self, u_n, u_nm1, w, t) -> None:
         self.u_n.copy_(u_n)
@@ -457,22 +462,28 @@ class _StepGraphs:
         return self.loop.state.x.T.clone(
             memory_format=torch.contiguous_format).reshape(-1)
 
-    def advance(self):
-        """The program u_nm1 <- u_n <- x, w <- w_next, k += 1."""
-        if self._advance is None:
+    def scan_programs(self, n_steps: int):
+        """(the BDF2 start, the advance program) of a scan of ``n_steps``,
+        whose step is the device program start, the CG loop, then
+        iters[k] <- the CG's k, u_nm1 <- u_n <- x, w <- w_next, k += 1.
+        ``iters`` holds at least ``n_steps`` entries; a longer scan than
+        the last makes it anew, with its advance."""
+        start = self.start(True)
+        if self.iters is None or self.iters.numel() < n_steps:
             nb = self.solver.handler.n_basis
+            self.iters = torch.zeros(max(32, n_steps), dtype=torch.int32,
+                                     device=self.u_n.device)
 
             def commit(_):
+                self.iters.index_copy_(0, self.k.reshape(1),
+                                       self.loop.state.k.reshape(1))
                 self.u_nm1.copy_(self.u_n)
                 self.u_n.view(-1, nb).copy_(self.loop.state.x.T)
                 self.w.copy_(self.w_next)
                 self.k.add_(1)
 
-            self._advance = graphs.capture(None, commit,
-                                           device=self.u_n.device,
-                                           pool=self.loop.pool)
-            self.loop.captured.append(self._advance)
-        return self._advance
+            self._scan = self.loop.add_program(None, commit)
+        return start, self._scan
 
 
 def bench_config(n_refinements: int = 6,

@@ -19,13 +19,15 @@ ways: through the eager loop (``capture=False``) and as captured programs
 
 * warm solves on the host clock (synchronised): two warm-ups each, then
   11 timed solves each, in turns (median and range);
-* the captured loop's cost: masked iterations and host reads of the last
+* the captured loop's cost: bodies run and host reads of the last
   solve, capture seconds, the graph pool's MB;
 * parts by CUDA events, 20 calls each: one V-cycle (the CG
   preconditioner), one fine-level SpMV (the CG operator), one FMG guess;
   and, 5 calls, the warm fine-level band assembly from its f32 tables
   (K3-K5 and the lane rolls and concatenations around them);
-* one traced warm solve each under ``torch.profiler``: the device's busy
+* one traced warm eager solve under ``torch.profiler`` (the captured solve
+  is one device program whose WHILE bodies the profiler cannot trace):
+  the device's busy
   time (the union of its kernel, copy and fill intervals) over the solve's
   span in the same trace, hence the busy and idle shares; the number of
   device operations (launches, copies and fills); and the device
@@ -202,9 +204,17 @@ def _spread(walls) -> dict:
 
 def _traced_modes(run, top: int) -> dict:
     """One traced call of ``run(capture)`` per mode: span, busy time, busy
-    and idle shares, device operations and the ``top`` ones by time."""
+    and idle shares, device operations and the ``top`` ones by time.  The
+    captured solve is one device program whose loops are WHILE nodes: the
+    profiler drops the records of kernels inside them, so that mode is
+    not traced."""
     out = {}
     for name, capture in MODES:
+        if capture is None:
+            out[name] = dict(not_traced="one device program (WHILE "
+                             "nodes): the profiler cannot trace it",
+                             top_ops=[])
+            continue
         span, busy, n_ops, ops = _traced(lambda: run(capture), top=top)
         out[name] = dict(span_ms=span, busy_ms=busy, busy_share=busy / span,
                          idle_share=1.0 - busy / span, device_ops=n_ops,

@@ -263,8 +263,8 @@ def eager_and_graph(ss, b, rtol: float, device) -> dict:
     ``ss.graph_ok`` admits it (else eager again): the iterations of each,
     whether the default was captured, the largest |x - x_eager| over every
     rank's share relative to the largest |x_eager| (``graph_eager_diff``;
-    0: bitwise) and, where captured, the loop's replays,
-    masked bodies and host reads of its last solve (``CGLoop.last``) and
+    0: bitwise) and, where captured, the loop's replays (bodies run) and
+    host reads of its last solve (``CGLoop.last``) and
     its programs' capture seconds and pool MB; both timed as
     ``bench_sharded`` times a solve: ``sharded_eager_ms`` and
     ``sharded_ms`` (least of ``REPS`` warm solves; ``sharded_ms`` is the
@@ -282,8 +282,7 @@ def eager_and_graph(ss, b, rtol: float, device) -> dict:
     out["sharded_ms"] = min_ms(solve, device)
     if captured:
         loop = ss._compiled(rtol, MAXITER, True, b.dtype)[0]
-        out.update({k: loop.last[k] for k in ("replays", "masked",
-                                              "host_reads")})
+        out.update({k: loop.last[k] for k in ("replays", "host_reads")})
         out.update(capture_s=sum(p.seconds for p in loop.captured),
                    pool_mb=sum(p.pool_bytes for p in loop.captured) / 2**20)
     return out
@@ -630,7 +629,7 @@ def main(argv=None) -> int:
     # the eager and the captured sharded solve (eager_and_graph)
     both = ("eager_iterations", "graph_iterations", "captured",
             "graph_eager_diff", "sharded_eager_ms", "sharded_ms", "replays",
-            "masked", "host_reads", "capture_s", "pool_mb")
+            "host_reads", "capture_s", "pool_mb")
     keep = ("n_dofs", "levels", "n_dev", "meta", "comm", "iterations",
             "unsharded_iterations", "residual", "bnorm", "max_abs_diff",
             "unsharded_ms", "ratio") + both

@@ -47,7 +47,8 @@ DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 # slab) count apart, and so do K6's and K6 halo's bf16-x launches (their
 # own instantiation, csrc/packed_bf16.cu) and the launches of K1, K2 and
 # their halo entries at an nb without a specialised build (``_any_nb``: the
-# runtime-nb kernel, csrc/banded_any_nb.cu)
+# runtime-nb kernel, csrc/banded_any_nb.cu); set_condition
+# (csrc/graph_loop.cu) counts the tests of a device loop's condition
 launches = {"banded_matvec_imajor": 0, "banded_fused_cheb": 0,
             "banded_matvec_omajor": 0, "banded_fused_omajor": 0,
             "volume_blocks": 0, "face_group_blocks": 0,
@@ -57,7 +58,24 @@ launches = {"banded_matvec_imajor": 0, "banded_fused_cheb": 0,
             "packed_fused_halo": 0, "packed_matvec_bf16": 0,
             "packed_matvec_halo_bf16": 0, "banded_matvec_imajor_any_nb": 0,
             "banded_fused_cheb_any_nb": 0, "banded_matvec_halo_any_nb": 0,
-            "banded_fused_halo_any_nb": 0}
+            "banded_fused_halo_any_nb": 0, "set_condition": 0}
+
+# the device loops' entries (csrc/graph_loop.cu): (argtypes, restype);
+# graphs, nodes and executable graphs cross as pointers, a condition
+# handle as an unsigned 64-bit integer
+_vp, _i32, _u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+GRAPH_LOOP_ENTRIES = {
+    "pd_cuda_error_name": ([_i32], ctypes.c_char_p),
+    "pd_graph_create": ([_vp], _i32),
+    "pd_graph_destroy": ([_vp], _i32),
+    "pd_graph_condition": ([_vp, _vp], _i32),
+    "pd_graph_add_child": ([_vp, _vp, _vp, _vp], _i32),
+    "pd_graph_add_set_condition": ([_vp, _vp, _u64, _vp, _vp, _vp], _i32),
+    "pd_graph_add_while": ([_vp, _vp, _u64, _vp, _vp], _i32),
+    "pd_graph_instantiate": ([_vp, _vp], _i32),
+    "pd_graph_launch": ([_vp, _vp], _i32),
+    "pd_graph_exec_destroy": ([_vp], _i32),
+}
 
 _lib = None
 _log = ""
@@ -192,6 +210,9 @@ def load_library() -> ctypes.CDLL:
                                      i32, i32, i64, *plan, vp, vp]
     lib.pd_sipg_face.argtypes = [i32, i32, i32, vp, vp, vp, vp, vp, vp, i64,
                                  f64, i32, i32, i64, *plan, vp, vp]
+    for name, (args, res) in GRAPH_LOOP_ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
     for fn in (lib.pd_banded_matvec, lib.pd_banded_fused,
                lib.pd_banded_matvec_omajor, lib.pd_banded_fused_omajor,
                lib.pd_packed_matvec,

@@ -34,7 +34,9 @@ At world size 1 every exchange is a plain slice and no collective runs:
 the halo wraps onto the shard's own ends, as in the JAX package.  On the
 card a solve runs as captured programs (CUDA graphs, ``solvers/graphs``)
 at any world size on NCCL, the collectives inside them: the counterpart
-of the JAX package's jitted ``shard_map`` with its ``while_loop``.  Smoothing
+of the JAX package's jitted ``shard_map`` with its ``while_loop`` (a WHILE
+node on the device at world size 1; on more ranks the host runs the loop,
+``parallel/sharding.CapturedCG._compiled``).  Smoothing
 and residuals use the smoother's band copy (bf16 where ``Multigrid`` keeps
 one) and its vectors' dtype (``lo_vec``: bf16 where ``Multigrid`` was set
 up with ``vector_dtype=torch.bfloat16``, so the halo exchanges carry bf16

@@ -30,10 +30,13 @@ collectives become ``torch.distributed`` calls:
 
 It runs no kernel, as the JAX one runs none: gathers, einsums and
 ``utils/segment.SegmentSum``.  On the card its CG runs as captured
-programs (``solvers/graphs.CGLoop``, the collectives inside them) at world
-size 1 and on NCCL groups, the counterpart of the JAX package's jitted
-``shard_map`` with its ``while_loop``; elsewhere (gloo, the CPU) eagerly,
-one host read of CG's condition an iteration, as in ``solvers/cg.py``.
+programs at world size 1 and on NCCL groups, the collectives inside them,
+the counterpart of the JAX package's jitted ``shard_map`` with its
+``while_loop``: at world size 1 one device program with the loop a WHILE
+node (``solvers/graphs.CGLoop``), on more than one rank the host's loop
+over the same programs (``HostFlagCGLoop``: NCCL's operations across
+ranks cannot sit in a WHILE body); elsewhere (gloo, the CPU) eagerly, one host read of CG's
+condition an iteration, as in ``solvers/cg.py``.
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ import torch
 import torch.distributed as dist
 
 from polydeal_tpu_torch.solvers.cg import cg_finish, cg_solve
-from polydeal_tpu_torch.solvers.graphs import CGLoop
+from polydeal_tpu_torch.solvers.graphs import CGLoop, HostFlagCGLoop
+from polydeal_tpu_torch.solvers.lu import lu_solve, pivot_permutation
 from polydeal_tpu_torch.solvers.chebyshev import ChebyshevSmoother
 from polydeal_tpu_torch.utils.grouping import padded_group_lists
 from polydeal_tpu_torch.utils.segment import SegmentSum
@@ -174,13 +178,18 @@ class CapturedCG:
         """(CGLoop, start program, rhs buffer) of the captured solve for
         ``(rtol, maxiter, precondition)`` and vectors of ``dtype``, made at
         first use: the counterpart of the JAX package's cache of jitted
-        ``shard_map`` programs.  CG itself stays full-precision."""
+        ``shard_map`` programs.  CG itself stays full-precision.  At world
+        size 1 the loop is a WHILE node on the device (``CGLoop``: one host
+        read a solve); on more than one rank NCCL's operations (the halo
+        exchange, the all-reduces) cannot sit in a WHILE body, so the
+        host runs the loop over the same programs (``HostFlagCGLoop``)."""
         key = (rtol, maxiter, precondition, dtype)
         if key not in self._run_cache:
             like = self._rhs_like(dtype)
             A, M = self.cg_ops(precondition)
-            loop = CGLoop(A, M, like, rtol=rtol, maxiter=maxiter,
-                          dot=self._dot)
+            cls = CGLoop if self.n_dev == 1 else HostFlagCGLoop
+            loop = cls(A, M, like, rtol=rtol, maxiter=maxiter,
+                       dot=self._dot)
             b_in = torch.zeros_like(like)
             self._run_cache[key] = (loop, loop.start_program(lambda: b_in),
                                     b_in)
@@ -212,8 +221,10 @@ class CapturedCG:
         tensor: (this rank's share of x, k int32, |r|), 0-dim tensors on
         the vectors' device, with no host read of x or |r| (the JAX
         package's timing path).  On the card it runs the captured solve
-        (:meth:`_compiled`), whose CG loop reads only its flags on the
-        host, at any world size, and raises where ``graph_ok`` refuses; on
+        (:meth:`_compiled`), one device program whose CG loop runs on the
+        device, with one host read (the iterations, for the launch
+        counts), at any world size, and raises where ``graph_ok``
+        refuses; on
         the CPU it runs the eager loop."""
         b_loc = self._local(b)
         if b_loc.device.type == "cuda":
@@ -354,9 +365,7 @@ class ShardedSystem(CapturedCG):
         self.levels = levels  # list[ShardedLevel], coarse -> fine
         self.params = params  # list[dict] of this rank's tensors
         self.coarse_lu = coarse_lu  # (LU, pivots), replicated
-        # the pivots as a row permutation: b[perm] = P^T b for A = P L U
-        P_, _, _ = torch.lu_unpack(*coarse_lu, unpack_data=False)
-        self._coarse_perm = P_.argmax(dim=0)
+        self._coarse_perm = pivot_permutation(coarse_lu)
         # captured solves (_compiled), by (rtol, maxiter, precondition,
         # dtype)
         self._run_cache = {}
@@ -535,17 +544,11 @@ class ShardedSystem(CapturedCG):
         return torch.einsum("pij,pj->pi", pl["E"], xc_full[pl["parent"]])
 
     def _coarse_solve(self, b_loc):
-        """The replicated LU solve of the all-gathered coarse rhs, as two
-        triangular solves on the kept factors (``lu_solve`` may take a
-        backend that synchronises with the host, which a capture
-        refuses)."""
+        """The replicated LU solve of the all-gathered coarse rhs on the
+        kept factors (``solvers/lu``)."""
         b_full = self._all_gather(b_loc)
-        LU = self.coarse_lu[0]
-        y = b_full.reshape(-1, 1)[self._coarse_perm]
-        y = torch.linalg.solve_triangular(LU, y, upper=False,
-                                          unitriangular=True)
-        x = torch.linalg.solve_triangular(LU, y, upper=True)
-        x = x.reshape(b_full.shape)
+        x = lu_solve(self.coarse_lu[0], self._coarse_perm,
+                     b_full.reshape(-1)).reshape(b_full.shape)
         n = b_loc.shape[0]
         return x[self.rank * n:(self.rank + 1) * n]
 

@@ -210,9 +210,10 @@ class AMG:
                  capture: bool | None = None) -> CGResult:
         """CG preconditioned by one V-cycle (the JAX package's jitted
         ``_amg_solve_cg``).  On the card (``capture=None``) as captured
-        programs (``solvers/graphs.CGLoop``: the start and one iteration,
-        made at the first solve of each ``(rtol, maxiter, dtype)`` and
-        replayed by later ones); ``capture=False`` runs the eager loop,
+        programs (``solvers/graphs.CGLoop``: the start, then one iteration
+        in a WHILE loop on the device, made at the first solve of each
+        ``(rtol, maxiter, dtype)`` and launched by later ones; one host
+        read a solve); ``capture=False`` runs the eager loop,
         ``capture=True`` off CUDA raises."""
         if capture is None:
             capture = b.device.type == "cuda"

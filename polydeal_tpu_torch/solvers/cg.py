@@ -15,7 +15,8 @@ and block Jacobi preconditioners.  The JAX version is one
 
 :func:`cg_solve` runs the body eagerly with one host read of ``active`` an
 iteration (on any device).  ``solvers/graphs.CGLoop`` captures the same
-body as one CUDA graph and replays it.
+body and runs it in a WHILE loop on the device: one program and one host
+read a solve.
 """
 
 from __future__ import annotations

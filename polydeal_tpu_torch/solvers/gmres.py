@@ -36,7 +36,9 @@ tolerance.  Nothing indexes by a host integer: ``j`` stays on the device.
 
 :func:`gmres_solve` runs the three functions eagerly (one host read of
 ``active`` a step and of ``go`` a cycle), or, on the card,
-``solvers/graphs.GMRESLoop`` replays them as captured programs.
+``solvers/graphs.GMRESLoop`` runs them as captured programs in two WHILE
+loops on the device, the steps' inside the cycles': one host read a
+solve.
 """
 
 from __future__ import annotations

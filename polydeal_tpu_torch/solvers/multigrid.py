@@ -34,6 +34,7 @@ from polydeal_tpu_torch.fem.quadrature import tensor_gauss
 from polydeal_tpu_torch.handler import AgglomerationHandler
 from polydeal_tpu_torch.solvers.cg import CGResult, cg_finish, cg_solve
 from polydeal_tpu_torch.solvers.graphs import CGLoop
+from polydeal_tpu_torch.solvers.lu import lu_solve, pivot_permutation
 from polydeal_tpu_torch.solvers.chebyshev import (
     ChebyshevSmoother,
     estimate_lambda_max,
@@ -521,6 +522,10 @@ class Multigrid:
                          compare=False)
     _starts: dict = field(default_factory=dict, init=False, repr=False,
                           compare=False)
+    # the coarse LU's pivots as a row permutation (solvers/lu), made at
+    # the first coarse solve
+    _coarse_perm: object = field(default=None, init=False, repr=False,
+                                 compare=False)
 
     @classmethod
     def setup(
@@ -691,7 +696,9 @@ class Multigrid:
             if len(M) == 1:  # explicit inverse: one matmul
                 x = M[0] @ bl
             else:
-                x = torch.linalg.lu_solve(M[0], M[1], bl[:, None])[:, 0]
+                if self._coarse_perm is None:
+                    self._coarse_perm = pivot_permutation(M)
+                x = lu_solve(M[0], self._coarse_perm, bl)
             if b.dim() == 2:
                 x = x.reshape(-1, b.shape[0]).T
             return x.to(b.dtype)
@@ -811,11 +818,12 @@ class Multigrid:
         On the card a hierarchy that :meth:`graph_ok` admits solves as
         captured programs (the counterpart of the JAX package's one
         jitted program): the FMG start and ``cg_init`` as one, a CG
-        iteration with one V-cycle as another, cached by ``(rtol,
-        maxiter, b.dtype)`` and ``fmg``.  ``capture=False`` runs the eager
-        loop instead (the comparison and per-kernel profiling);
-        ``capture=True`` raises where graphs cannot run.  The CPU runs
-        the eager loop."""
+        iteration with one V-cycle as another in a WHILE loop on the
+        device, all one device program and one host read a solve,
+        cached by ``(rtol, maxiter, b.dtype)`` and ``fmg``.
+        ``capture=False`` runs the eager loop instead (the comparison
+        and per-kernel profiling); ``capture=True`` raises where graphs
+        cannot run.  The CPU runs the eager loop."""
         if capture is None:
             capture = b.device.type == "cuda" and self.graph_ok()
         A, M, to_in, to_out = self._fine_layout()

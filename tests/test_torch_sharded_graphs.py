@@ -4,10 +4,10 @@ fixed-order sums.
 
 On a card, ``ShardedBandedSystem`` and the flat block-COO ``ShardedSystem``
 solve as captured programs (``solvers/graphs.CGLoop``) at every world size
-on NCCL, the halo exchanges and all-reduces inside them.  A replay runs
-``cg_init`` once and then masked ``cg_body`` iterations back to back, every
-rank as many as its flags ask for, so the programs compute what these
-functions compute.  Here, on 2 and 4 gloo ranks (one spawn of fresh
+on NCCL, the halo exchanges and all-reduces inside them.  A solve runs
+``cg_init`` once and then masked ``cg_body`` iterations in a WHILE loop on
+the device, every rank as many as its ``active`` flag asks for, so the
+programs compute what these functions compute.  Here, on 2 and 4 gloo ranks (one spawn of fresh
 processes per world size, every case inside it; ``models/sharded
 .masked_case``), each rank runs that CG eagerly: ``cg_init``, masked bodies
 to the stop, then three blind bodies.  For:
@@ -20,7 +20,7 @@ to the stop, then three blind bodies.  For:
 every rank's result and iterations are bitwise those of its eager
 ``solve_cg_local(capture=False)``, every blind body leaves the state
 bitwise as it was, every rank saw the same ``active`` flags (so every rank
-replays the same programs the same number of times), and ``capture=True``
+runs the same bodies the same number of times), and ``capture=True``
 raises on gloo.  x takes the JAX package's sharded iterations to within
 1e-9 of its solution (``ShardedBandedSystem`` / ``ShardedSystem`` on a
 mesh of as many devices; the packed case against the 4-device solve, the
@@ -257,7 +257,7 @@ def _captured_and_eager(ss, b, rtol):
     assert torch.equal(xg, xa)
     assert float((xg - xe).abs().max()) <= 1e-12 * float(xe.abs().max())
     loop = ss._compiled(rtol, 100, True, b.dtype)[0]
-    assert loop.last["masked"] == 0
+    assert loop.last["replays"] == ke and loop.last["host_reads"] == 1
 
 
 @pytest.mark.cuda

@@ -24,7 +24,7 @@ waits in a replayed collective for one that failed) solves eagerly
 .eager_and_graph``: least of 3 warm solves, host clock, synchronised).
 Prints one JSON line: per rank and system, both iterations, the largest
 |x_graph - x_eager| over the ranks relative to max |x_eager|, both times,
-the captured loop's replays, masked bodies and host reads of its last
+the captured loop's replays (bodies run) and host reads of its last
 solve, capture seconds and pool MB, rank 0's traced solve each way (span,
 device busy time, idle share, the 8 device operations with the most
 time), or the error a capture raised; and the

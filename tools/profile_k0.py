@@ -38,6 +38,10 @@ Prints one line a case and one JSON object last; ``--out`` writes the
 JSON too.
 
     python3 tools/profile_k0.py [--parent DIR] [--quick] [--out FILE]
+        [--models coupled,lex,monodomain,coo,mono2d,dgq] [--no-sipg]
+
+``--models`` takes only those models' real bands; ``--no-sipg`` leaves
+out K3-K5.
 """
 
 import argparse
@@ -58,6 +62,8 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float64": 1e-12}
 C1, C2 = 0.37, 1.21
 REPS = 30  # launches a trace
+# the models whose real bands the default run takes, in order
+MODELS = ("coupled", "lex", "monodomain", "coo", "mono2d", "dgq")
 K0_ENTRIES = ("pd_banded_matvec_omajor", "pd_banded_fused_omajor")
 SIPG_ENTRIES = ("pd_sipg_form_info", "pd_sipg_volume", "pd_sipg_face",
                 "pd_sipg_boundary")
@@ -159,8 +165,13 @@ def main(argv=None) -> int:
                     "beside this one's")
     ap.add_argument("--quick", action="store_true",
                     help="seeded bands at the paths' shapes, no model set-up")
+    ap.add_argument("--models", default=",".join(MODELS),
+                    help="the real bands' models, of " + ",".join(MODELS))
+    ap.add_argument("--no-sipg", action="store_true",
+                    help="time K0 only (no K3-K5 tables)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
+    models = set(args.models.split(","))
 
     import numpy as np
     import torch
@@ -376,37 +387,46 @@ def main(argv=None) -> int:
                                                           bench_config)
         from polydeal_tpu_torch.models.poisson import solve_poisson
 
-        s, _ = ds.run(64, 2, device=dev)
-        M = ds.mg_block_preconditioner(s, hyper_cube(2, 64), 64, 2,
-                                       ps_mode="mass+stab", structure="tri")
-        band_case("darcy u n=64 fine", M.mgs["u"].ells[-1])
-        band_case("darcy pD n=64 fine", M.mgs["pD"].ells[-1])
-        del s, M
-        space, _, meta = os_.run(64, 2, device=dev)
-        op, _ = meta["system"]
-        M = os_.oseen_mg_preconditioner(space, op, meta, os_._rectangle(64),
-                                        64, 2)
-        band_case("oseen n=64 fine", M.mgs[2].ells[-1])
-        del space, meta, op, M
-        torch.cuda.empty_cache()
-        fs = setup_flagship(n=64, device=dev)
-        band_case("lex flagship 4096-lane", fs.mg.ells[1], fs.mg.lo_ells[1])
-        del fs
-        ms = MonodomainSolver.build(bench_config(6), relabel="lex",
-                                    device=dev)
-        for e in ms.mg.ells[1:4]:
-            band_case(f"monodomain {e.n_block_rows}-lane", e)
-        band_case("monodomain fine block-Jacobi operator", ms.A)
-        del ms
-        torch.cuda.empty_cache()
-        r = solve_poisson(dim=3, n=64, degree=1, device=dev, verbose=False)
-        for e in r["mg"].ells:
-            if e.data_i is None and e.n_block_rows == 4096:
-                band_case(f"COO 4096-lane {len(e.offsets)}-offset", e)
-        del r
-        torch.cuda.empty_cache()
+        if "coupled" in models:
+            s, _ = ds.run(64, 2, device=dev)
+            M = ds.mg_block_preconditioner(s, hyper_cube(2, 64), 64, 2,
+                                           ps_mode="mass+stab",
+                                           structure="tri")
+            band_case("darcy u n=64 fine", M.mgs["u"].ells[-1])
+            band_case("darcy pD n=64 fine", M.mgs["pD"].ells[-1])
+            del s, M
+            space, _, meta = os_.run(64, 2, device=dev)
+            op, _ = meta["system"]
+            M = os_.oseen_mg_preconditioner(space, op, meta,
+                                            os_._rectangle(64), 64, 2)
+            band_case("oseen n=64 fine", M.mgs[2].ells[-1])
+            del space, meta, op, M
+            torch.cuda.empty_cache()
+        if "lex" in models:
+            fs = setup_flagship(n=64, device=dev)
+            band_case("lex flagship 4096-lane", fs.mg.ells[1],
+                      fs.mg.lo_ells[1])
+            del fs
+        if "monodomain" in models:
+            ms = MonodomainSolver.build(bench_config(6), relabel="lex",
+                                        device=dev)
+            for e in ms.mg.ells[1:4]:
+                band_case(f"monodomain {e.n_block_rows}-lane", e)
+            band_case("monodomain fine block-Jacobi operator", ms.A)
+            del ms
+            torch.cuda.empty_cache()
+        if "coo" in models:
+            r = solve_poisson(dim=3, n=64, degree=1, device=dev,
+                              verbose=False)
+            for e in r["mg"].ells:
+                if e.data_i is None and e.n_block_rows == 4096:
+                    band_case(f"COO 4096-lane {len(e.offsets)}-offset", e)
+            del r
+            torch.cuda.empty_cache()
         for label, degree, n_ref in (("mono2d p4", 4, 9),
                                      ("mono2d p5", 5, 8)):
+            if "mono2d" not in models:
+                break
             ms = MonodomainSolver.build(
                 MonodomainConfig(dim=2, n_refinements=n_ref, degree=degree),
                 relabel="lex", device=dev)
@@ -418,6 +438,8 @@ def main(argv=None) -> int:
         for label, family, degree, n in (("Q1", "dgq", 1, 64),
                                          ("Q2", "dgq", 2, 32),
                                          ("P4", "dgp", 4, 32)):
+            if "dgq" not in models:
+                break
             fs = setup_flagship(n=n, degree=degree, family=family,
                                 device=dev)
             for e, lo in zip(fs.mg.ells[1:], fs.mg.lo_ells[1:]):
@@ -428,6 +450,8 @@ def main(argv=None) -> int:
 
     # K5 at 2D p = 4-5, and K3-K5 at the p = 1-3 shapes
     for label, (dim, deg, P, vq, fq, bq, off) in ps.SIPG_SHAPES.items():
+        if args.no_sipg:
+            break
         pc = 10.0 * (deg + dim) * (deg + 1)
         for dname in ("float32", "float64"):
             dt = getattr(torch, dname)
