@@ -189,16 +189,26 @@ Phases (each must pass; nothing falls back to the CPU):
      block-COO ShardedSystem on phase 9's n=64 COO system captured (the
      default on the card) against its eager solve, as phase 13 holds its
      arms (equal iterations, x within 1e-12, whether bitwise, 3 warm
-     calls each); (b) one captured program on
-     the world-size-1 NCCL group holding an exchange to self, an
-     all_reduce (PreMulSum by 2, so that it changes its input at one rank)
-     and an all_gather_into_tensor, replayed on new input, held bitwise to
-     the same calls run eagerly and to what each collective writes, its
-     traced device operations listed; (c) with two or more cards visible,
-     tools/nccl_capture_probe.py at min(4, count) ranks (both sharded
-     systems captured across the cards against their eager solves),
-     which fails the run on a mismatch or a timeout; on one card a line
-     says it needs two.
+     calls each); (b) the peer kernels (csrc/peer.cu: put, wait, reduce,
+     all-gather's put) of a one-rank PeerGroup, a ring to itself, each
+     exchange bitwise against its plain version on the same tensors at
+     the shapes of bench_sharded's n=64 system at four ranks, each kernel
+     timed alone beside its bound and an empty kernel node; then one
+     captured program on the world-size-1 NCCL group holding an exchange
+     to self, an all_reduce (PreMulSum by 2, so that it changes its input
+     at one rank) and an all_gather_into_tensor, replayed on new input,
+     held bitwise to the same calls run eagerly and to what each
+     collective writes, its traced device operations listed; the
+     teardown: a child process that exits with a device program in
+     flight and a CG loop open must exit 0; (d) two processes on this one
+     card (gloo joins them) solve the structured n=8 flagship sharded
+     over both, captured, the peer kernels in the program's body, held to
+     the unsharded solve (their launches are the kernels line's); (c)
+     with two or more cards visible, tools/sharded_probe.py at
+     min(4, count) ranks (both sharded systems as one device program a
+     rank across the cards against their eager solves, one host read a
+     solve on every rank), which fails the run on a mismatch or a
+     timeout; on one card a line says it needs two.
  16. bases without a K3-K5 or specialised K1/K2 build: the flagship on
      the TensorDGQ basis at p=1 and n=64 (2,097,152 DoF, nb = 8), at p=2
      and n=32 (nb = 27) and on P_4 at n=32 (nb = 35), each assembled by
@@ -3603,24 +3613,204 @@ def nccl_capture_check(torch, dev, group, smi):
                 device_ops=names)
 
 
+def peer_kernels_check(torch, dev, smi, reps=100):
+    """(b) of phase 15, the peer kernels (csrc/peer.cu): a PeerGroup of
+    one rank (a ring to itself) on this card, each exchange's kernels held
+    bitwise to its plain version on the same tensors at the shapes
+    bench_sharded's structured n=64 system gives a rank of four (the fine
+    slab's ring, 4 rows x 4096 lanes each way of 65536, f32; three
+    far-tail style row lists of 2048 rows from its transpose; the solution's
+    gather, [4, 65536] f32; the bottom's, [4, 128]; the dots, f32 and f64;
+    the flat system's restriction, [1024, 3] f64, reduce-scattered).  Each
+    kernel timed alone: ``reps`` launches captured into one program and
+    replayed (CUDA events), beside the plain version of its exchange, an
+    empty kernel node and its bound: at one rank every byte stays in the
+    card's HBM (the put writes its own buffer), so the bytes the launch
+    reads and writes, control words included, over HBM's 3.35 TB/s (the
+    NVLink rate bounds only a put across cards).  Returns the kernels'
+    rows."""
+    from polydeal_tpu_torch.ops import _build
+    from polydeal_tpu_torch.parallel.peer import PeerGroup
+    from polydeal_tpu_torch.solvers.graphs import capture
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    C, per, T, m = 4, 65536, 4096, 2048
+    x = torch.randn((C, per), generator=gen, device=dev)
+    idx = torch.randint(0, per, (m,), generator=gen, device=dev)
+    bottom = torch.randn((C, 128), generator=gen, device=dev)
+    part = torch.randn((1024, 3), generator=gen, dtype=torch.float64,
+                       device=dev)
+    pg = PeerGroup(None, dev, 2 * C * per * 4)
+    sends = [(0, idx), (0, idx), (0, idx)]
+    pairs = {
+        "ring": (lambda: pg.ring(x, T), lambda: pg.ring_plain(x, T)),
+        "rows": (lambda: pg.rows(x.T, sends),
+                 lambda: pg.rows_plain(x.T, sends)),
+        "gather": (lambda: [pg.all_gather(x)],
+                   lambda: [pg.all_gather_plain(x)]),
+        "gather bottom": (lambda: [pg.all_gather(bottom)],
+                          lambda: [pg.all_gather_plain(bottom)]),
+        "dot f32": (lambda: [pg.reduce((x[0] * x[0]).sum().reshape(1))],
+                    lambda: [pg.reduce_plain((x[0] * x[0]).sum()
+                                             .reshape(1))]),
+        "dot f64": (lambda: [pg.reduce(part[:, 0].sum().reshape(1))],
+                    lambda: [pg.reduce_plain(part[:, 0].sum().reshape(1))]),
+        "reduce_scatter": (lambda: [pg.reduce_scatter(part)],
+                           lambda: [pg.reduce_scatter_plain(part)])}
+    same = {}
+    for name, (kern, plain) in pairs.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        same[name] = all(torch.equal(g, w) for g, w in zip(got, want))
+    # each kernel alone, `reps` launches in one captured program
+    lh, rh = x.new_empty((C, T)), x.new_empty((C, T))
+    puts, waits = pg._ring_segs(x, T, lh, rh)
+    out = torch.zeros(1, device=dev)
+    pool = torch.cuda.graph_pool_handle()
+    lib = _build.load_library()
+    alone = {
+        "peer_put": lambda: pg._put(puts, 4),
+        "peer_wait": lambda: pg._wait(waits),
+        "peer_reduce": lambda: pg._reduce(out, 1),
+        "peer_all_gather": lambda: pg._gather_put(x),
+        "empty": lambda: lib.pd_empty_kernel(1, 32,
+                                             _build.stream_handle(dev))}
+    ms = {}
+    for name, fn in alone.items():
+        prog = capture(None, lambda _, fn=fn: [fn() for _ in range(reps)],
+                       device=dev, pool=pool)
+        prog.graph.replay()
+        ms[name] = time_one(torch, prog.graph.replay, reps=5) / reps
+    plain = {name: time_one(torch, pairs[key][1], reps=20)
+             for name, key in (("peer_put", "ring"), ("peer_wait", "ring"),
+                               ("peer_reduce", "dot f32"),
+                               ("peer_all_gather", "gather"))}
+    # bytes read + written at one rank (n = 1): the rows, the epoch
+    # counter (read, stored), the put's arrival count, one flag a rank
+    ctrl = 8 + 8 + 8 + 8 * pg.n
+    moved = {"peer_put": 2 * (2 * C * T * 4) + ctrl,
+             "peer_wait": 2 * (2 * C * T * 4) + 8 + 8 * pg.n,
+             "peer_reduce": (pg.n + 1) * 4 + 8 + 8 * pg.n,
+             "peer_all_gather": (1 + pg.n) * C * per * 4 + ctrl}
+    err = pg.error()
+    pg.close()
+    rows = {name: dict(max_abs_err=0.0 if all(same.values()) else
+                       float("inf"), ms=ms[name], plain_ms=plain[name],
+                       bound_ms=moved[name] / 3.35e12 * 1e3,
+                       bound_by="bytes",
+                       library_ms=None, floor_ms=ms["empty"])
+            for name in moved}
+    log(f"  (b) peer kernels at one rank (a ring to itself), bitwise "
+        f"against their plain versions: {same}; alone, {reps} launches a "
+        f"captured program (us): "
+        + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in ms.items())
+        + "; the plain versions' exchanges (us): "
+        + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in plain.items())
+        + f"; error words {err} [{smi}]")
+    if not all(same.values()) or err[0]:
+        fail(f"phase 15 (b): the peer kernels differ from their plain "
+             f"versions {same} (error words {err})")
+    return rows
+
+
+TEARDOWN = """
+import sys, torch
+sys.path.insert(0, {root!r})
+from polydeal_tpu_torch.solvers import graphs
+dev = torch.device("cuda", 0)
+pool = torch.cuda.graph_pool_handle()
+c = torch.zeros((), dtype=torch.int64, device=dev)
+flag = torch.zeros((), dtype=torch.bool, device=dev)
+tests = torch.zeros((), dtype=torch.int64, device=dev)
+pi = graphs.capture(None, lambda _: (c.zero_(), flag.copy_(c < 50)),
+                    device=dev, pool=pool)
+pb = graphs.capture(None, lambda _: (c.add_(1), flag.copy_(c < 50)),
+                    device=dev, pool=pool)
+prog = graphs.LoopProgram(lambda ch: (ch.child(pi), ch.loop(
+    flag, lambda b: b.child(pb), tests)), dev)
+prog.launch()
+b = torch.ones(64, dtype=torch.float64, device=dev)
+loop = graphs.CGLoop(lambda v: 2.0 * v, None, b, rtol=1e-10, maxiter=10)
+print(loop.run(loop.start_program(lambda: b)), int(c), flush=True)
+prog.launch()  # in flight at exit: the exit hook closes both programs
+"""
+
+
+def teardown_check(torch):
+    """Phase 15's teardown: a child process leaves a device program in
+    flight and a CG loop open at exit; it must exit 0."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", TEARDOWN.format(root=ROOT)],
+                       capture_output=True, text=True, timeout=300)
+    log(f"  teardown: a child exiting with live device programs: exit "
+        f"{r.returncode} in {time.perf_counter() - t0:.1f} s, printed "
+        f"{r.stdout.split()}")
+    if r.returncode != 0 or r.stdout.split() != ["1", "50"]:
+        fail(f"phase 15 teardown: the child exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+
+
+SAME_CARD = """
+import json, sys
+sys.path.insert(0, {root!r})
+from polydeal_tpu_torch.models.sharded import spawn
+(r,) = spawn(2, [dict(n=8, dtype="float64", precond_dtype=None,
+                      rtol=1e-8)], device="cuda:0", timeout=120.0)
+print(json.dumps({{k: r[k] for k in ("captured", "iterations",
+                                    "unsharded_iterations", "max_abs_diff",
+                                    "launches")}}))
+"""
+
+
+def same_card_check(torch, smi):
+    """(d) of phase 15: two processes on this one card (joined by gloo;
+    NCCL takes one rank a card), spawned from a child process, solve
+    bench_sharded's structured flagship at n=8 in f64 sharded over them:
+    captured (one device program a rank, the peer kernels in its body),
+    held to the unsharded solve (the same iterations, x within 1e-9);
+    returns rank 0's launches of the peer kernels over that solve (its
+    counters, reset at the solve)."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", SAME_CARD.format(root=ROOT)],
+                       capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if p.returncode != 0:
+        fail(f"phase 15 (d): the two-process solve exited {p.returncode}: "
+             f"{p.stderr[-3000:]}")
+    r = json.loads(p.stdout.strip().splitlines()[-1])
+    got = {k: r["launches"].get(k, 0) for k in (
+        "peer_put", "peer_all_gather", "peer_wait", "peer_reduce")}
+    log(f"  (d) two ranks on one card, structured n=8 f64: captured "
+        f"{r['captured']}, {r['iterations']} iterations against "
+        f"{r['unsharded_iterations']} unsharded, max |x - x_unsharded| "
+        f"{r['max_abs_diff']:.3e}; the solve's peer launches {got}; "
+        f"{secs:.1f} s with the processes' start [{smi}]")
+    if not (r["captured"] and r["iterations"] == r["unsharded_iterations"]
+            and r["max_abs_diff"] <= 1e-9 and all(got.values())):
+        fail(f"phase 15 (d): the sharded solve on two processes of one "
+             f"card missed: {got}, {r['iterations']}, {r['max_abs_diff']}")
+    return got
+
+
 def cross_gpu_check(torch, smi):
     """(c) of phase 15: with two or more cards visible, the probe
-    ``tools/nccl_capture_probe.py`` at min(4, count) ranks (both sharded
-    systems captured across the cards, held to their eager solves); it
-    fails the run on a mismatch or a timeout.  With one card nothing runs."""
+    ``tools/sharded_probe.py`` at min(4, count) ranks (both sharded
+    systems, each solve one device program a rank across the cards, held
+    to their eager solves); it fails the run on a mismatch or a timeout.
+    With one card nothing runs."""
     count = torch.cuda.device_count()
     if count < 2:
         log(f"  (c) the cross-GPU check needs two cards ({count} visible): "
             f"not run; PERF.md holds the 4-GPU run of "
-            f"tools/nccl_capture_probe.py --nproc 4")
+            f"tools/sharded_probe.py --nproc 4")
         return None
     nproc = min(4, count)
     r = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "tools", "nccl_capture_probe.py"),
-         "--nproc", str(nproc), "--n", "64", "--timeout", "600"],
+        [sys.executable, os.path.join(ROOT, "tools", "sharded_probe.py"),
+         "--nproc", str(nproc), "--n", "64", "--trace", "--timeout", "600"],
         capture_output=True, text=True, timeout=900, cwd=ROOT)
     lines = r.stdout.strip().splitlines()
-    log(f"  (c) tools/nccl_capture_probe.py --nproc {nproc} --n 64: exit "
+    log(f"  (c) tools/sharded_probe.py --nproc {nproc} --n 64: exit "
         f"{r.returncode}: {lines[-1] if lines else r.stderr[-2000:]}")
     if r.returncode != 0:
         fail(f"phase 15 (c): the {nproc}-GPU probe failed (exit "
@@ -3629,11 +3819,18 @@ def cross_gpu_check(torch, smi):
 
 
 def phase15(torch, dev, group, smi):
-    """Phase 15 (b) and (c), then the arms (a) ran in phase 12."""
+    """Phase 15 (b), the teardown, (d) and (c), then the arms (a) ran in
+    phase 12; returns the peer kernels' rows, their launches (d)'s."""
     log("phase 15: the sharded solves as one device program")
+    t0 = time.perf_counter()
+    peer = peer_kernels_check(torch, dev, smi)
+    teardown_check(torch)
+    launches = same_card_check(torch, smi)
     rows = dict(nccl_capture=nccl_capture_check(torch, dev, group, smi),
                 cross_gpu=cross_gpu_check(torch, smi), arms=ARMS15)
-    log("phase 15: " + json.dumps(rows))
+    log("phase 15: " + json.dumps(rows)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return peer, launches
 
 
 # phase 16: the TensorDGQ basis and P_4 through the banded R3MG path, K1,
@@ -4207,7 +4404,7 @@ def main() -> int:
     ell_arm(torch, dev)
     log("phase 14: the remaining one-program solves against eager ones "
         "(arms run in phases 10, 11 and here): " + json.dumps(ARMS14))
-    phase15(torch, dev, group, smi)
+    peer15, launches15 = phase15(torch, dev, group, smi)
     out16 = phase16(torch, dev, group, build_s)
     out17 = phase17(torch, dev, smi)
     leave_group()
@@ -4352,6 +4549,20 @@ def main() -> int:
         kernels.append(dict(name=f"{name}_mono2d_p4", route="cuda",
                             source=packed, replaces=rpl, launches=c17[name],
                             **{k: rows17[key][k] for k in keys}))
+    # phase 15 (d)'s path (the structured flagship sharded over two
+    # processes of this card): the peer kernels, not TPU kernels (the
+    # collectives of the JAX package's sharded while_loop)
+    peer_src = "polydeal_tpu_torch/csrc/peer.cu"
+    for name, rpl in (("peer_put", "polydeal_tpu/parallel/banded.py:399"),
+                      ("peer_wait", "polydeal_tpu/parallel/banded.py:399"),
+                      ("peer_reduce",
+                       "polydeal_tpu/parallel/banded.py:486"),
+                      ("peer_all_gather",
+                       "polydeal_tpu/parallel/banded.py:620")):
+        kernels.append(dict(name=name, route="cuda", source=peer_src,
+                            replaces=rpl, launches=launches15[name],
+                            **{k: peer15[name][k]
+                               for k in keys + ("floor_ms",)}))
     log(f"profiler traces: {TRACES['taken']} taken, {TRACES['empty']} held "
         f"no record of the traced kernel, {TRACES['by_events']} readings by "
         f"queued CUDA events instead")

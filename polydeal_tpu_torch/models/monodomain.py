@@ -340,6 +340,12 @@ class MonodomainSolver:
                            maxiter=cfg.solver.max_iterations)
         return res.x, w_np1, res.iterations
 
+    def close(self) -> None:
+        """Close the captured step's programs (:class:`_StepGraphs`)."""
+        if self._graphs is not None:
+            self._graphs.close()
+            self._graphs = None
+
     def _step_graphs(self) -> "_StepGraphs":
         if self._graphs is None:
             self._graphs = _StepGraphs(self)
@@ -433,6 +439,13 @@ class _StepGraphs:
         self._starts = {}
         self.iters = None  # CG iterations per step of a scan, int32
         self._scan = None  # the advance program
+
+    def close(self) -> None:
+        """Close the hierarchy's captured loops, this step's among them
+        (``Multigrid.close``), and drop the step's programs."""
+        self.solver.mg.close()
+        self._starts.clear()
+        self._scan = None
 
     def load(self, u_n, u_nm1, w, t) -> None:
         self.u_n.copy_(u_n)

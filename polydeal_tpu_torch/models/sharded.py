@@ -19,10 +19,16 @@ from the whole system.  :func:`dryrun` is the counterpart of the repo's
 ``hyper_cube(2, 16)`` at p=1 in f64 with a packed fine level (a far
 block-COO tail once a slab is narrower than its offsets), sharded and held
 to the host solve, then the flat block-COO ``ShardedSystem`` on the 2D
-n=8 problem.  On GPUs (NCCL) every sharded solve runs as captured programs
-by default; :func:`eager_and_graph` times it beside the eager loop
-(``capture=False``), and :func:`masked_case` runs on CPU ranks the CG that
-the captured loop replays.
+n=8 problem.  On GPUs every sharded solve runs as one device program by
+default (``solvers/graphs.CGLoop``: start, WHILE(active) { body }, one host
+read a solve on every rank), its exchanges the port's peer kernels
+(``parallel/peer.PeerGroup``, ``csrc/peer.cu``: NCCL only joins the ranks
+and swaps the buffers' handles at setup); :func:`eager_and_graph` times it
+beside the eager loop (``capture=False``, the same peer kernels) and
+reports per rank the iterations, host reads, bodies run, exchanges a solve
+and the device peak, and :func:`masked_case` runs on CPU ranks the CG that
+the captured loop replays.  :func:`peer_case` holds the exchanges' plain
+versions (gloo) to what each rank computes alone.
 
 Usage, one GPU per rank (rank r on ``cuda:r``) or CPU processes::
 
@@ -32,6 +38,8 @@ Usage, one GPU per rank (rank r on ``cuda:r``) or CPU processes::
     python -m polydeal_tpu_torch.models.sharded --nproc 4 --device cpu \
         --dryrun
     python -m polydeal_tpu_torch.models.sharded --nproc 1
+    python -m polydeal_tpu_torch.models.sharded --nproc 2 --device cuda:0 \
+        --n 8      # two ranks on one card (gloo joins them)
 
     group = init_group(rank, world, device=dev, store_path=path)
     sh = setup_sharded(n=64, device=dev, group=group)
@@ -54,6 +62,7 @@ import torch
 
 from polydeal_tpu_torch.models import flagship
 from polydeal_tpu_torch.models.flagship import Flagship, setup_flagship
+from polydeal_tpu_torch.ops import _build
 from polydeal_tpu_torch.parallel.banded import ShardedBandedSystem
 from polydeal_tpu_torch.parallel.sharding import (
     ShardedSystem,
@@ -67,7 +76,7 @@ __all__ = ["Sharded", "share", "setup_sharded", "setup_local",
            "solve_sharded", "level_meta", "max_offset", "min_ms", "run_case",
            "case_flagship", "eager_and_graph", "masked_case", "local_case",
            "flat_problem", "flat_case", "packed_problem", "dryrun",
-           "run_rank", "spawn"]
+           "peer_case", "run_rank", "spawn"]
 
 REPS = 3  # warm timed solves, the least kept (bench_sharded's)
 MAXITER = 100  # CG's iteration cap in every case here
@@ -136,8 +145,6 @@ def setup_local(n: int = 64, degree: int = 1, *, device, group=None,
 def _build_prepare(device) -> None:
     """What setup_flagship does first on a device: TF32 off, the kernel
     library loaded."""
-    from polydeal_tpu_torch.ops import _build
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.prepare_device(device)
@@ -189,7 +196,8 @@ def run_case(case: dict, device, group) -> dict:
     one eager and captured (:func:`eager_and_graph`).  Rank 0 returns
     numbers and host arrays, the other ranks their sharded numbers.  A case
     with ``kind`` "local" runs :func:`local_case`, "dryrun" :func:`dryrun`,
-    "flat" :func:`flat_case`, "masked" :func:`masked_case`."""
+    "flat" :func:`flat_case`, "masked" :func:`masked_case`, "peer"
+    :func:`peer_case`."""
     if case.get("kind") == "local":
         return local_case(case, device, group)
     if case.get("kind") == "flat":
@@ -198,14 +206,20 @@ def run_case(case: dict, device, group) -> dict:
         return dryrun(device, group)
     if case.get("kind") == "masked":
         return masked_case(case, device, group)
+    if case.get("kind") == "peer":
+        return peer_case(case, device, group)
     fs = case_flagship(case, device)
     sh = share(fs, group)
     ss, b = sh.ss, sh.b
     if ss.rank != 0:
         fs = None  # only rank 0 keeps the whole system, to compare with
     rtol = case.get("rtol", 1e-8)
+    before = dict(_build.launches)
     x, k, res = ss.solve_cg(b, rtol=rtol, maxiter=MAXITER)
+    launched = {key: v - before[key] for key, v in _build.launches.items()
+                if v != before[key]}
     out = dict(n_dofs=sh.n_dofs, levels=sh.level_sizes, n_dev=ss.n_dev,
+               launches=launched, captured=ss.graph_ok(ss._local(b)),
                meta=level_meta(ss), comm=ss.comm_bytes_per_spmv(),
                lo_vec=str(ss.lo_vec).removeprefix("torch."),
                has_lo=[lv.has_lo for lv in ss.levels],
@@ -213,6 +227,7 @@ def run_case(case: dict, device, group) -> dict:
                x=x.cpu().numpy(), v_cycle=ss.v_cycle(b).cpu().numpy())
     if case.get("timed"):
         out.update(eager_and_graph(ss, b, rtol, device))
+    ss.close()  # every rank: its programs and peer buffers
     if fs is None:
         return out
     # no collective below: the other ranks may have left
@@ -248,43 +263,76 @@ def case_flagship(case: dict, device) -> Flagship:
         multigrid.PACK_MIN_P = saved
 
 
+def _all_ranks(obj, group) -> list:
+    """Every rank's ``obj`` (picklable), in rank order."""
+    if group is None:
+        return [obj]
+    out = [None] * torch.distributed.get_world_size(group)
+    torch.distributed.all_gather_object(out, obj, group=group)
+    return out
+
+
 def _max_over_ranks(v: torch.Tensor, group) -> list:
     """The entries of ``v`` (1-D), each its largest over the group."""
-    if group is not None:
-        v = v.clone()
-        torch.distributed.all_reduce(v, op=torch.distributed.ReduceOp.MAX,
-                                     group=group)
-    return v.tolist()
+    return [max(c) for c in zip(*_all_ranks(v.tolist(), group))]
+
+
+def _peak_mb(device) -> float:
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated(dev) / 2**20
 
 
 def eager_and_graph(ss, b, rtol: float, device) -> dict:
     """The eager solve (``solve_cg_local(capture=False)``) of a sharded
-    system ``ss`` (either kind) beside its default one, captured where
-    ``ss.graph_ok`` admits it (else eager again): the iterations of each,
-    whether the default was captured, the largest |x - x_eager| over every
-    rank's share relative to the largest |x_eager| (``graph_eager_diff``;
-    0: bitwise) and, where captured, the loop's replays (bodies run) and
-    host reads of its last solve (``CGLoop.last``) and
-    its programs' capture seconds and pool MB; both timed as
+    system ``ss`` (either kind) beside its default one, one device program
+    where ``ss.graph_ok`` admits it (else eager again): the iterations of
+    each, whether the default was captured, the largest |x - x_eager| over
+    every rank's share relative to the largest |x_eager|
+    (``graph_eager_diff``; 0: bitwise) and, where captured, the loop's
+    replays (bodies run) and host reads of its last solve (``CGLoop.last``)
+    and its programs' capture seconds and pool MB; both timed as
     ``bench_sharded`` times a solve: ``sharded_eager_ms`` and
     ``sharded_ms`` (least of ``REPS`` warm solves; ``sharded_ms`` is the
-    default path's).  Every rank of the group calls it."""
+    default path's).  ``ranks``: per rank, the default solve's iterations,
+    host reads and bodies run, its exchanges (peer kernels: put, gather,
+    wait, reduce launches of one solve), ``x_bitwise`` (two more default
+    solves give x bitwise alike), the rank-ordered dot x . x's bits
+    (``dot_hex``: alike on every rank) and the device peak MB
+    (``torch.cuda.max_memory_allocated``, setup included) beside the peer
+    buffer's MB (``cudaMalloc``'d, outside torch's count).  Every rank of
+    the group calls it."""
     solve = lambda capture=None: ss.solve_cg_local(
         b, rtol=rtol, maxiter=MAXITER, capture=capture)
     x_e, k_e, _ = solve(False)
     x_g, k_g, _ = solve()
-    captured = ss.graph_ok(b)
+    captured = ss.graph_ok(ss._local(b))
     d, m = _max_over_ranks(torch.stack([(x_g - x_e).abs().max(),
                                         x_e.abs().max()]), ss.group)
     out = dict(eager_iterations=k_e, graph_iterations=k_g, captured=captured,
                graph_eager_diff=d / m)
     out["sharded_eager_ms"] = min_ms(lambda: solve(False), device)
     out["sharded_ms"] = min_ms(solve, device)
+    before = dict(_build.launches)
+    x1, k1, _ = solve()
+    x2, _, _ = solve()
+    ex = {key: (_build.launches[key] - before[key]) // 2 for key in
+          ("peer_put", "peer_all_gather", "peer_wait", "peer_reduce")}
+    mine = dict(rank=ss.rank, iterations=k1, x_bitwise=torch.equal(x1, x2),
+                dot_hex=float(ss._dot(x1, x1)).hex(), exchanges=sum(
+                    ex[key] for key in ("peer_wait", "peer_reduce")),
+                peer_launches=ex, peak_mb=_peak_mb(device),
+                peer_buffer_mb=(0.0 if ss.peer is None or not ss.peer.open
+                                else ss.peer.buffer_bytes / 2**20))
     if captured:
         loop = ss._compiled(rtol, MAXITER, True, b.dtype)[0]
         out.update({k: loop.last[k] for k in ("replays", "host_reads")})
         out.update(capture_s=sum(p.seconds for p in loop.captured),
                    pool_mb=sum(p.pool_bytes for p in loop.captured) / 2**20)
+        mine.update(host_reads=loop.last["host_reads"],
+                    bodies=loop.last["replays"])
+    out["ranks"] = _all_ranks(mine, ss.group)
     return out
 
 
@@ -335,8 +383,10 @@ def masked_case(case: dict, device, group) -> dict:
     if group is not None:
         ranks = [None] * ss.n_dev
         torch.distributed.all_gather_object(ranks, mine, group=group)
-    return dict(n_dev=ss.n_dev, ranks=ranks, x=ss._gather(st.x).cpu().numpy(),
-                meta=(level_meta(ss) if case["system"] != "flat" else None))
+    out = dict(n_dev=ss.n_dev, ranks=ranks, x=ss._gather(st.x).cpu().numpy(),
+               meta=(level_meta(ss) if case["system"] != "flat" else None))
+    ss.close()
+    return out
 
 
 def _global_lanes(ss) -> list:
@@ -392,6 +442,9 @@ def local_case(case: dict, device, group) -> dict:
     xg, kg, resg = gs.solve_cg(sg.b, rtol=rtol, maxiter=MAXITER)
     both = (eager_and_graph(ss, sl.b, rtol, device)
             if case.get("timed") else {})
+    b_diff = float((ss._local(sl.b) - gs._local(sg.b)).abs().max())
+    ss.close()
+    gs.close()
     fine = ss.params[-1]
     handlers, _, _ = flagship.flagship_hierarchy(
         case["n"], 1, kw["hierarchy"], kw["relabel"])
@@ -407,7 +460,7 @@ def local_case(case: dict, device, group) -> dict:
         x=x.cpu().numpy(),
         lam_rel=[abs(a.hi - b.hi) / b.hi for a, b in zip(ss.levels,
                                                          gs.levels)],
-        b_diff=float((ss._local(sl.b) - gs._local(sg.b)).abs().max()),
+        b_diff=b_diff,
         slabs_equal=[all(_same(a[key], b[key]) for key in b
                          if key != "dinv")
                      for a, b in zip(ss.params, gs.params)],
@@ -460,6 +513,7 @@ def flat_case(case: dict, device, group) -> dict:
     pre = case.get("precondition", True)
     ss = ShardedSystem.from_multigrid(mg, group)
     x, k, res = ss.solve_cg(b, rtol=rtol, maxiter=maxiter, precondition=pre)
+    ss.close()
     host = (mg.solve_cg(b, rtol=rtol, maxiter=maxiter) if pre
             else cg_solve(A.matvec, b, rtol=rtol, maxiter=maxiter))
     fine = ss.levels[-1]
@@ -527,6 +581,7 @@ def dryrun(device, group) -> dict:
     host = mg.solve_cg(b, rtol=1e-8, maxiter=60)
     ss = ShardedBandedSystem.from_multigrid(mg, group)
     x, iters, res = ss.solve_cg(b, rtol=1e-8, maxiter=60)
+    ss.close()
     diff = float((x - host.x).abs().max())
     bnorm = float(b.norm())
     out = dict(n_dev=n_dev, levels=[h.n_poly for h in handlers],
@@ -544,6 +599,7 @@ def dryrun(device, group) -> dict:
     _, _, b2, mg2 = flat_problem(8, device=device, dtype=torch.float32)
     ss2 = ShardedSystem.from_multigrid(mg2, group)
     x2, it2, _ = ss2.solve_cg(b2, rtol=1e-6, maxiter=40)
+    ss2.close()
     r2 = mg2.solve_cg(b2, rtol=1e-6, maxiter=40)
     diff2 = float((x2 - r2.x).abs().max())
     out.update(flat_iterations=it2, flat_host_iterations=r2.iterations,
@@ -555,18 +611,92 @@ def dryrun(device, group) -> dict:
     return out
 
 
+def peer_case(case: dict, device, group) -> dict:
+    """The exchanges of ``parallel/peer.PeerGroup`` on this rank (their
+    plain versions on CPU tensors, the kernels on CUDA ones) against what
+    the rank computes alone from every rank's seeded data: the ring halo
+    of a [C, per] slab (T lanes), rows by index lists to every other rank
+    from the slab's transpose (the far tails' layout) and from a [per, C]
+    array (the flat system's), the all-gather, the rank-ordered reduce of
+    a scalar and a vector (the explicit sum of every rank's partial, in
+    rank order) and the reduce-scatter.  Case keys ``C``, ``per``, ``T``,
+    ``m`` (rows a destination), ``dtype``.  Returns every rank's record:
+    which results equal their expectation bitwise, and the reduces' bits
+    (alike on every rank)."""
+    import numpy as np
+
+    from polydeal_tpu_torch.parallel.peer import PeerGroup
+
+    n = 1 if group is None else torch.distributed.get_world_size(group)
+    r = 0 if group is None else torch.distributed.get_rank(group)
+    C, per, T, m = case["C"], case["per"], case["T"], case["m"]
+    dt = getattr(torch, case.get("dtype", "float64"))
+    dev = torch.device(device)
+
+    def data(q):  # rank q's slab [C, per] and its index lists by delta
+        rng = np.random.default_rng(1000 + q)
+        x = torch.as_tensor(rng.standard_normal((C, per)), dtype=dt)
+        idx = {d: torch.as_tensor(rng.integers(0, per, m)) for d in
+               range(n)}
+        return x, idx
+
+    every = [data(q) for q in range(n)]
+    x, idx = (t.to(dev) if torch.is_tensor(t) else
+              {d: i.to(dev) for d, i in t.items()} for t in every[r])
+    deltas = list(range(1, n)) or [0]
+    pg = PeerGroup(group, dev, torch.empty((), dtype=dt).element_size()
+                   * max(2 * C * T, C * per * n, m * C))
+    same = lambda a, b: bool(torch.equal(a.cpu(), b))
+    lh, rh = pg.ring(x, T)
+    ok = dict(ring=same(lh, every[(r - 1) % n][0][:, per - T:])
+              and same(rh, every[(r + 1) % n][0][:, :T]))
+    for name, arr in (("rows_far", lambda q: every[q][0].T),
+                      ("rows_flat", lambda q: every[q][0].T.contiguous())):
+        src = arr(r).to(dev) if name == "rows_flat" else x.T
+        got = pg.rows(src, [(d, idx[d]) for d in deltas])
+        ok[name] = all(same(g, arr((r - d) % n)[every[(r - d) % n][1][d]])
+                       for g, d in zip(got, deltas))
+    ok["all_gather"] = same(pg.all_gather(x),
+                            torch.stack([e[0] for e in every]))
+    sums = {}
+    for name, part in (("dot", lambda q: (every[q][0] * every[q][0]).sum()
+                        .reshape(1)),
+                       ("vector", lambda q: every[q][0][0].contiguous())):
+        got = pg.reduce(part(r).to(dev))
+        want = part(0).clone()
+        for q in range(1, n):
+            want = want + part(q)
+        ok[f"reduce_{name}"] = same(got, want)
+        sums[name] = got.cpu().numpy().tobytes().hex()
+    k = per // n
+    part = lambda q: every[q][0].T[:k * n].contiguous()  # [n k, C]
+    want = part(0)[r * k:(r + 1) * k].clone()
+    for q in range(1, n):
+        want = want + part(q)[r * k:(r + 1) * k]
+    ok["reduce_scatter"] = same(pg.reduce_scatter(part(r).to(dev)), want)
+    pg.close()
+    return dict(n_dev=n, ranks=_all_ranks(dict(rank=r, ok=ok, sums=sums),
+                                          group))
+
+
 def run_rank(rank: int, world: int, device: str, store_path: str,
              cases: list, out_path: str | None = None,
              timeout: float = 120.0) -> None:
-    """A rank's whole run: join the group (rank r on ``cuda:r`` for a CUDA
-    ``device``), run every case, write rank 0's results (a pickled list)
-    to ``out_path``, leave the group.  The spawn target of :func:`spawn`."""
-    dev = (torch.device("cuda", rank) if device == "cuda"
-           else torch.device(device))
+    """A rank's whole run: join the group (rank r on ``cuda:r`` for
+    ``device`` "cuda"; every rank on the one card of "cuda:K", joined by
+    gloo), run every case, write rank 0's results (a pickled list) to
+    ``out_path``, leave the group.  The spawn target of :func:`spawn`."""
+    backend = None
+    if device == "cuda":
+        dev = torch.device("cuda", rank)
+    else:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            backend = "gloo"  # ranks that share one card: NCCL refuses
     if dev.type == "cpu":
         torch.set_num_threads(1)
     group = init_group(rank, world, device=dev, store_path=store_path,
-                       timeout=timeout)
+                       timeout=timeout, backend=backend)
     try:
         results = [run_case(c, dev, group) for c in cases]
     finally:
@@ -605,7 +735,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nproc", type=int, default=1,
                     help="ranks (one GPU each on cuda)")
-    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (rank r on cuda:r), cuda:K (every rank on "
+                         "card K) or cpu")
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--hierarchy", choices=("structured", "rtree"),
                     default="structured")
@@ -629,7 +761,7 @@ def main(argv=None) -> int:
     # the eager and the captured sharded solve (eager_and_graph)
     both = ("eager_iterations", "graph_iterations", "captured",
             "graph_eager_diff", "sharded_eager_ms", "sharded_ms", "replays",
-            "host_reads", "capture_s", "pool_mb")
+            "host_reads", "capture_s", "pool_mb", "ranks")
     keep = ("n_dofs", "levels", "n_dev", "meta", "comm", "iterations",
             "unsharded_iterations", "residual", "bnorm", "max_abs_diff",
             "unsharded_ms", "ratio") + both
@@ -648,7 +780,7 @@ def main(argv=None) -> int:
     (r,) = spawn(args.nproc, [case], device=args.device, timeout=3000.0)
     out = {k: r[k] for k in keep if k in r}
     out["device"] = "cpu"
-    if args.device == "cuda":
+    if args.device.startswith("cuda"):
         # the card's name and power limit, beside every time printed
         out["device"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -48,7 +48,9 @@ DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 # own instantiation, csrc/packed_bf16.cu) and the launches of K1, K2 and
 # their halo entries at an nb without a specialised build (``_any_nb``: the
 # runtime-nb kernel, csrc/banded_any_nb.cu); set_condition
-# (csrc/graph_loop.cu) counts the tests of a device loop's condition
+# (csrc/graph_loop.cu) counts the tests of a device loop's condition; the
+# peer exchange kernels (csrc/peer.cu: put, all-gather's put, wait,
+# reduce) count their launches on a sharded solve over several GPUs
 launches = {"banded_matvec_imajor": 0, "banded_fused_cheb": 0,
             "banded_matvec_omajor": 0, "banded_fused_omajor": 0,
             "volume_blocks": 0, "face_group_blocks": 0,
@@ -58,7 +60,9 @@ launches = {"banded_matvec_imajor": 0, "banded_fused_cheb": 0,
             "packed_fused_halo": 0, "packed_matvec_bf16": 0,
             "packed_matvec_halo_bf16": 0, "banded_matvec_imajor_any_nb": 0,
             "banded_fused_cheb_any_nb": 0, "banded_matvec_halo_any_nb": 0,
-            "banded_fused_halo_any_nb": 0, "set_condition": 0}
+            "banded_fused_halo_any_nb": 0, "set_condition": 0,
+            "peer_put": 0, "peer_all_gather": 0, "peer_wait": 0,
+            "peer_reduce": 0}
 
 # the device loops' entries (csrc/graph_loop.cu): (argtypes, restype);
 # graphs, nodes and executable graphs cross as pointers, a condition
@@ -75,6 +79,26 @@ GRAPH_LOOP_ENTRIES = {
     "pd_graph_instantiate": ([_vp, _vp], _i32),
     "pd_graph_launch": ([_vp, _vp], _i32),
     "pd_graph_exec_destroy": ([_vp], _i32),
+}
+# the peer exchange entries (csrc/peer.cu); sizes and offsets cross as
+# 64-bit integers, host arrays of descriptors and pointers as pointers
+_i64 = ctypes.c_longlong
+PEER_ENTRIES = {
+    "pd_peer_host_alloc": ([_i64, _vp, _vp], _i32),
+    "pd_peer_host_free": ([_vp], _i32),
+    "pd_peer_alloc": ([_i64, _vp], _i32),
+    "pd_peer_free": ([_vp], _i32),
+    "pd_peer_handle": ([_vp, _vp], _i32),
+    "pd_peer_handle_bytes": ([], _i32),
+    "pd_peer_open": ([_vp, _vp], _i32),
+    "pd_peer_close": ([_vp], _i32),
+    "pd_peer_put": ([_vp, _vp, _i32, _i32, _i64, _i32, _vp, _i32, _vp],
+                    _i32),
+    "pd_peer_all_gather": ([_vp, _vp, _i32, _i32, _i64, _vp, _i64, _vp],
+                           _i32),
+    "pd_peer_wait": ([_vp, _vp, _i32, _i32, _i64, _vp, _i32, _vp], _i32),
+    "pd_peer_reduce": ([_vp, _vp, _i32, _i32, _i64, _i32, _vp, _i64, _i64,
+                        _vp], _i32),
 }
 
 _lib = None
@@ -210,7 +234,7 @@ def load_library() -> ctypes.CDLL:
                                      i32, i32, i64, *plan, vp, vp]
     lib.pd_sipg_face.argtypes = [i32, i32, i32, vp, vp, vp, vp, vp, vp, i64,
                                  f64, i32, i32, i64, *plan, vp, vp]
-    for name, (args, res) in GRAPH_LOOP_ENTRIES.items():
+    for name, (args, res) in {**GRAPH_LOOP_ENTRIES, **PEER_ENTRIES}.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, res
     for fn in (lib.pd_banded_matvec, lib.pd_banded_fused,

@@ -4,8 +4,10 @@ per shard on ``torch.distributed``.
 Counterpart of ``polydeal_tpu/parallel/banded.py`` ``ShardedBandedSystem``:
 the JAX version is one ``shard_map`` program over a device mesh; here every
 rank of a process group runs the same Python over its own slab, and the
-mesh's collectives become ``torch.distributed`` calls (NCCL between GPUs,
-gloo between CPU processes; only calls both support).
+mesh's collectives become the exchanges of the system's
+``parallel/peer.PeerGroup``: the port's peer kernels between GPUs
+(``csrc/peer.cu``), their plain versions over ``torch.distributed``
+between gloo's CPU processes.
 
   * polytope lanes are split into ``n_dev`` contiguous slabs of ``per``
     lanes (lex and STR orderings are spatially coherent, so contiguous is
@@ -13,31 +15,33 @@ gloo between CPU processes; only calls both support).
     level's band, transfer blocks and Jacobi diagonal;
   * a shard's SpMV, Chebyshev step and residual read x through
     ``x_ext`` [nb, per + 2T]: its slab with the T lanes on each side that
-    its ring neighbours own (one ``batch_isend_irecv`` of both directions
-    per product), through the halo kernels (K1 and K2 halo on banded
-    levels, K6 and K7 halo on packed ones, ``ops/``);
+    its ring neighbours own (one ring exchange of both directions per
+    product), through the halo kernels (K1 and K2 halo on banded levels,
+    K6 and K7 halo on packed ones, ``ops/``);
   * ring wrap-around at the global edges is exact only because a band
     stores zero blocks wherever a column leaves [0, P):
     :meth:`ShardedBandedSystem.from_multigrid` checks this once a level;
   * a packed level whose plan has offsets beyond a shard is repacked with
     a near/far split; the far block-COO tail is split by row owner and
-    ships only the lanes each shard needs (one exchange per neighbour
+    ships only the lanes each shard needs (one exchange for every neighbour
     distance, from ``parallel.sharding.build_halo_exchange``'s lists); the
     tail is plain torch in the vectors' dtype, as in ``BlockPacked``;
   * transfers between sharded levels need no communication (children of
     one parent never straddle a slab);
-  * below the sharded levels the V-cycle runs replicated: one
-    ``all_gather_into_tensor`` of the coarse rhs, every rank runs the
-    small bottom levels (a port ``Multigrid``), then takes its own slice.
+  * the dots are sums over ranks in rank order (the same bits on every
+    rank);
+  * below the sharded levels the V-cycle runs replicated: one all-gather
+    of the coarse rhs, every rank runs the small bottom levels (a port
+    ``Multigrid``), then takes its own slice.
 
 At world size 1 every exchange is a plain slice and no collective runs:
 the halo wraps onto the shard's own ends, as in the JAX package.  On the
-card a solve runs as captured programs (CUDA graphs, ``solvers/graphs``)
-at any world size on NCCL, the collectives inside them: the counterpart
-of the JAX package's jitted ``shard_map`` with its ``while_loop`` (a WHILE
-node on the device at world size 1; on more ranks the host runs the loop,
-``parallel/sharding.CapturedCG._compiled``).  Smoothing
-and residuals use the smoother's band copy (bf16 where ``Multigrid`` keeps
+card a solve runs as one device program at every world size (CUDA graphs
+with a WHILE node, ``solvers/graphs.CGLoop``, one host read a solve): the
+counterpart of the JAX package's jitted ``shard_map`` with its
+``while_loop``; across ranks the program holds the peer kernels, and
+without an open peer group a CUDA solve over more than one rank raises.
+Smoothing and residuals use the smoother's band copy (bf16 where ``Multigrid`` keeps
 one) and its vectors' dtype (``lo_vec``: bf16 where ``Multigrid`` was set
 up with ``vector_dtype=torch.bfloat16``, so the halo exchanges carry bf16
 and K6 halo reads bf16 x_ext), as the port's ``Multigrid._cycle`` does, so
@@ -94,11 +98,10 @@ from polydeal_tpu_torch.ops.packed import (
     packed_band,
     packed_matvec_t_halo,
 )
+from polydeal_tpu_torch.parallel.peer import programs_ok, widest
 from polydeal_tpu_torch.parallel.sharding import (
     CapturedCG,
     build_halo_exchange,
-    captures_collectives,
-    exchange,
 )
 from polydeal_tpu_torch.solvers.chebyshev import ChebyshevSmoother
 from polydeal_tpu_torch.solvers.multigrid import (
@@ -279,6 +282,16 @@ class ShardedBandedSystem(CapturedCG):
         # captured solves (_compiled), by (rtol, maxiter, precondition,
         # dtype)
         self._run_cache = {}
+        # the largest payload one rank sends another in one exchange, in
+        # the levels' widest dtype (no exchanged vector is wider; a wider
+        # one raises): a level's ring halo (both ends, to one rank at two
+        # ranks), its far tail's rows, the slab's gathers (the bottom's
+        # rhs, the solution)
+        es = max(widest(p) for p in params) * nb
+        self._peer_group(params[-1]["dinv"].device, max(
+            [2 * es * lv.T for lv in levels]
+            + [es * max(lv.n_sends, default=1) for lv in levels]
+            + [es * lv.per for lv in levels]))
 
     # ------------------------------------------------------------------
     @classmethod
@@ -626,14 +639,7 @@ class ShardedBandedSystem(CapturedCG):
             # the ring wraps onto the shard's own ends
             lh, rh = x_loc[:, per - T:], x_loc[:, :T]
         else:
-            r = self.rank
-            lh = x_loc.new_empty((x_loc.shape[0], T))
-            rh = x_loc.new_empty((x_loc.shape[0], T))
-            exchange(self.group, [
-                (x_loc[:, per - T:].contiguous(), (r + 1) % n, lh,
-                 (r - 1) % n, 0),
-                (x_loc[:, :T].contiguous(), (r - 1) % n, rh, (r + 1) % n,
-                 1)])
+            lh, rh = self.peer.ring(x_loc, T)
         return torch.cat([lh, x_loc, rh], dim=1)
 
     def _band(self, lv: _SLevel, pl_: dict, key: str, x):
@@ -673,16 +679,11 @@ class ShardedBandedSystem(CapturedCG):
         and a ``SegmentSum`` by local row, in the wider of the band's and
         the vectors' dtypes; the result in the vectors' (a bf16 sweep stays
         bf16)."""
-        n, r = self.n_dev, self.rank
         xb = x_loc.T  # [per, nb]
-        segs = [xb]
-        for t, delta in enumerate(lv.deltas):
-            buf = xb[pl_[f"fsend{t}"]].contiguous()
-            recv = torch.empty_like(buf)
-            exchange(self.group, [(buf, (r + delta) % n, recv,
-                                   (r - delta) % n, t)])
-            segs.append(recv)
-        xg = torch.cat(segs, dim=0)
+        recvs = (self.peer.rows(xb, [(d, pl_[f"fsend{t}"])
+                                     for t, d in enumerate(lv.deltas)])
+                 if lv.deltas else [])
+        xg = torch.cat([xb, *recvs], dim=0)
         fdata = pl_["fdata"]
         ct = torch.promote_types(fdata.dtype, x_loc.dtype)
         prod = torch.einsum("kij,kj->ki", fdata.to(ct),
@@ -692,9 +693,7 @@ class ShardedBandedSystem(CapturedCG):
     def _dot(self, a, b):
         d = torch.dot(a.reshape(-1), b.reshape(-1))
         if self.n_dev > 1:
-            d = d.reshape(1)
-            dist.all_reduce(d, op=dist.ReduceOp.SUM, group=self.group)
-            d = d[0]
+            d = self.peer.reduce(d.reshape(1))[0]
         return d
 
     @staticmethod
@@ -803,13 +802,9 @@ class ShardedBandedSystem(CapturedCG):
             if self.n_dev == 1:
                 rc_full = rc_loc
             else:
-                # one output tensor (a capture holds no list of them):
-                # [n_dev nb, per_c] by rank, then the lanes in rank order
-                nb, per_c = rc_loc.shape
-                parts = rc_loc.new_empty((self.n_dev * nb, per_c))
-                dist.all_gather_into_tensor(parts, rc_loc, group=self.group)
-                rc_full = parts.view(self.n_dev, nb, per_c).permute(
-                    1, 0, 2).reshape(nb, -1)
+                # [n_dev, nb, per_c] by rank, then the lanes in rank order
+                rc_full = self.peer.all_gather(rc_loc).permute(
+                    1, 0, 2).reshape(rc_loc.shape[0], -1)
             xc_full = self.rep_mg._cycle(self.rep_mg.n_levels - 1, rc_full)
             per_c = rc_loc.shape[1]
             xc = xc_full[:, self.rank * per_c:(self.rank + 1) * per_c]
@@ -833,9 +828,8 @@ class ShardedBandedSystem(CapturedCG):
     def _gather(self, x_loc):
         """The flat global vector from every rank's slab [nb, per]."""
         if self.n_dev > 1:
-            parts = [torch.empty_like(x_loc) for _ in range(self.n_dev)]
-            dist.all_gather(parts, x_loc.contiguous(), group=self.group)
-            x_loc = torch.cat(parts, dim=1)
+            x_loc = self.peer.all_gather(x_loc.contiguous()).permute(
+                1, 0, 2).reshape(x_loc.shape[0], -1)
         return x_loc.T.reshape(-1)
 
     # ------------------------------------------------------------------
@@ -859,14 +853,14 @@ class ShardedBandedSystem(CapturedCG):
         return (lambda p: self._matvec(fine, fine_pl, p)), M
 
     def graph_ok(self, b) -> bool:
-        """Whether a solve of ``b`` runs as captured programs
-        (:meth:`_compiled`): a CUDA vector, one rank or an NCCL group
-        (the programs then hold the halo exchanges, the all-reduced dots
-        and the bottom's all-gather), f32 or f64 smoothing vectors and a
-        replicated bottom that ``Multigrid.graph_ok`` admits.  gloo and
-        the CPU keep the eager loop."""
-        return (b.device.type == "cuda"
-                and captures_collectives(self.group, self.n_dev)
+        """Whether a solve of ``b`` runs as one device program
+        (:meth:`_compiled`): a CUDA vector, one rank or an open peer group
+        (``parallel/peer.programs_ok``: the program then holds the peer
+        kernels of the ring halos, the far tails, the dots and the
+        bottom's gather), f32 or f64 smoothing vectors and a replicated
+        bottom that ``Multigrid.graph_ok`` admits.  gloo and the CPU keep
+        the eager loop."""
+        return (programs_ok(b, self.n_dev, self.peer)
                 and self.lo_vec in (None, torch.float32, torch.float64)
                 and self.rep_mg.graph_ok())
 

@@ -17,76 +17,88 @@ block-ELL levels, read through their ``to_block_matrix``): block rows go in
 rank runs the same eager Python over its own chunk, and the JAX program's
 collectives become ``torch.distributed`` calls:
 
-  * halo: one send/receive pair per neighbour distance ``deltas[t]``,
-    carrying only the rows the other shard reads (the ``ppermute``s);
-  * dot products: ``all_reduce`` (the ``psum``);
+  * halo: the rows each neighbour distance ``deltas[t]`` needs, all
+    distances in one exchange (the ``ppermute``s);
+  * dot products: the rank-ordered sum (the ``psum``);
   * restriction: a gather over each coarse row's padded children where
     every parent is shard-local (``nested_transfer``), else a deterministic
-    segment sum by parent, ``all_reduce`` and the rank's slice;
-  * prolongation: the parent gather where nested, else
-    ``all_gather_into_tensor`` first;
+    segment sum by parent and each rank's rows of its rank-ordered sum;
+  * prolongation: the parent gather where nested, else an all-gather
+    first;
   * the coarse solve: an identity-padded dense LU, replicated on every
     rank, of the all-gathered coarse rhs.
 
-It runs no kernel, as the JAX one runs none: gathers, einsums and
-``utils/segment.SegmentSum``.  On the card its CG runs as captured
-programs at world size 1 and on NCCL groups, the collectives inside them,
-the counterpart of the JAX package's jitted ``shard_map`` with its
-``while_loop``: at world size 1 one device program with the loop a WHILE
-node (``solvers/graphs.CGLoop``), on more than one rank the host's loop
-over the same programs (``HostFlagCGLoop``: NCCL's operations across
-ranks cannot sit in a WHILE body); elsewhere (gloo, the CPU) eagerly, one host read of CG's
-condition an iteration, as in ``solvers/cg.py``.
+Across ranks it runs no kernel of its own, as the JAX one runs none:
+gathers, einsums and ``utils/segment.SegmentSum``.  Its exchanges go
+through the system's ``parallel/peer.PeerGroup``: on GPUs the port's peer
+kernels (``csrc/peer.cu``: the halo rows by delta, the rank-ordered sums of
+the dots and of the restriction, each rank its own rows, the gathers), on
+gloo's CPU ranks their plain versions over ``torch.distributed``.  On the
+card its CG runs as one device program at every world size
+(``solvers/graphs.CGLoop``: start, then WHILE(active) { body }, one host
+read a solve), the counterpart of the JAX package's jitted ``shard_map``
+with its ``while_loop``: at one rank no exchange runs, on more an open
+``PeerGroup`` carries them (NCCL's operations cannot sit in a WHILE body;
+NCCL stays for setup); without one a CUDA solve raises.  The CPU runs the
+eager loop, one host read of CG's condition an iteration, as in
+``solvers/cg.py``.
 """
 
 from __future__ import annotations
 
 import datetime
-import gc
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from polydeal_tpu_torch.parallel import peer as _peer
+from polydeal_tpu_torch.parallel.peer import PeerGroup, programs_ok, widest
+from polydeal_tpu_torch.solvers import graphs
 from polydeal_tpu_torch.solvers.cg import cg_finish, cg_solve
-from polydeal_tpu_torch.solvers.graphs import CGLoop, HostFlagCGLoop
+from polydeal_tpu_torch.solvers.graphs import CGLoop
 from polydeal_tpu_torch.solvers.lu import lu_solve, pivot_permutation
 from polydeal_tpu_torch.solvers.chebyshev import ChebyshevSmoother
 from polydeal_tpu_torch.utils.grouping import padded_group_lists
 from polydeal_tpu_torch.utils.segment import SegmentSum
 
 __all__ = ["init_group", "leave_group", "build_halo_exchange", "exchange",
-           "captures_collectives", "CapturedCG", "ShardedMatrix",
+           "CapturedCG", "ShardedMatrix",
            "shard_block_matrix", "ShardedLevel", "ShardedSystem"]
 
 
 def init_group(rank: int, world_size: int, *, device, store_path: str,
-               timeout: float = 120.0):
+               timeout: float = 120.0, backend: str | None = None):
     """Join the default process group as ``rank`` of ``world_size``: NCCL
     when ``device`` is a CUDA device (made this process's current device),
-    gloo otherwise.  Every rank passes the same ``store_path`` (a file in a
-    directory they share; it must not hold an earlier run's store).
-    ``timeout`` seconds bound every collective.  Returns the group."""
+    gloo otherwise, unless ``backend`` names one (gloo for ranks that share
+    one card, where NCCL refuses a second rank; the solves' exchanges go
+    through ``parallel/peer.PeerGroup`` either way).  Every rank passes the
+    same ``store_path`` (a file in a directory they share; it must not hold
+    an earlier run's store).  ``timeout`` seconds bound every collective.
+    Returns the group."""
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev.index if dev.index is not None
                               else torch.cuda.current_device())
     store = dist.FileStore(store_path, world_size)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
     dist.init_process_group(
-        "nccl" if dev.type == "cuda" else "gloo", store=store, rank=rank,
-        world_size=world_size,
+        backend, store=store, rank=rank, world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout))
     return dist.group.WORLD
 
 
 def leave_group() -> None:
     """Destroy the default process group that :func:`init_group` joined,
-    once the captured programs are gone: NCCL's destroy waits for every
-    CUDA graph that holds its operations, and a sharded system and its
-    captured programs reference each other, so only the cycle collector
-    frees them once the caller has dropped the system."""
-    gc.collect()
+    after closing, in order, every device program still open
+    (``solvers/graphs.close_all``: NCCL's destroy waits for the graphs
+    that use it) and every peer group (``parallel/peer.close_all``, every
+    rank together)."""
+    graphs.close_all()
+    _peer.close_all()
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
     dist.destroy_process_group()
@@ -155,41 +167,48 @@ def exchange(group, pairs) -> None:
         w.wait()
 
 
-def captures_collectives(group, n_dev: int) -> bool:
-    """Whether a captured program may hold this group's collectives: one
-    rank (none run), or an NCCL group (its kernels go into the graph;
-    gloo's run on the host)."""
-    return n_dev == 1 or dist.get_backend(group) == "nccl"
-
-
 def _pad_rows(P_: int, n_dev: int) -> int:
     per = -(-P_ // n_dev)
     return per * n_dev
 
 
 class CapturedCG:
-    """MG-CG of a sharded system, eager or as captured programs: the
+    """MG-CG of a sharded system, eager or as one device program: the
     dispatch both sharded systems share.  A subclass gives ``_local(b)``
     (this rank's share of a flat rhs), ``_rhs_like(dtype)`` (a zero vector
-    of that share's shape), ``cg_ops``, ``_dot`` (the all-reduced inner
-    product), ``_gather``, ``graph_ok`` and an empty ``_run_cache``."""
+    of that share's shape), ``cg_ops``, ``_dot`` (the rank-ordered inner
+    product), ``_gather``, ``graph_ok``, an empty ``_run_cache`` and
+    ``peer`` (:meth:`_peer_group`)."""
+
+    def _peer_group(self, device, slot: int) -> None:
+        """``self.peer``: the system's exchanges over more than one rank
+        (``parallel/peer.PeerGroup``, slots of ``slot`` bytes), else None."""
+        self.peer = (PeerGroup(self.group, device, slot) if self.n_dev > 1
+                     else None)
+
+    def close(self) -> None:
+        """Close the captured solves' loops and then the peer group (every
+        rank together); a CUDA solve on more than one rank then raises."""
+        for loop, _, _ in self._run_cache.values():
+            loop.close()
+        self._run_cache.clear()
+        if self.peer is not None:
+            self.peer.close()
 
     def _compiled(self, rtol, maxiter, precondition, dtype):
         """(CGLoop, start program, rhs buffer) of the captured solve for
         ``(rtol, maxiter, precondition)`` and vectors of ``dtype``, made at
         first use: the counterpart of the JAX package's cache of jitted
-        ``shard_map`` programs.  CG itself stays full-precision.  At world
-        size 1 the loop is a WHILE node on the device (``CGLoop``: one host
-        read a solve); on more than one rank NCCL's operations (the halo
-        exchange, the all-reduces) cannot sit in a WHILE body, so the
-        host runs the loop over the same programs (``HostFlagCGLoop``)."""
+        ``shard_map`` programs.  CG itself stays full-precision.  At every
+        world size the loop is a WHILE node on the device (``CGLoop``: one
+        host read a solve); across ranks the bodies' exchanges are the
+        peer kernels."""
         key = (rtol, maxiter, precondition, dtype)
         if key not in self._run_cache:
             like = self._rhs_like(dtype)
             A, M = self.cg_ops(precondition)
-            cls = CGLoop if self.n_dev == 1 else HostFlagCGLoop
-            loop = cls(A, M, like, rtol=rtol, maxiter=maxiter,
-                       dot=self._dot)
+            loop = CGLoop(A, M, like, rtol=rtol, maxiter=maxiter,
+                          dot=self._dot)
             b_in = torch.zeros_like(like)
             self._run_cache[key] = (loop, loop.start_program(lambda: b_in),
                                     b_in)
@@ -201,8 +220,8 @@ class CapturedCG:
         if not self.graph_ok(b_loc):
             raise ValueError(
                 "captured sharded solves need a CUDA rhs, one rank or an "
-                "NCCL group, and a system that graph_ok admits (world size "
-                f"{self.n_dev}, {b_loc.device})")
+                "open peer group, and a system that graph_ok admits (world "
+                f"size {self.n_dev}, {b_loc.device})")
         loop, start, b_in = self._compiled(rtol, maxiter, precondition,
                                            b_loc.dtype)
         b_in.copy_(b_loc)
@@ -373,6 +392,14 @@ class ShardedSystem(CapturedCG):
         self.nb = nb
         self.chebyshev_degree = chebyshev_degree
         self.n_smooth = n_smooth
+        # the largest payload one rank sends another in one exchange, in
+        # the levels' widest dtype (no exchanged vector is wider; a wider
+        # one raises): a level's halo rows, its share of the restriction's
+        # sum or of a gather
+        es = max(widest(p) for p in params) * nb
+        self._peer_group(params[-1]["data"].device, max(
+            [es * max(lv.n_sends, default=1) for lv in levels]
+            + [es * lv.rows_per_shard for lv in levels]))
 
     # ------------------------------------------------------------------
     @classmethod
@@ -476,19 +503,13 @@ class ShardedSystem(CapturedCG):
 
     # ---- per-shard primitives (tensors below are this rank's) ---------
     def _halo_gather(self, lvl: ShardedLevel, pl: dict, x_loc):
-        """[per + n_halo, nb]: the local rows, then the halo segments (one
-        send/receive pair per neighbour distance, halo rows only)."""
+        """[per + n_halo, nb]: the local rows, then the halo segments (the
+        rows each neighbour distance needs, one exchange)."""
         if not lvl.deltas:
             return x_loc
-        n, r = self.n_dev, self.rank
-        segs = [x_loc]
-        for t, delta in enumerate(lvl.deltas):
-            buf = x_loc[pl[f"send{t}"]].contiguous()
-            recv = torch.empty_like(buf)
-            exchange(self.group, [(buf, (r + delta) % n, recv,
-                                   (r - delta) % n, t)])
-            segs.append(recv)
-        return torch.cat(segs, dim=0)
+        recvs = self.peer.rows(x_loc, [(d, pl[f"send{t}"])
+                                       for t, d in enumerate(lvl.deltas)])
+        return torch.cat([x_loc, *recvs], dim=0)
 
     def _matvec(self, pl: dict, lvl: ShardedLevel, x_loc):
         xg = self._halo_gather(lvl, pl, x_loc)
@@ -498,9 +519,7 @@ class ShardedSystem(CapturedCG):
     def _dot(self, a, b):
         d = torch.dot(a.reshape(-1), b.reshape(-1))
         if self.n_dev > 1:
-            d = d.reshape(1)
-            dist.all_reduce(d, op=dist.ReduceOp.SUM, group=self.group)
-            d = d[0]
+            d = self.peer.reduce(d.reshape(1))[0]
         return d
 
     def _smooth(self, lvl: ShardedLevel, pl: dict, b_loc, x_loc,
@@ -516,11 +535,8 @@ class ShardedSystem(CapturedCG):
     def _all_gather(self, x_loc):
         if self.n_dev == 1:
             return x_loc
-        out = x_loc.new_empty((self.n_dev * x_loc.shape[0],)
-                              + tuple(x_loc.shape[1:]))
-        dist.all_gather_into_tensor(out, x_loc.contiguous(),
-                                    group=self.group)
-        return out
+        out = self.peer.all_gather(x_loc.contiguous())
+        return out.reshape((-1,) + tuple(x_loc.shape[1:]))
 
     def _restrict(self, pl: dict, fine: ShardedLevel, coarse: ShardedLevel,
                   r_loc):
@@ -532,9 +548,8 @@ class ShardedSystem(CapturedCG):
                                 contrib[pl["children"]])
         part = pl["parent_sum"](contrib)  # [n_rows_pad_c, nb]
         if self.n_dev > 1:
-            dist.all_reduce(part, op=dist.ReduceOp.SUM, group=self.group)
-        per_c = coarse.rows_per_shard
-        return part[self.rank * per_c:(self.rank + 1) * per_c]
+            return self.peer.reduce_scatter(part.contiguous())
+        return part
 
     def _prolong(self, pl: dict, fine: ShardedLevel, xc_loc):
         if fine.nested_transfer:
@@ -582,13 +597,12 @@ class ShardedSystem(CapturedCG):
         return (lambda v: self._matvec(pl, fine, v)), M
 
     def graph_ok(self, b) -> bool:
-        """Whether a solve of ``b`` runs as captured programs
-        (:meth:`_compiled`): a CUDA vector, at world size 1 or on an NCCL
-        group (the programs then hold the halo exchanges, the all-reduced
-        dots, the coarse all-gather and the restriction's all-reduce).
-        gloo and the CPU keep the eager loop."""
-        return (b.device.type == "cuda"
-                and captures_collectives(self.group, self.n_dev))
+        """Whether a solve of ``b`` runs as one device program
+        (:meth:`_compiled`): a CUDA vector, and one rank or an open peer
+        group (``parallel/peer.programs_ok``; the program then holds the
+        peer kernels of the halo rows, the dots, the restriction and the
+        coarse gather).  gloo and the CPU keep the eager loop."""
+        return programs_ok(b, self.n_dev, self.peer)
 
     def _rhs_like(self, dtype):
         """A zero vector of this rank's rows [per, nb] in ``dtype``."""

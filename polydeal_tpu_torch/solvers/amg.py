@@ -205,6 +205,12 @@ class AMG:
     def v_cycle(self, b: torch.Tensor) -> torch.Tensor:
         return self._cycle(self.n_levels - 1, b)
 
+    def close(self) -> None:
+        """Close the captured solves' loops and drop them."""
+        for loop, _, _ in self._loops.values():
+            loop.close()
+        self._loops.clear()
+
     def solve_cg(self, b: torch.Tensor, rtol: float = 1e-9,
                  maxiter: int = 300,
                  capture: bool | None = None) -> CGResult:

@@ -46,18 +46,28 @@ is one CUDA graph built from programs captured by torch:
 Every caller goes through these loops on the card: ``Multigrid.cg_loop``,
 ``AMG.solve_cg``, the monodomain's step and ``steps_scan`` (one program a
 step, launched ``n_steps`` times before the one read) and both sharded
-systems at world size 1.  A sharded system on more than one rank keeps
-:class:`HostFlagCGLoop`, the host's loop over the same captured programs,
-since NCCL's operations across ranks cannot sit in a WHILE body (its
-docstring gives the CUDA error they meet); that is the one rule, fixed
-by the class.
+systems at every world size (their exchanges across ranks are the port's
+own peer kernels, ``parallel/peer.py``: plain kernel nodes a WHILE body
+holds, where NCCL's are not).
+
+Teardown: a program holds raw graph handles and, through ``keep``, the
+captured programs whose pool its nodes run in.  :meth:`LoopProgram.close`
+synchronises the stream it launched on, destroys the executable graph
+and the graph, and only then drops ``keep``; the loops' ``close`` reach
+their programs, and the solvers that cache loops (``Multigrid``, ``AMG``,
+the monodomain's step programs, the sharded systems) have a ``close``
+that reaches their loops.  One ``atexit`` hook closes every program and
+loop still open before torch's CUDA state goes away; after it,
+``__del__`` closes only what is still open, never during a capture.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import gc
 import time
+import weakref
 from typing import Callable
 
 import torch
@@ -73,8 +83,8 @@ from polydeal_tpu_torch.solvers.gmres import (
     gmres_step,
 )
 
-__all__ = ["Program", "capture", "LoopProgram", "CGLoop", "HostFlagCGLoop",
-           "GMRESLoop"]
+__all__ = ["Program", "capture", "LoopProgram", "CGLoop", "GMRESLoop",
+           "close_all"]
 
 
 class Program:
@@ -209,7 +219,8 @@ class LoopProgram:
     """One device program: ``build(chain)`` adds captured programs
     (``chain.child``) and loops (``chain.loop``) in order; the graph is
     instantiated once and :meth:`launch` runs it as one unit on the
-    device's current stream, with no host read."""
+    device's current stream, with no host read.  :meth:`close` frees it
+    (see the module docstring)."""
 
     def __init__(self, build: Callable, device):
         device = torch.device(device)
@@ -217,7 +228,9 @@ class LoopProgram:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
         self._graph, self._exec = ctypes.c_void_p(), ctypes.c_void_p()
+        self._stream = None  # the stream of the last launch
         lib = self._lib = _build.load_library()
+        _LIVE.add(self)
         _check(lib.pd_graph_create(ctypes.byref(self._graph)),
                "creating a device loop")
         self.keep = []  # captured programs and flags the nodes point to
@@ -226,20 +239,45 @@ class LoopProgram:
                                         ctypes.byref(self._exec)),
                "instantiating a device loop")
 
+    @property
+    def closed(self) -> bool:
+        return not (self._exec or self._graph)
+
     def launch(self) -> None:
+        if self.closed:
+            raise RuntimeError("launching a closed device loop")
         with torch.cuda.device(self.device):
+            self._stream = torch.cuda.current_stream(self.device)
             _check(self._lib.pd_graph_launch(
                 self._exec, ctypes.c_void_p(_build.stream_handle(
                     self.device))), "launching a device loop")
 
+    def close(self) -> None:
+        """Synchronise the stream of the last launch, destroy the
+        executable graph and the graph, then drop ``keep`` (the captured
+        programs give their pool back only after that)."""
+        if self.closed:
+            return
+        if self._stream is not None:
+            self._stream.synchronize()
+        exe, graph = self._exec, self._graph
+        self._exec, self._graph = ctypes.c_void_p(), ctypes.c_void_p()
+        if exe:
+            self._lib.pd_graph_exec_destroy(exe)
+        if graph:
+            self._lib.pd_graph_destroy(graph)
+        self.keep = []
+        self._stream = None
+
     def __del__(self):
-        # a program collected while this thread captures another is
-        # destroyed after it (a destroy inside a thread_local capture
-        # would invalidate that capture); an executable graph in flight is
-        # freed when it completes
-        if getattr(self, "_lib", None) is None:
-            return  # the library never loaded: nothing was made
+        # a program still open when collected: closed here, but not while
+        # this thread captures another (a destroy inside a thread_local
+        # capture would invalidate that capture): then after it.  An
+        # executable graph in flight is freed when it completes
+        if getattr(self, "_lib", None) is None or self.closed:
+            return
         _DROPPED.append((self._lib, self._exec, self._graph))
+        self._exec, self._graph = ctypes.c_void_p(), ctypes.c_void_p()
         if not torch.cuda.is_current_stream_capturing():
             while _DROPPED:
                 lib, exe, graph = _DROPPED.pop()
@@ -250,6 +288,38 @@ class LoopProgram:
 
 
 _DROPPED = []  # (library, executable graph, graph) of collected programs
+_LIVE = weakref.WeakSet()  # every LoopProgram made
+_LOOPS = weakref.WeakSet()  # every CGLoop and GMRESLoop made
+
+
+def close_all() -> None:
+    """Close every loop (its programs and captured programs) and device
+    program still open.  ``parallel/sharding.leave_group`` calls it before
+    the process group goes; the ``atexit`` hook before CUDA does."""
+    for loop in list(_LOOPS):
+        loop.close()
+    for prog in list(_LIVE):
+        prog.close()
+
+
+@atexit.register
+def _close_at_exit() -> None:
+    # registered after torch's own hooks (this module imports torch), so
+    # it runs before them; a context already lost (a trapped kernel)
+    # makes the synchronise raise: the destroys are then skipped
+    if not torch.cuda.is_initialized():
+        return
+    try:
+        close_all()
+    except RuntimeError:
+        pass
+
+
+def _sync(device) -> None:
+    """Wait for ``device``'s work before captured programs are dropped
+    (torch then frees each graph and gives its pool back)."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize(device)
 
 
 def _copy_state(dst: CGState, src: CGState) -> None:
@@ -301,6 +371,20 @@ class CGLoop:
         self.last = {}
         self.total = dict.fromkeys(("runs", "iterations", "replays",
                                     "host_reads"), 0)
+        self.closed = False
+        _LOOPS.add(self)
+
+    def close(self) -> None:
+        """Close the device programs, synchronise, then drop the captured
+        programs (their pool goes back to the allocator); the loop runs
+        no more."""
+        if self.closed:
+            return
+        self.closed = True
+        for prog in self._programs.values():
+            prog.close()
+        _sync(self.device)
+        self._programs, self.captured, self.body = {}, [], None
 
     def start_program(self, rhs: Callable,
                       x0: Callable | None = None) -> Program:
@@ -344,6 +428,8 @@ class CGLoop:
         then ``after`` (made at first use; the body is captured at the
         first program)."""
         key = (start, *after)
+        if self.closed:
+            raise RuntimeError("this loop is closed")
         if key not in self._programs:
             self._capture_body()
 
@@ -394,74 +480,6 @@ class CGLoop:
         return self.launch(start)[0]
 
 
-class HostFlagCGLoop(CGLoop):
-    """CG whose loop the host runs: for a body that holds NCCL's
-    operations across ranks (the halo exchange and the all-reduced dots
-    of a system sharded over more than one rank), which no WHILE body can
-    hold.  Across ranks NCCL's send/recv, all_reduce and all-gather each
-    put an event record node, an event wait node and a kernel in the
-    remote memory-sync domain into the capture, and
-    ``cudaGraphInstantiate`` refuses a WHILE program with them in its
-    body ("invalid argument", CUDA error 1: ``tools/while_probe.py
-    --collectives 4``, 4 x NVIDIA H100, torch 2.11, CUDA 12.8, NVIDIA 580
-    kernel module; at world size 1 NCCL runs all_reduce and all-gather as
-    plain copies, which a body may hold).  So the sharded systems on more
-    than one rank keep this loop, and only they
-    (``parallel/sharding.CapturedCG``).
-
-    :meth:`run` replays the start and then the body back to back, and
-    reads the ``active`` flag of body *i* through pinned memory and an
-    event only after it has queued body *i + 1* where more are queued, so
-    the device does not wait for the host inside a solve: it queues as
-    many bodies as the previous solve took, then keeps one ahead.  Bodies
-    queued after convergence are masked: no-ops on the state, counted in
-    ``last["masked"]``; ``host_reads`` counts the event waits.  Every
-    rank's flags come from all-reduced norms, so every rank queues the
-    same bodies."""
-
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        # flags[j]: the state's active after j bodies (0: after the start)
-        self._flags = torch.zeros(self.maxiter + 1, dtype=torch.bool,
-                                  pin_memory=True)
-        self._events = [torch.cuda.Event() for _ in range(self.maxiter + 1)]
-        self.n_pred = 0
-        self.total["masked"] = 0
-
-    def _queue(self, program: Program, j: int) -> None:
-        program.replay()
-        self._flags[j].copy_(self.state.active, non_blocking=True)
-        self._events[j].record()
-
-    def run(self, start: Program) -> int:
-        self._capture_body()
-        with torch.cuda.device(self.device):
-            self._queue(start, 0)
-            queued, n, reads = 0, 0, 0
-            pred = min(self.n_pred, self.maxiter)
-
-            def queue_to(m):
-                nonlocal queued
-                while queued < min(m, self.maxiter):
-                    queued += 1
-                    self._queue(self.body, queued)
-
-            queue_to(pred)
-            while True:
-                self._events[n].synchronize()
-                reads += 1
-                if not bool(self._flags[n]):
-                    break
-                n += 1
-                # body n is needed; past the prediction keep one ahead
-                queue_to(n + 1 if n > pred else n)
-        self.n_pred = n
-        self.last = dict(runs=1, iterations=n, replays=queued,
-                         masked=queued - n, host_reads=reads)
-        _tally(self.total, self.last)
-        return n
-
-
 class GMRESLoop:
     """GMRES(``restart``) (``solvers/gmres``) on static buffers as one
     device program a solve: the reset, then WHILE(go) { the cycle's start,
@@ -499,6 +517,19 @@ class GMRESLoop:
         self.last = {}
         self.total = dict.fromkeys(("runs", "iterations", "replays",
                                     "cycles", "host_reads"), 0)
+        self.closed = False
+        _LOOPS.add(self)
+
+    def close(self) -> None:
+        """As :meth:`CGLoop.close`."""
+        if self.closed:
+            return
+        self.closed = True
+        if self._solve is not None:
+            self._solve[1].close()
+        _sync(self.device)
+        self._solve, self.programs, self.body = None, None, None
+        self.captured = []
 
     def _capture(self) -> None:
         st = self.state
@@ -513,6 +544,8 @@ class GMRESLoop:
     def _program(self):
         """(the reset program, the solve's device program); the reset
         starts from ``x0``, which a solve from zero zeroes."""
+        if self.closed:
+            raise RuntimeError("this loop is closed")
         if self._solve is None:
             if self.programs is None:
                 self._capture()

@@ -789,6 +789,14 @@ class Multigrid:
                     lambda x: x.T.reshape(-1))
         return self.ells[top].matvec, M, lambda v: v, lambda x: x
 
+    def close(self) -> None:
+        """Close the captured solves' loops (``solvers/graphs``) and drop
+        them; a later captured solve captures anew."""
+        for loop in self._loops.values():
+            loop.close()
+        self._loops.clear()
+        self._starts.clear()
+
     def cg_loop(self, rtol: float, maxiter: int, dtype) -> CGLoop:
         """The captured CG of this hierarchy for ``(rtol, maxiter,
         dtype)`` (made at first use): the fine operator, one V-cycle as M,

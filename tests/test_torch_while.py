@@ -23,10 +23,7 @@ On a card (``-m cuda``; the file imports no JAX, so it runs there with
   (no cycle) giving 0 iterations both ways;
 * the monodomain's ``steps_scan`` (n_refinements=3, lex, BDF1 then 4 BDF2
   steps): the eager iterations per step, u within 1e-12, one host read
-  for the four steps;
-* the host's loop kept for systems sharded over more than one rank
-  (``HostFlagCGLoop``) against the device loop: the same iterations and
-  x bitwise, one read an iteration and once more.
+  for the four steps.
 """
 
 import ctypes
@@ -252,28 +249,3 @@ def test_cuda_steps_scan_one_read(cuda):
                              replays=sum(out[True][0][1:]), host_reads=1)
     for a, b in zip(out[True][1:], out[False][1:]):
         assert _rel(a, b) <= 1e-12
-
-
-@pytest.mark.cuda
-def test_cuda_host_flag_loop_matches_the_device_loop(cuda):
-    """The host's loop that systems sharded over more than one rank keep
-    (``HostFlagCGLoop``), on the n=8 flagship's operators: the device
-    loop's iterations and x bitwise; a warm solve queues no masked body
-    and reads the host once an iteration and once more."""
-    from polydeal_tpu_torch.models.flagship import setup_flagship
-
-    fs = setup_flagship(n=8, device=cuda, dtype=torch.float64,
-                        precond_dtype=None)
-    A, M, to_in, _ = fs.mg._fine_layout()
-    b = to_in(fs.b)
-    out = {}
-    for cls in (graphs.CGLoop, graphs.HostFlagCGLoop):
-        loop = cls(A, M, b, rtol=1e-8, maxiter=100)
-        start = loop.start_program(lambda: b)
-        for _ in range(2):
-            n = loop.run(start)
-        out[cls] = (n, loop.state.x.clone(), dict(loop.last))
-    (nd, xd, ld), (nh, xh, lh) = out.values()
-    assert nd == nh > 1 and torch.equal(xd, xh)
-    assert ld["host_reads"] == 1
-    assert lh["masked"] == 0 and lh["host_reads"] == nh + 1

@@ -28,15 +28,37 @@ Answers, and prints as one JSON object (``--out`` writes it too):
   loop whose body holds phase 15 (b)'s collectives (an exchange to self,
   an all_reduce, an all_gather_into_tensor).
 
-With ``--fault``, whether the device programs fault, each case in a
-process of its own (its exit code, its last lines): a plain-torch
-program of oseen's shape (a WHILE of 2 cycles, each a WHILE of 200 steps
-of 500 elementwise kernels) launched untraced and then traced by
-``torch.profiler`` (device records against the kernels it ran), the
-oseen n=64 MG-GMRES and the flat ``ShardedSystem`` (COO Poisson n=64,
-world size 1) device programs untraced (x bitwise alike on every solve)
-and then traced; and ``compute-sanitizer --tool memcheck`` on a small
-plain program and on oseen n=8's, untraced.
+With ``--fault``, whether the solvers' device programs fault, each case
+in a process of its own (its exit code, its last lines): the lex
+flagship's CG (n=64, f32), the oseen n=64 MG-GMRES and the flat
+``ShardedSystem`` (COO Poisson n=64, world size 1) device programs, 3
+solves untraced (x bitwise alike on every solve) and then up to
+``--fault-runs`` (20) solves traced by ``torch.profiler``, each line
+printed as it ends, so the lines before a fault show where it struck
+(``--fault-cases`` picks cases; ``plain`` is a plain-torch program of
+oseen's shape, a WHILE of 2 cycles, each a WHILE of 200 steps of 500
+elementwise kernels, with its device records against the kernels it
+ran).  Every case process leaves its programs to the exit hook
+(``solvers/graphs``), so its exit code shows the teardown too.
+
+With ``--peer N``: the peer route of the sharded solves
+(``parallel/peer.PeerGroup``, ``csrc/peer.cu``) on N cards, one process
+each (rank r on ``cuda:r``, NCCL for setup), or with ``--same-card`` N
+processes on card 0 (joined by gloo): whether each pair of cards can
+access the other's memory (``torch.cuda.can_device_access_peer``);
+whether the buffers' IPC handles open in every rank (route A:
+``cudaMalloc`` buffers, ``cudaIpcGetMemHandle`` / ``cudaIpcOpenMemHandle``;
+the error text where refused); every exchange's kernels against what each
+rank computes alone from every rank's seeded data, bitwise, at the ring's
+64- and 4096-lane shapes (``models/sharded.peer_case``); a WHILE program
+whose body holds a peer reduce, run twice with the same count on every
+rank, its body's node types; the microseconds of one ring exchange (4
+rows, T lanes each way, f32) and of a rank-ordered scalar reduce, as
+captured programs replayed back to back and as a WHILE loop, beside an
+empty kernel node and, across cards, NCCL's send/recv and all-gather
+halo of the same shapes (``halo_costs``).  ``--same-card`` then also
+times ``models/sharded`` at n=8 on two processes of card 0 (the
+candidate (d) of ``chip_smoke.py`` phase 15).
 
 With ``--collectives N`` (N cards, one process each on an NCCL group):
 whether NCCL's all_reduce, all_gather_into_tensor and send/recv across
@@ -57,7 +79,8 @@ launched on a stream) are in ``tools/while_probe.cu``, which this probe
 alone builds (with the loop entries of ``csrc/graph_loop.cu`` it
 includes) into the kernel library's build directory.
 
-    python3 tools/while_probe.py [--fault | --collectives N] [--out FILE]
+    python3 tools/while_probe.py [--fault | --collectives N | --peer N
+        [--same-card]] [--out FILE]
 """
 
 import argparse
@@ -69,7 +92,6 @@ import os
 import subprocess
 import sys
 import tempfile
-import shutil
 import time
 import traceback
 
@@ -835,48 +857,48 @@ def say(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def fault_case(torch, dev, name):
+def fault_case(torch, dev, name, runs):
     """One ``--fault`` case, its progress printed line by line (so that
-    the lines before a fault show where it struck)."""
+    the lines before a fault show where it struck): 3 untraced solves,
+    then ``runs`` traced ones."""
     from polydeal_tpu_torch.ops import _build
 
     _build.load_library()
-    if name.startswith("plain"):
-        small = name == "plain_small"
-        launch, check, kernels = plain_program(
-            torch, dev, 2, 5 if small else 200, 10 if small else 500)
+    if name == "plain":
+        launch, check, kernels = plain_program(torch, dev, 2, 200, 500)
         for i in range(3):
             launch()
             say(case=name, traced=False, launch=i, **check())
-        if small:
-            return 0
-        for i in range(3):
+        for i in range(runs):
             recs, span = traced_ops(torch, launch)
             say(case=name, traced=True, launch=i, device_records=recs,
                 kernels_run=kernels, span_ms=span, **check())
         return 0
-    if name.startswith("oseen"):
+    if name == "lex":
+        from polydeal_tpu_torch.models.flagship import (setup_flagship,
+                                                        solve_flagship)
+
+        fs = setup_flagship(n=64, device=dev)
+        loop = fs.mg.cg_loop(1e-8, 100, torch.float32)
+        solve = lambda: solve_flagship(fs)
+    elif name == "oseen":
         from polydeal_tpu_torch.models import oseen as os_
         from polydeal_tpu_torch.solvers.graphs import GMRESLoop
 
-        n = 8 if name == "oseen_small" else 64
-        space, _, meta = os_.run(n, 2, device=dev)
+        space, _, meta = os_.run(64, 2, device=dev)
         op, rhs = meta["system"]
-        M = os_.oseen_mg_preconditioner(space, op, meta, os_._rectangle(n),
-                                        n, 2)
+        M = os_.oseen_mg_preconditioner(space, op, meta, os_._rectangle(64),
+                                        64, 2)
         A = os_._regularized(space, op, meta)
         loop = GMRESLoop(A, M, rhs, restart=200, rtol=1e-11,
                          max_restarts=40)
         solve = lambda: loop.solve(rhs)
     else:  # flat
         from polydeal_tpu_torch.models.poisson import solve_poisson
-        from polydeal_tpu_torch.parallel.sharding import (ShardedSystem,
-                                                          init_group)
+        from polydeal_tpu_torch.parallel.sharding import ShardedSystem
 
-        group = init_group(0, 1, device=dev, store_path=os.path.join(
-            tempfile.mkdtemp(prefix="while_probe_"), "store"))
         ra = solve_poisson(dim=3, n=64, degree=1, device=dev, verbose=False)
-        ss = ShardedSystem.from_multigrid(ra["mg"], group)
+        ss = ShardedSystem.from_multigrid(ra["mg"], None)
         b = ra["b"]
         del ra
         loop = ss._compiled(1e-9, 100, True, b.dtype)[0]
@@ -884,56 +906,253 @@ def fault_case(torch, dev, name):
         def solve():
             x, k, _ = ss.solve_cg_local(b, rtol=1e-9, maxiter=100)
             return type("R", (), dict(x=x, iterations=k))
-    first = solve()
-    x0 = first.x.clone()
-    untraced = 3 if name in ("flat", "oseen_small") else 10
-    for i in range(untraced):
+    x0 = solve().x.clone()
+    for i in range(3):
         r = solve()
         torch.cuda.synchronize()
         say(case=name, traced=False, solve=i, iterations=r.iterations,
             x_bitwise=bool(torch.equal(r.x, x0)), last=loop.last)
-    if name == "oseen_small":
-        return 0
-    for i in range(2):
+    for i in range(runs):
         got = []
         recs, span = traced_ops(torch, lambda: got.append(solve()))
         say(case=name, traced=True, solve=i, device_records=recs,
             span_ms=span, iterations=got[0].iterations,
             x_bitwise=bool(torch.equal(got[0].x, x0)))
-    return 0
+    return 0  # the programs stay open: the exit hook closes them
 
 
-def fault(timeout=150):
-    """``--fault``: every case in its own process; and memcheck."""
-    me = [sys.executable, os.path.abspath(__file__), "--fault-case"]
-    runs = [(c, me + [c], timeout) for c in ("plain", "oseen", "flat")]
-    san = (shutil.which("compute-sanitizer")
-           or "/usr/local/cuda/bin/compute-sanitizer")
-    runs += [(f"memcheck {c}", [san, "--tool", "memcheck", "--print-limit",
-                                "20", *me, c], limit)
-             for c, limit in (("plain_small", 90), ("oseen_small", 120))]
+def fault(cases, runs, timeout=600):
+    """``--fault``: every case in its own process."""
+    me = [sys.executable, os.path.abspath(__file__), "--fault-runs",
+          str(runs), "--fault-case"]
     out = {}
-    for label, cmd, limit in runs:
+    for c in cases:
         t0 = time.perf_counter()
         try:
-            r = subprocess.run(cmd, capture_output=True, text=True,
-                               timeout=limit)
+            r = subprocess.run(me + [c], capture_output=True, text=True,
+                               timeout=timeout)
             rc, so, se = r.returncode, r.stdout, r.stderr
         except subprocess.TimeoutExpired as e:
             rc, so, se = "timeout", e.stdout or "", e.stderr or ""
             so, se = (t.decode() if isinstance(t, bytes) else t
                       for t in (so, se))
-        except OSError as e:
-            rc, so, se = "not run", "", str(e)
-        out[label] = dict(rc=rc, seconds=time.perf_counter() - t0,
-                          lines=[json.loads(x) for x in so.splitlines()
-                                 if x.startswith("{")],
-                          head=(so + se)[:1500] if rc != 0 else "",
-                          tail=(so + se)[-1500:] if rc != 0 else "")
-        print(label, json.dumps(out[label]), flush=True)
-        if label == "memcheck plain_small" and rc != 0:
-            break  # the tool does not run here: no second attempt
+        lines = [json.loads(x) for x in so.splitlines() if x.startswith("{")]
+        traced = [x for x in lines if x.get("traced")]
+        out[c] = dict(rc=rc, seconds=time.perf_counter() - t0,
+                      traced=len(traced), alike=all(
+                          x.get("x_bitwise", x.get("v_ok")) for x in lines),
+                      lines=lines,
+                      tail=(so + se)[-1500:] if rc != 0 else "")
+        print(c, json.dumps(out[c]), flush=True)
     return out
+
+
+# ---- --peer: the peer route of the sharded solves -------------------------
+
+
+def peer_while(torch, dev, pg, iters=37):
+    """A WHILE program whose body holds a peer reduce: x += (the sum over
+    ranks of 1), iters times; run twice."""
+    from polydeal_tpu_torch.solvers import graphs
+
+    pool = torch.cuda.graph_pool_handle()
+    x = torch.zeros(1, dtype=torch.float64, device=dev)
+    one = torch.ones(1, dtype=torch.float64, device=dev)
+    c = torch.zeros((), dtype=torch.int64, device=dev)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    tests = counter(torch, dev)
+
+    def init(_):
+        x.zero_()
+        c.zero_()
+        flag.copy_(c < iters)
+
+    def body(_):
+        x.add_(pg.reduce(one))
+        c.add_(1)
+        flag.copy_(c < iters)
+
+    pi = graphs.capture(None, init, device=dev, pool=pool)
+    pb = graphs.capture(None, body, device=dev, pool=pool)
+    prog = graphs.LoopProgram(
+        lambda ch: (ch.child(pi), ch.loop(flag, lambda b: b.child(pb),
+                                          tests)), dev)
+    got = []
+    for _ in range(2):
+        tests.zero_()
+        prog.launch()
+        done_or_exit(torch, "peer while", seconds=90.0)
+        got.append((int(c), float(x[0]), int(tests)))
+    prog.close()
+    return dict(runs=got, want=(iters, float(iters * pg.n), iters + 1),
+                ok=all(g == (iters, float(iters * pg.n), iters + 1)
+                       for g in got), body_nodes=node_types(pb.graph))
+
+
+def peer_costs(torch, dev, pg, reps=200):
+    """Microseconds of one ring exchange (4 rows, T lanes each way, f32;
+    T = 64 and 4096) and of a scalar rank-ordered reduce (f64): each a
+    captured program replayed ``reps`` times back to back, and the body
+    of a WHILE loop of ``reps`` iterations; an empty kernel node beside
+    them (the library's empty kernel, ``reps`` in one program)."""
+    from polydeal_tpu_torch.ops import _build
+    from polydeal_tpu_torch.solvers import graphs
+
+    def timed(fn):
+        pg._barrier()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        done_or_exit(torch, "peer costs", seconds=90.0)
+        return ev[0].elapsed_time(ev[1]) / reps * 1e3
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(pg.rank)
+    cases = {f"ring T={T}": (torch.randn((4, 3 * T), generator=gen,
+                                         device=dev), T) for T in (64, 4096)}
+    cases["reduce"] = (torch.ones(1, dtype=torch.float64, device=dev), None)
+    for name, (x, T) in cases.items():
+        pool = torch.cuda.graph_pool_handle()
+        if T is None:
+            keep = torch.zeros_like(x)
+            compute = lambda x=x: pg.reduce(x)
+            commit = lambda s, keep=keep: keep.copy_(s)
+        else:
+            keep = x.new_zeros((4, 2 * T))
+            compute = lambda x=x, T=T: torch.cat(pg.ring(x, T), dim=1)
+            commit = lambda e, keep=keep: keep.copy_(e)
+        c = torch.zeros((), dtype=torch.int64, device=dev)
+        flag = torch.zeros((), dtype=torch.bool, device=dev)
+        pb = graphs.capture(compute, lambda e, commit=commit, c=c, flag=flag:
+                            (commit(e), c.add_(1), flag.copy_(c < reps)),
+                            device=dev, pool=pool)
+        pi = graphs.capture(None, lambda _, c=c, flag=flag: (
+            c.zero_(), flag.copy_(c < reps)), device=dev, pool=pool)
+        pb.graph.replay()  # uploads it, outside the timing
+        row = dict(replayed_us=timed(lambda: [pb.graph.replay()
+                                              for _ in range(reps)]))
+        prog = graphs.LoopProgram(
+            lambda ch, pi=pi, pb=pb, flag=flag: (
+                ch.child(pi), ch.loop(flag, lambda b: b.child(pb),
+                                      counter(torch, dev))), dev)
+        prog.launch()
+        done_or_exit(torch, f"peer {name}", seconds=90.0)
+        row["while_us"] = timed(prog.launch)
+        row["iterations"] = int(c)
+        prog.close()
+        if T is not None:
+            row["bytes_each_way"] = 2 * 4 * T * 4
+            row["bound_us"] = row["bytes_each_way"] / 450e9 * 1e6
+        out[name] = row
+    lib = _build.load_library()
+
+    def empties(_):
+        s = _build.stream_handle(dev)
+        for _ in range(reps):
+            lib.pd_empty_kernel(1, 32, s)
+
+    floor = graphs.capture(None, empties, device=dev,
+                           pool=torch.cuda.graph_pool_handle())
+    floor.graph.replay()
+    out["empty_kernel_us"] = timed(floor.graph.replay)
+    return out
+
+
+def peer_rank(torch, rank, world, store, out_dir, same_card):
+    """One rank of ``--peer``."""
+    from polydeal_tpu_torch.models.sharded import peer_case
+    from polydeal_tpu_torch.ops import _build
+    from polydeal_tpu_torch.parallel.peer import PeerGroup
+    from polydeal_tpu_torch.parallel.sharding import init_group, leave_group
+
+    dev = torch.device("cuda", 0 if same_card else rank)
+    group = init_group(rank, world, device=dev, store_path=store,
+                       backend="gloo" if same_card else None)
+    _build.load_library()
+    res = dict(rank=rank, world=world, same_card=same_card, device=str(dev))
+    path = os.path.join(out_dir, f"peer_rank{rank}.json")
+
+    def report():
+        with open(path, "w") as f:
+            json.dump(res, f)
+
+    report()
+    pg = guarded(lambda: PeerGroup(group, dev, 2 * 4 * 4096 * 8))
+    if isinstance(pg, dict):
+        res["open"] = pg
+    else:
+        res["open"] = dict(ok=True, route="A", buffer_bytes=pg.buffer_bytes)
+        report()
+        res["check"] = {f"T={T}": guarded(lambda T=T: peer_case(
+            dict(kind="peer", C=4, per=3 * T, T=T, m=T, dtype=dt), dev,
+            group)["ranks"][rank]) for T in (64, 4096)
+            for dt in ("float32",)}
+        report()
+        res["while"] = guarded(lambda: peer_while(torch, dev, pg))
+        report()
+        res["costs"] = guarded(lambda: peer_costs(torch, dev, pg))
+        report()
+        res["error_words"] = pg.error()
+        pg.close()
+    if not same_card:
+        res["nccl_halo"] = guarded(lambda: halo_costs(torch, dev, group))
+    report()
+    leave_group()
+    return 0
+
+
+def peer(world, same_card, timeout=300):
+    """``--peer``: ``world`` rank processes; every rank's result, with
+    its exit code and the last lines of a failed one's errors; the cards'
+    peer access; with ``same_card``, ``models/sharded`` at n=8 on two
+    processes of card 0, timed."""
+    import torch
+
+    count = torch.cuda.device_count()
+    res = dict(cards=count, can_access={
+        f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+        for i in range(count) for j in range(count) if i != j})
+    tmp = tempfile.mkdtemp(prefix="while_probe_peer_")
+    cmd = [sys.executable, os.path.abspath(__file__), "--peer", str(world),
+           "--store", os.path.join(tmp, "store"), "--rank-out", tmp]
+    if same_card:
+        cmd.append("--same-card")
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    rcs, errs = [], []
+    for p in procs:
+        try:
+            _, err = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            _, err = p.communicate()
+        rcs.append(p.returncode)
+        errs.append(err[-1500:] if p.returncode else "")
+    res.update(rcs=rcs, errors=[e for e in errs if e], ranks=[])
+    for r in range(world):
+        path = os.path.join(tmp, f"peer_rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                res["ranks"].append(json.load(f))
+    if same_card:
+        t0 = time.perf_counter()
+        try:
+            r = subprocess.run(
+                [sys.executable, "-m", "polydeal_tpu_torch.models.sharded",
+                 "--nproc", "2", "--device", "cuda:0", "--n", "8"],
+                capture_output=True, text=True, timeout=180, cwd=ROOT)
+            lines = r.stdout.strip().splitlines()
+            res["same_card_solve"] = dict(
+                rc=r.returncode, seconds=time.perf_counter() - t0,
+                out=json.loads(lines[-1]) if r.returncode == 0 and lines
+                else None, tail="" if r.returncode == 0
+                else (r.stdout + r.stderr)[-2000:])
+        except subprocess.TimeoutExpired:
+            res["same_card_solve"] = dict(rc="timeout", seconds=180)
+    return res
 
 
 def main(argv=None):
@@ -941,7 +1160,11 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     ap.add_argument("--fault", action="store_true")
     ap.add_argument("--fault-case", default=None)
+    ap.add_argument("--fault-cases", default="lex,oseen,flat")
+    ap.add_argument("--fault-runs", type=int, default=20)
     ap.add_argument("--collectives", type=int, default=0)
+    ap.add_argument("--peer", type=int, default=0)
+    ap.add_argument("--same-card", action="store_true")
     ap.add_argument("--rank", type=int, default=None)
     ap.add_argument("--store", default=None)
     ap.add_argument("--rank-out", default=None)
@@ -952,22 +1175,29 @@ def main(argv=None):
         print("while_probe: needs a CUDA device", file=sys.stderr)
         return 2
     if args.fault_case:
-        return fault_case(torch, torch.device("cuda", 0), args.fault_case)
+        return fault_case(torch, torch.device("cuda", 0), args.fault_case,
+                          args.fault_runs)
+    if args.rank is not None and args.peer:
+        return peer_rank(torch, args.rank, args.peer, args.store,
+                         args.rank_out, args.same_card)
     if args.rank is not None:
         return collectives_rank(torch, args.rank, args.collectives,
                                 args.store, args.rank_out)
-    if args.fault or args.collectives:
+    if args.fault or args.collectives or args.peer:
         res = {"versions": versions(torch)}
         t0 = time.perf_counter()
         probe_library()
         res["probe_build_s"] = time.perf_counter() - t0
-        if args.fault:
-            from polydeal_tpu_torch.ops import _build
+        from polydeal_tpu_torch.ops import _build
 
-            t0 = time.perf_counter()
-            _build.load_library()  # once, for every case's process
-            res["build_s"] = time.perf_counter() - t0
-            res["fault"] = fault()
+        t0 = time.perf_counter()
+        _build.load_library()  # once, for every case's or rank's process
+        res["build_s"] = time.perf_counter() - t0
+        if args.fault:
+            res["fault"] = fault(args.fault_cases.split(","),
+                                 args.fault_runs)
+        elif args.peer:
+            res["peer"] = peer(args.peer, args.same_card)
         else:
             res["collectives"] = collectives(args.collectives)
         return write(res, args.out)
